@@ -5,16 +5,26 @@
 
 Phases, each of which raises on a wrong result (nothing falls back):
   1. environment: torch/CUDA versions and the card (nvidia-smi);
-  2. build every hand-written kernel from the sources in the checkout;
-  3. each kernel vs its plain PyTorch version on the card, exact, at the
-     shape of a 10k-genome index (20,000 rows x 10,240 entries, 32 queries)
-     plus edge rows; kernel, plain, library-call times and the bound;
+  2. build every hand-written kernel from the sources in the checkout, one
+     nvcc per source, all started together;
+  3. the seed kernels vs their plain PyTorch versions on the card, exact, at
+     the shape of a 10k-genome index (20,000 rows x 10,240 entries) plus edge
+     rows (poly-T, saturated rb, empty rows): seed_locate_batch (32
+     queries), seed_locate (one query) and seed_match (hi and lo words, best
+     LCP); kernel, plain, library-call times and the bound;
   4. DeviceSeedMatcher over a synthetic 20,000-mask x 10,240-entry seed
      table vs a numpy bisection oracle;
-  5. end to end: a 200-genome index built with the port's `index` command,
-     40 queries with 3% mutations searched with the device engine on the
-     card and with the host engine; rows equal, every q_from_gNNN top-hits
-     gNNN, and every batch launched the kernel once per bucket.
+  5. phase 4 at real state size: a >= 1 GB resident genome blob (1,000
+     genomes of 4 Mb) with mutated copies of 32 queries planted at 2,048
+     window sites; pseudo_probe and pseudo_chain vs their plain versions,
+     and DevicePseudoAligner.run_batch vs the native oracle;
+  6. end to end: a 200-genome index built with the port's `index` command,
+     40 queries with 3% mutations plus a many-hit set (32 queries planted in
+     16 genomes each) searched with the device engine (phases 2a and 4 on
+     the card) and with the host engine: rows equal, every q_from_gNNN
+     top-hits gNNN, every batch launched each kernel the expected number of
+     times, >= 90% of the windows answered on the card; then single-query
+     `search` with the device matcher.
 Then one `kernels` JSON line, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.  Exits non-zero without a result
 when there is no CUDA device or the package is not beside this script.
@@ -67,6 +77,13 @@ def time_ms(fn, dev, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def to_i32_bits(x):
     """int64 tensor of uint32 values -> int32 tensor of the same bits."""
     import torch
@@ -75,7 +92,7 @@ def to_i32_bits(x):
 
 
 # --------------------------------------------------------------------------
-# phase 3: seed_locate_batch vs its plain version
+# phase 3: seed_locate_batch (B1) and seed_locate (B2) vs their plain versions
 
 
 def seed_locate_case(dev, Mb, E, B, k, seed):
@@ -209,6 +226,227 @@ def phase_kernel(dev, card, Mb, E, B, p, seed, reps):
         f"library_ms={library_ms:.4f} bound_ms={res['bound_ms']:.4f} "
         f"(touched sectors {sector_bytes / 1e6:.1f} MB of {hi.numel() * 4 / 1e6:.1f} MB) "
         f"[{card}]")
+    single = phase_single(dev, card, hi, cnt, qh[:1].contiguous(), qv[:1].contiguous(), hi64,
+                          p, reps)
+    return res, single
+
+
+def phase_single(dev, card, hi, cnt, qh, qv, hi64, p, reps):
+    """seed_locate (B2: the same kernel at B = 1) on the B1 table, with the
+    first query of the batch (drawn entries, poly-T and saturated rows)."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels.seed_locate import (
+        seed_locate, seed_locate_plain, suffix_mask)
+
+    q, v = qh[0], qv[0]
+    max_abs_err = 0
+    for pp in sorted({p, 11, 16}):
+        nh, e0 = seed_locate(hi, cnt, q, v, pp)
+        sync(dev)
+        pn, pe = seed_locate_plain(hi, cnt, q, v, pp)
+        if not (torch.equal(nh, pn) and torch.equal(e0, pe)):
+            raise AssertionError(f"seed_locate != plain at p={pp}")
+        if nh[0] != 3 or nh[1] != 2 or (nh[2:6] != 0).any():
+            raise AssertionError(f"seed_locate edge rows wrong at p={pp}")
+        max_abs_err = max(max_abs_err, int((nh - pn).abs().max()), int((e0 - pe).abs().max()))
+        log(f"[kernel] seed_locate (B=1) p={pp}: kernel == plain on all {nh.numel()} rows "
+            f"({int((nh > 0).sum())} with hits)")
+    nh, e0 = seed_locate(hi, cnt, q, v, p)
+    suf = suffix_mask(p)
+    q64 = (q.long() & 0xFFFFFFFF)[:, None]
+    lb, rb = q64 & (0xFFFFFFFF ^ suf), q64 | suf
+    c = cnt.long()[:, None]
+
+    def library():
+        lo = torch.searchsorted(hi64, lb).clamp(max=c)[:, 0]
+        end = torch.searchsorted(hi64, rb, right=True).clamp(max=c)[:, 0]
+        return torch.where(v, end - lo, 0), torch.where(v, lo, 0)
+
+    ln_, le_ = library()
+    if not (torch.equal(ln_.int(), nh) and torch.equal(le_.int(), e0)):
+        raise AssertionError("library searchsorted disagrees with seed_locate")
+    kernel_ms = time_ms(lambda: seed_locate(hi, cnt, q, v, p), dev, reps)
+    plain_ms = time_ms(lambda: seed_locate_plain(hi, cnt, q, v, p), dev, max(1, reps // 10))
+    library_ms = time_ms(library, dev, reps)
+    sector_bytes, probes = bisection_probe_bytes(hi64, cnt, qh, qv, p)
+    io_bytes = q.numel() * 4 + v.numel() + cnt.numel() * 4 + 2 * nh.numel() * 4
+    bytes_ms = (sector_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * probes / FP32_OPS_PER_S * 1e3
+    res = {"Mb": hi.shape[0], "E": hi.shape[1], "B": 1, "p": p, "equal": True,
+           "max_abs_err": max_abs_err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "sector_bytes": sector_bytes, "probes": probes}
+    log(f"[kernel] seed_locate (B=1) p={p}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} bound_ms={res['bound_ms']:.5f} "
+        f"(touched sectors {sector_bytes / 1e6:.2f} MB) [{card}]")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 3: seed_match (B3) vs its plain version
+
+
+POLY_T16 = 0xFFFFFFFF << 30  # 31-mer: 16 T's then A's
+POLY_T15 = 0x3FFFFFFF << 32  # 15 T's then A's
+PAD62 = 1 << 62  # past every 31-mer: the int64 rows' padding
+
+
+def seed_match_case(dev, Mb, E, k, seed):
+    """Rows of sorted random 31-mers (row 6: runs of 8 entries sharing their
+    hi word), with the poly-T, saturated-rb and empty rows of the B1 case;
+    one query per row: a quarter exact entries, a quarter entries with
+    mutated last bases, the rest random.  Returns the int32-bit tensors
+    (hi, lo [Mb,E], cnt, qh, ql, qv) and the int64 rows and queries."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kmers = torch.randint(0, 1 << 62, (Mb, E), generator=g, device=dev)
+    kmers[6] = (kmers[6] & ~((1 << 30) - 1)).reshape(-1, 8)[:, :1].expand(-1, 8).reshape(-1) \
+        | (kmers[6] & ((1 << 30) - 1))
+    kmers = kmers.sort(dim=1).values
+    cnt = torch.full((Mb,), E, dtype=torch.int32, device=dev)
+    part = torch.rand(Mb, generator=g, device=dev) < 0.1
+    cnt[part] = torch.randint(0, E + 1, (int(part.sum()),), generator=g, device=dev,
+                              dtype=torch.int32)
+    cnt[2:6] = 0
+    kmers[0, :3] = torch.tensor(sorted([POLY_T16, POLY_T16 | 1, POLY_T16 | 0x100]), device=dev)
+    kmers[1, :2] = torch.tensor([POLY_T15 | 3, POLY_T15 | 9], device=dev)
+    cnt[0], cnt[1] = 3, 2
+    lane = torch.arange(E, device=dev)
+    kmers = torch.where(lane[None, :] < cnt[:, None].long(), kmers, PAD62)
+    pick = (torch.rand(Mb, generator=g, device=dev) * cnt.clamp(min=1)).long()
+    drawn = kmers.gather(1, pick[:, None])[:, 0]
+    kind = torch.randint(0, 4, (Mb,), generator=g, device=dev)
+    mut = torch.randint(1, 1 << 20, (Mb,), generator=g, device=dev)
+    rand = torch.randint(0, 1 << 62, (Mb,), generator=g, device=dev)
+    q = torch.where((kind == 0) & (cnt > 0), drawn,
+                    torch.where((kind == 1) & (cnt > 0), drawn ^ mut, rand))
+    q[0], q[1] = POLY_T16 | 0x123, POLY_T15 | 7
+    qv = torch.rand(Mb, generator=g, device=dev) < 0.9
+    qv[:2] = True
+    pad = kmers == PAD62
+    hi = torch.where(pad, 0xFFFFFFFF, kmers >> 30)
+    lo = torch.where(pad, 0xFFFFFFFF, (kmers & ((1 << 30) - 1)) << 2)
+    qh = torch.where(qv, q >> 30, 0)
+    ql = torch.where(qv, (q & ((1 << 30) - 1)) << 2, 0)
+    bits = [to_i32_bits(t).contiguous() for t in (hi, lo, qh, ql)]
+    return bits[0], bits[1], cnt, bits[2], bits[3], qv, kmers, q
+
+
+def match_replay_bytes(kmers, cnt, q, qv, p):
+    """Replay seed_match's three bisections and two neighbour reads per
+    valid row; count the distinct 32-byte hi and lo sectors they read.
+    Returns (sector_bytes, probes)."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
+
+    Mb, E = kmers.shape
+    rows = qv.nonzero().flatten()
+    flat = kmers.reshape(-1)
+    base = rows * E
+    n = cnt.long()[rows]
+    qr = q[rows]
+    qh = qr >> 30
+    suf = suffix_mask(p)
+    hi_pos, lo_pos = [], []
+    probes = 0
+
+    def bisect(lo, hi, val, x, strict, both):
+        nonlocal probes
+        while True:
+            act = lo < hi
+            if not bool(act.any()):
+                return lo
+            mid = (lo + hi) >> 1
+            pos = base + torch.where(act, mid, 0)
+            hi_pos.append(pos[act])
+            if both:
+                lo_pos.append(pos[act])
+            probes += int(act.sum())
+            v = val(flat[pos])
+            right = (v < x) if strict else (v <= x)
+            lo = torch.where(act & right, mid + 1, lo)
+            hi = torch.where(act & ~right, mid, hi)
+
+    hw = lambda v: v >> 30  # noqa: E731  (the hi word of an int64 31-mer)
+    first = bisect(torch.zeros_like(n), n.clone(), hw, qh & (0xFFFFFFFF ^ suf), True, False)
+    end = bisect(first.clone(), n.clone(), hw, qh | suf, False, False)
+    ins = bisect(first.clone(), end.clone(), lambda v: v, qr, True, True)
+    for nb, ok in ((ins - 1, ins > first), (ins, ins < end)):
+        hi_pos.append((base + nb)[ok])
+        lo_pos.append((base + nb)[ok])
+    sectors = sum(int(torch.unique(torch.cat(ps) // (SECTOR // 4)).numel()) if ps else 0
+                  for ps in (hi_pos, lo_pos))
+    return sectors * SECTOR, probes
+
+
+def phase_seed_match(dev, card, Mb, E, p, seed, reps):
+    import torch
+
+    from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
+    from lexicmap_tpu_torch.kernels.seed_match import bit_length, seed_match, seed_match_plain
+
+    k = 31
+    hi, lo, cnt, qh, ql, qv, kmers, q = seed_match_case(dev, Mb, E, k, seed)
+    log(f"[kernel] seed_match: Mb={Mb} E={E}, hi + lo {2 * hi.numel() * 4 / 1e6:.1f} MB")
+    max_abs_err = 0
+    for pp in sorted({p, 11, 16}):
+        got = seed_match(hi, lo, cnt, qh, ql, qv, pp, k)
+        sync(dev)
+        want = seed_match_plain(hi, lo, cnt, qh, ql, qv, pp, k)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            bad = int(sum(((a != b).sum() for a, b in zip(got, want))))
+            raise AssertionError(f"seed_match != plain at p={pp}: {bad} cells differ")
+        if got[0][0] != 3 or got[0][1] != 2 or (got[0][2:6] != 0).any():
+            raise AssertionError(f"seed_match edge rows wrong at p={pp}")
+        max_abs_err = max([max_abs_err] + [int((a - b).abs().max()) for a, b in zip(got, want)])
+        log(f"[kernel] seed_match p={pp}: kernel == plain on all {Mb} rows "
+            f"({int((got[0] > 0).sum())} with hits, {int((got[2] == k).sum())} with LCP k)")
+    got = seed_match(hi, lo, cnt, qh, ql, qv, p, k)
+
+    # library yardstick: one searchsorted of (lb, rb + 1, q) over the int64
+    # 31-mer rows, then the LCP at the two in-range neighbours of q
+    suf = suffix_mask(p)
+    qhi = q >> 30
+    keys = torch.stack([(qhi & (0xFFFFFFFF ^ suf)) << 30,
+                        (((qhi | suf) << 30) | ((1 << 30) - 1)) + 1, q], 1)
+    c = cnt.long()[:, None]
+
+    def lcp_at(i, ok):
+        x = kmers.gather(1, i.clamp(0, E - 1)[:, None])[:, 0] ^ q
+        return torch.where(ok, torch.clamp((62 - bit_length(x)) // 2, max=k), 0)
+
+    def library():
+        idx = torch.minimum(torch.searchsorted(kmers, keys), c)
+        e0, end = idx[:, 0], idx[:, 1]
+        ins = torch.minimum(torch.maximum(idx[:, 2], e0), end)
+        best = torch.maximum(lcp_at(ins - 1, ins > e0), lcp_at(ins, ins < end))
+        return (torch.where(qv, end - e0, 0), torch.where(qv, e0, 0),
+                torch.where(qv, best, 0))
+
+    lib = library()
+    if not all(torch.equal(a.int(), b) for a, b in zip(lib, got)):
+        raise AssertionError("library searchsorted yardstick disagrees with seed_match")
+    kernel_ms = time_ms(lambda: seed_match(hi, lo, cnt, qh, ql, qv, p, k), dev, reps)
+    plain_ms = time_ms(lambda: seed_match_plain(hi, lo, cnt, qh, ql, qv, p, k), dev,
+                       max(1, reps // 10))
+    library_ms = time_ms(library, dev, reps)
+    sector_bytes, probes = match_replay_bytes(kmers, cnt, q, qv, p)
+    io_bytes = 2 * Mb * 4 + Mb + Mb * 4 + 3 * Mb * 4
+    bytes_ms = (sector_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * probes / FP32_OPS_PER_S * 1e3
+    res = {"Mb": Mb, "E": E, "B": 1, "p": p, "equal": True, "max_abs_err": max_abs_err,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "sector_bytes": sector_bytes, "probes": probes}
+    log(f"[kernel] seed_match p={p}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.4f} bound_ms={res['bound_ms']:.5f} "
+        f"(touched sectors {sector_bytes / 1e6:.2f} MB of {2 * hi.numel() * 4 / 1e6:.1f} MB) "
+        f"[{card}]")
     return res
 
 
@@ -316,22 +554,351 @@ def phase_matcher(dev, card, M, E, B, p, seed, reps):
 
 
 # --------------------------------------------------------------------------
-# phase 5: end to end
+# phase 5: phase-4 kernels at real state size
 
 
-def write_genomes(root, n_genomes, n_queries, seed):
+class _Store:
+    """What DeviceGenomeBlob reads of a genome-store batch."""
+
+    def __init__(self, seq2bit, byte_offsets):
+        self.seq2bit = seq2bit
+        self.byte_offsets = byte_offsets
+
+
+def _unpack(b):
+    import numpy as np
+
+    return np.stack([(b >> 6) & 3, (b >> 4) & 3, (b >> 2) & 3, b & 3], 1).reshape(-1)
+
+
+def _pack(c):
+    c = c.reshape(-1, 4)
+    return (c[:, 0] << 6) | (c[:, 1] << 4) | (c[:, 2] << 2) | c[:, 3]
+
+
+def genome_codes(store, g, t0, t1):
+    """Codes [t0, t1] of genome g of a store (MSB-first 2-bit bytes)."""
+    b = int(store.byte_offsets[g])
+    raw = store.seq2bit[b + t0 // 4: b + t1 // 4 + 1]
+    return _unpack(raw)[t0 % 4: t0 % 4 + t1 - t0 + 1]
+
+
+def phase4_case(n_stores, per_store, genome_len, n_queries, n_sites, seed):
+    """Random 2-bit genomes in `n_stores` store batches; `n_queries` random
+    query segments of 1.5-2 kb; a 3%-mutated copy of a query planted at
+    each of `n_sites` sites (every other round of sites reverse-
+    complemented), each site inside a 2-4 kb window.  Returns (stores,
+    queries [codes], windows [(qidx, store, genome, t0, t1, rc)])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nbytes = genome_len // 4
+    stores = [_Store(np.frombuffer(rng.bytes(per_store * nbytes), np.uint8).copy(),
+                     np.arange(per_store + 1, dtype=np.int64) * nbytes)
+              for _ in range(n_stores)]
+    queries = [rng.integers(0, 4, int(L)).astype(np.uint8)
+               for L in rng.integers(1500, 2001, n_queries)]
+    n_gen = n_stores * per_store
+    slot = 8192
+    if (n_sites + n_gen - 1) // n_gen * slot > genome_len:
+        raise ValueError("too many sites for the genomes")
+    windows = []
+    for site in range(n_sites):
+        qi = site % n_queries
+        rc = (site // n_queries) % 2 == 1
+        gg, s = site % n_gen, site // n_gen
+        st, g = stores[gg // per_store], gg % per_store
+        q = queries[qi].copy()
+        pos = rng.integers(0, q.shape[0], int(0.03 * q.shape[0]))
+        q[pos] = rng.integers(0, 4, pos.shape[0])
+        if rc:
+            q = (3 - q)[::-1]
+        fl, fr = (int(x) for x in rng.integers(200, 1000, 2))
+        t0 = s * slot + 1024 - fl + int(rng.integers(0, 64))
+        at = t0 + fl
+        b = int(st.byte_offsets[g])
+        lo, hi = b + at // 4, b + (at + q.shape[0] + 3) // 4
+        codes = _unpack(st.seq2bit[lo:hi])
+        codes[at % 4: at % 4 + q.shape[0]] = q
+        st.seq2bit[lo:hi] = _pack(codes)
+        windows.append((qi, gg // per_store, g, t0, at + q.shape[0] - 1 + fr, rc))
+    return stores, queries, windows
+
+
+def native_rows(cpr, tcodes, begin, end, copt):
+    """The host's exact chain rows of one window (compare_prepare +
+    chain2_backtrack, with align_paths' single-anchor rule), or None."""
+    import numpy as np
+
+    from lexicmap_tpu_torch.native import chain2_backtrack_native, compare_prepare_native
+
+    aq, at, al, _arc, scores, prev = compare_prepare_native(
+        cpr.qk, cpr.qv, tcodes, cpr.opt.min_prefix, cpr.k, begin, end,
+        copt.band_base, copt.band_count, copt.max_gap, qtab=cpr.qtab, bbits=cpr.qtab_bits)
+    n = aq.shape[0]
+    if n == 0:
+        return None
+    if n == 1:
+        s = int(al[0])
+        if s >= copt.min_score and s >= copt.min_align_len:
+            return np.array([[1, s, s, s, aq[0], aq[0] + s - 1, at[0], at[0] + s - 1]],
+                            dtype=np.int64)
+        return None
+    rows, _p, _t = chain2_backtrack_native(aq, at, al, scores, prev, float(copt.min_score),
+                                           copt.min_align_len,
+                                           float(copt.heuristic_kmer_pident_threshold))
+    return rows if rows.shape[0] else None
+
+
+def chain_scan_pairs(fn):
+    """Run `fn` and return the number of predecessor visits the native
+    Chainer2 DP made meanwhile (core.cpp's scan counters)."""
+    import ctypes
+
+    import numpy as np
+
+    from lexicmap_tpu_torch.native import get_lib
+
+    lib = get_lib()
+    lib.get_chain2_scan_stats.argtypes = [ctypes.c_void_p]
+    out = np.zeros(3, dtype=np.int64)
+    lib.get_chain2_scan_stats(out.ctypes.data)  # reset
+    fn()
+    lib.get_chain2_scan_stats(out.ctypes.data)
+    return int(out[0])
+
+
+def same_prefix(a, b, counts, width):
+    """a[w, :counts[w]] == b[w, :counts[w]] for every window w."""
+    import torch
+
+    lane = torch.arange(width, device=a.device)
+    m = lane[None, :] < counts[:, None].long()
+    if a.dim() == 3:
+        m = m[:, :, None].expand_as(a)
+    return bool(torch.equal(torch.where(m, a, 0), torch.where(m, b, 0)))
+
+
+def prefix_err(a, b, counts, width):
+    """max |a - b| over a[w, :counts[w]] for every window w (0 if empty)."""
+    import torch
+
+    lane = torch.arange(width, device=a.device)
+    m = lane[None, :] < counts[:, None].long()
+    if a.dim() == 3:
+        m = m[:, :, None].expand_as(a)
+    d = torch.where(m, (a.long() - b.long()).abs(), 0)
+    return int(d.max()) if d.numel() else 0
+
+
+def compare_pseudo(dev, blob, win, tables, chain_args):
+    """pseudo_probe and pseudo_chain against their plain versions on one
+    batch's inputs (the chain on the probe kernel's anchors).  Returns the
+    kernels' outputs, each kernel's largest |kernel - plain| over counts,
+    flags and every window's compared prefix, and the plain versions' ms.
+    These launches are taken off the kernels' counters."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels import pseudo_align as PA
+
+    n0 = (PA.pseudo_probe.launches, PA.pseudo_chain.launches)
+    probe = PA.pseudo_probe(blob, win, *tables)
+    sync(dev)
+    t0 = time.perf_counter()
+    probe_p = PA.pseudo_probe_plain(blob, win, *tables)
+    probe_plain_ms = (time.perf_counter() - t0) * 1e3
+    chain = PA.pseudo_chain(*probe, *chain_args)
+    sync(dev)
+    t0 = time.perf_counter()
+    chain_p = PA.pseudo_chain_plain(*probe, *chain_args)
+    chain_plain_ms = (time.perf_counter() - t0) * 1e3
+    PA.pseudo_probe.launches, PA.pseudo_chain.launches = n0
+
+    def vec(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    pn = torch.maximum(probe[3], probe_p[3])
+    perr = max([vec(probe[3], probe_p[3]), vec(probe[4], probe_p[4])]
+               + [prefix_err(a, b, pn, PA.A_CAP) for a, b in zip(probe[:3], probe_p[:3])])
+    cerr = max(vec(chain[1], chain_p[1]), vec(chain[2], chain_p[2]),
+               prefix_err(chain[0], chain_p[0], torch.maximum(chain[1], chain_p[1]), PA.C_CAP))
+    return probe, chain, perr, cerr, probe_plain_ms, chain_plain_ms
+
+
+def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, seed, reps):
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch.index.search import SearchOptions
+    from lexicmap_tpu_torch.kernels import pseudo_align as PA
+    from lexicmap_tpu_torch.ops.seqcompare import SeqComparator
+    from lexicmap_tpu_torch.ops.seqcompare import min_prefix_for
+    from lexicmap_tpu_torch.parallel.pseudo_device import DevicePseudoAligner, build_query_table
+    from lexicmap_tpu_torch.parallel.resident import DeviceGenomeBlob
+
+    t0 = time.perf_counter()
+    stores, qcodes, wins = phase4_case(n_stores, per_store, genome_len, 32, n_sites, seed)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = DeviceGenomeBlob(stores, device=dev)
+    sync(dev)
+    blob_s = time.perf_counter() - t0
+    log(f"[phase4] {n_stores * per_store} genomes x {genome_len / 1e6:.1f} Mb: resident blob "
+        f"{blob.hbm_bytes / 1e9:.3f} GB built in {blob_s:.1f} s ({n_stores} store batches; "
+        f"data made in {gen_s:.1f} s); {n_sites} window sites")
+    opts = SearchOptions().seqcompare_options()
+    copt = opts.chaining
+    cprs = []
+    for q in qcodes:
+        cpr = SeqComparator(opts)
+        cpr.index(q)
+        cprs.append(cpr)
+    queries = [(c.qk, c.qv) for c in cprs]
+    windows, geoms, win = [], [], np.zeros((len(wins), 8), dtype=np.int64)
+    for i, (qi, st, g, a, b, rc) in enumerate(wins):
+        codes = genome_codes(stores[st], g, a, b)
+        codes = np.ascontiguousarray((3 - codes)[::-1] if rc else codes, dtype=np.uint8)
+        wb, ph, L = blob.geometry(st, g, a, b, rc, PA.WORDS_OUT)
+        windows.append((qi, codes, 0, qcodes[qi].shape[0] - 1))
+        geoms.append((wb, ph, rc))
+        win[i] = (wb, ph, L, int(rc), qi, 0, qcodes[qi].shape[0] - 1,
+                  min_prefix_for(L, opts.min_prefix))
+    qk, qv, qoff, qtab, ok = build_query_table(queries)
+    tables = [torch.from_numpy(a).to(dev) for a in (qk, qv, qoff, qtab)]
+    win_d = torch.from_numpy(win).to(dev)
+    chain_args = (copt.band_base, copt.band_count, int(copt.max_gap), float(copt.min_score),
+                  copt.min_align_len, float(copt.heuristic_kmer_pident_threshold))
+
+    # kernels vs plain on a sample of windows (both strands)
+    sample = torch.from_numpy(np.sort(np.random.default_rng(seed).choice(
+        len(wins), n_sample, replace=False))).to(dev)
+    ws = win_d[sample].contiguous()
+    probe, chain, probe_err, chain_err, probe_plain_ms, chain_plain_ms = compare_pseudo(
+        dev, blob.words, ws, tables, chain_args)
+    if probe_err or chain_err:
+        raise AssertionError(f"pseudo_probe / pseudo_chain != plain on the sample windows "
+                             f"(max abs err {probe_err} / {chain_err})")
+    log(f"[phase4] pseudo_probe and pseudo_chain == plain on {n_sample} sample windows "
+        f"({int((probe[3] > 0).sum())} with anchors, {int(chain[1].sum())} chain rows, "
+        f"{int((probe[4] != 0).sum() + (chain[2] != 0).sum())} flagged)")
+
+    # kernel times: the sample (the plain versions' shape) and all windows
+    probe_ms = time_ms(lambda: PA.pseudo_probe(blob.words, ws, *tables), dev, reps)
+    chain_ms = time_ms(lambda: PA.pseudo_chain(*probe, *chain_args), dev, reps)
+    full = PA.pseudo_probe(blob.words, win_d, *tables)
+    full_probe_ms = time_ms(lambda: PA.pseudo_probe(blob.words, win_d, *tables), dev, reps)
+    full_chain_ms = time_ms(lambda: PA.pseudo_chain(*full, *chain_args), dev, reps)
+
+    # bounds from this run's data
+    ns = sample.tolist()
+    anchors = int(probe[3].sum())
+    rows_out = int(chain[1].sum())
+    positions = sum(max(int(win[i, 2]) - PA.K + 1, 0) for i in ns)
+    code_bytes = sum((int(win[i, 2]) + 3) // 4 for i in ns)
+    qsel = sorted({int(win[i, 4]) for i in ns})
+    qtab_bytes = len(qsel) * qtab.shape[1] * 4
+    table_bytes = sum(int(qoff[i + 1] - qoff[i]) * 12 for i in qsel)
+    pb_bytes = code_bytes + ws.numel() * 8 + table_bytes + qtab_bytes + anchors * 12 + 8 * n_sample
+    counts = probe[3].tolist()
+    pb_ops = 4 * positions + sum(c * max(1, int(np.log2(max(c, 1)))) for c in counts)
+    pb = (pb_bytes / HBM_BYTES_PER_S * 1e3, pb_ops / FP32_OPS_PER_S * 1e3)
+    scan = chain_scan_pairs(lambda: [native_rows(cprs[wins[i][0]], windows[i][1], 0,
+                                                 qcodes[wins[i][0]].shape[0] - 1, copt)
+                                     for i in ns])
+    ch_bytes = anchors * 12 + rows_out * 64 + 12 * n_sample
+    ch_ops = 10 * scan + 4 * anchors
+    ch = (ch_bytes / HBM_BYTES_PER_S * 1e3, ch_ops / FP32_OPS_PER_S * 1e3)
+    log(f"[phase4] {n_sample} windows ({positions} positions, {anchors} anchors, {scan} DP "
+        f"predecessor visits): pseudo_probe {probe_ms:.4f} ms (plain {probe_plain_ms:.1f} ms, "
+        f"bound {max(pb):.5f} ms by {'bytes' if pb[0] >= pb[1] else 'operations'}), "
+        f"pseudo_chain {chain_ms:.4f} ms (plain {chain_plain_ms:.1f} ms, bound {max(ch):.5f} "
+        f"ms by {'bytes' if ch[0] >= ch[1] else 'operations'}) [{card}]")
+    log(f"[phase4] all {len(wins)} windows in one launch: pseudo_probe {full_probe_ms:.4f} ms, "
+        f"pseudo_chain {full_chain_ms:.4f} ms [{card}]")
+
+    # run_batch on every window vs the native oracle
+    aligner = DevicePseudoAligner(copt.band_base, copt.band_count, int(copt.max_gap),
+                                  copt.min_score, copt.min_align_len, device=dev)
+    aligner.blob = blob
+    t0 = time.perf_counter()
+    res = aligner.run_batch(queries, windows, geoms)
+    run_s = time.perf_counter() - t0
+    n_rows = 0
+    for (qi, codes, b, e), (kind, rows) in zip(windows, res):
+        if kind == "host":
+            continue
+        want = native_rows(cprs[qi], codes, b, e, copt)
+        got = rows if kind == "rows" else None
+        if (want is None) != (got is None) or (got is not None and not np.array_equal(got, want)):
+            raise AssertionError("run_batch rows differ from the native oracle")
+        n_rows += 0 if got is None else got.shape[0]
+    kinds = [r[0] for r in res]
+    host_share = kinds.count("host") / len(kinds)
+    log(f"[phase4] run_batch over {len(kinds)} windows in {run_s * 1e3:.1f} ms: rows == native "
+        f"oracle on every unflagged window ({kinds.count('rows')} rows windows, "
+        f"{kinds.count('none')} none, {kinds.count('host')} host: host share "
+        f"{host_share:.4f}); stats {json.dumps(aligner.stats)}; times "
+        f"{json.dumps(aligner.times)} [{card}]")
+    if host_share > 0.1:
+        raise AssertionError("more than 10% of the phase-4 windows went to the host")
+
+    # the path of a store too large for the card: the same windows packed
+    # and uploaded per launch (no blob) must give the same results
+    up = DevicePseudoAligner(copt.band_base, copt.band_count, int(copt.max_gap),
+                             copt.min_score, copt.min_align_len, device=dev)
+    t0 = time.perf_counter()
+    res_up = up.run_batch(queries, windows)
+    up_s = time.perf_counter() - t0
+    if [r[0] for r in res_up] != kinds or not all(
+            a[1] is None or np.array_equal(a[1], b[1]) for a, b in zip(res, res_up)):
+        raise AssertionError("run_batch with uploaded windows differs from the resident blob's")
+    log(f"[phase4] run_batch with the windows uploaded instead (no resident blob): the same "
+        f"results in {up_s * 1e3:.1f} ms; times {json.dumps(up.times)} [{card}]")
+    res_probe = {"windows": n_sample, "ms": probe_ms, "plain_ms": probe_plain_ms,
+                 "bound_ms": max(pb), "bound_by": "bytes" if pb[0] >= pb[1] else "operations",
+                 "full_windows": len(wins), "full_ms": full_probe_ms, "anchors": anchors,
+                 "positions": positions, "max_abs_err": probe_err}
+    res_chain = {"windows": n_sample, "ms": chain_ms, "plain_ms": chain_plain_ms,
+                 "bound_ms": max(ch), "bound_by": "bytes" if ch[0] >= ch[1] else "operations",
+                 "full_windows": len(wins), "full_ms": full_chain_ms, "dp_visits": scan,
+                 "rows": rows_out, "max_abs_err": chain_err}
+    info = {"host_share": host_share, "blob_bytes": blob.hbm_bytes, "run_batch_s": run_s,
+            "run_batch_upload_s": up_s}
+    del blob, full, probe, chain
+    return res_probe, res_chain, info
+
+
+# --------------------------------------------------------------------------
+# phase 6: end to end
+
+
+def write_genomes(root, n_genomes, n_queries, seed, n_many=32, many_in=16):
     """The 200-genome set of scripts/scale_smoke_gen.py (400-700 kb random
-    genomes), with `n_queries` 1.5 kb queries carrying 3% point mutations."""
+    genomes), with `n_queries` 1.5 kb queries carrying 3% point mutations,
+    and a many-hit set: `n_many` random 1.5 kb queries, each planted with 3%
+    point mutations in `many_in` of the genomes before they are written."""
     import numpy as np
 
     os.makedirs(os.path.join(root, "genomes"))
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     every = max(1, n_genomes // n_queries)
+    lens = rng.integers(400_000, 700_000, n_genomes)
+    many = [acgt[rng.integers(0, 4, 1500)] for _ in range(n_many)]
+    sites: dict[int, list] = {}
+    for qi in range(n_many):
+        for gi in rng.choice(n_genomes, many_in, replace=False):
+            sites.setdefault(int(gi), []).append(qi)
     qrecs = []
     for gi in range(n_genomes):
-        L = int(rng.integers(400_000, 700_000))
-        seq = acgt[rng.integers(0, 4, L)].tobytes()
+        L = int(lens[gi])
+        seq = acgt[rng.integers(0, 4, L)]
+        for j, qi in enumerate(sites.get(gi, [])):  # one 4 kb slot per planted copy
+            frag = many[qi].copy()
+            frag[rng.integers(0, 1500, 45)] = acgt[rng.integers(0, 4, 45)]
+            at = 10_000 + j * 4_000 + int(rng.integers(0, 500))
+            seq[at: at + 1500] = frag
+        seq = seq.tobytes()
         with open(os.path.join(root, "genomes", f"g{gi:03d}.fasta"), "wb") as fh:
             fh.write(b">chr1\n")
             for i in range(0, L, 70):
@@ -346,7 +913,24 @@ def write_genomes(root, n_genomes, n_queries, seed):
     with open(qpath, "wb") as fh:
         for qid, s in qrecs:
             fh.write(f">{qid}\n".encode() + s + b"\n")
-    return qrecs, qpath
+    return qrecs, qpath, [(f"many{qi:02d}", many[qi].tobytes()) for qi in range(n_many)]
+
+
+def reset_launches():
+    from lexicmap_tpu_torch.kernels import pseudo_align, seed_locate, seed_match
+
+    for fn in (seed_locate.seed_locate_batch, seed_locate.seed_locate, seed_match.seed_match,
+               pseudo_align.pseudo_probe, pseudo_align.pseudo_chain):
+        fn.launches = 0
+
+
+def launch_counts():
+    from lexicmap_tpu_torch.kernels import pseudo_align, seed_locate, seed_match
+
+    return {fn.__name__: fn.launches
+            for fn in (seed_locate.seed_locate_batch, seed_locate.seed_locate,
+                       seed_match.seed_match, pseudo_align.pseudo_probe,
+                       pseudo_align.pseudo_chain)}
 
 
 def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
@@ -355,13 +939,14 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
 
     from lexicmap_tpu_torch import cli
     from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
-    from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
+    from lexicmap_tpu_torch.parallel.pseudo_device import W_CHUNK
     from lexicmap_tpu_torch.utils.kmers import seq_to_codes
 
     t0 = time.perf_counter()
-    qrecs, qpath = write_genomes(tmp, n_genomes, n_queries, seed)
-    log(f"[e2e] generated {n_genomes} genomes, {len(qrecs)} queries in "
-        f"{time.perf_counter() - t0:.1f} s")
+    many_in = min(16, n_genomes)
+    qrecs, qpath, many = write_genomes(tmp, n_genomes, n_queries, seed, many_in=many_in)
+    log(f"[e2e] generated {n_genomes} genomes, {len(qrecs)} queries and {len(many)} many-hit "
+        f"queries in {time.perf_counter() - t0:.1f} s")
     db = os.path.join(tmp, "idx.lmt")
     t0 = time.perf_counter()
     rc = cli.main(["index", "--quiet", "-I", os.path.join(tmp, "genomes"), "-O", db, "-b", "25"])
@@ -372,49 +957,126 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
     seqs = [s for _, s in qrecs]
     ids = [qid for qid, _ in qrecs]
 
-    def rows(results):
-        return [list(cli.format_hit_rows(qid, len(s), r)) for qid, s, r in zip(ids, seqs, results)]
+    def rows(results, names, qs):
+        return [list(cli.format_hit_rows(qid, len(s), r)) for qid, s, r in zip(names, qs, results)]
 
     host = IndexSearcher(db, SearchOptions(engine="host"))
     t0 = time.perf_counter()
     dev_idx = IndexSearcher(db, SearchOptions(engine="device", device=str(dev)))
+    host_rows = rows(host.search_many(seqs), ids, seqs)  # warm: mmap pages, native library
+    dev_idx.search_many(seqs)  # warm: kernel libraries, resident blob
     init_s = time.perf_counter() - t0
-    log(f"[e2e] {dev_idx.device_matcher.describe()}; init {init_s:.1f} s")
-    host_rows = rows(host.search_many(seqs))  # warm: mmap pages, native library
-    dev_idx.search_many(seqs)  # warm: kernel library
     eng = dev_idx._device_engine
+    if eng.blob is None:
+        raise AssertionError("the 200-genome store must be resident on the card")
+    log(f"[e2e] {dev_idx.device_matcher.describe()}; resident genome blob "
+        f"{eng.blob.hbm_bytes / 1e6:.1f} MB; init + warm pass {init_s:.1f} s")
     for key in eng.times:
         eng.times[key] = 0.0
+    for key in eng.pseudo.stats:
+        eng.pseudo.stats[key] = 0
 
-    def timed(idx):
+    def timed(idx, qs):
         t0 = time.perf_counter()
-        res = idx.search_many(seqs)
+        res = idx.search_many(qs)
         if dev.type == "cuda":
-            torch.cuda.synchronize()
+            sync(dev)
         return res, time.perf_counter() - t0
 
-    # `rounds` rounds of (host, device, device, host) passes, so drift of
-    # the host clock hits both engines alike; the host engine launches no
-    # kernel, so the count covers exactly the device engine's passes
-    host_s, dev_s = [], []
-    seed_locate_batch.launches = 0  # the main path's run starts here
-    for _ in range(rounds):
-        host_s.append(timed(host)[1])
-        dev_results, s1 = timed(dev_idx)
-        _, s2 = timed(dev_idx)
-        dev_s += [s1, s2]
-        host_s.append(timed(host)[1])
-    launches = seed_locate_batch.launches  # ... and ends here
-    dev_rows = rows(dev_results)
+    # the inputs of the main path's first phase-4 launch and of the many-hit
+    # batch's, kept to hold the kernels against their plain versions there
+    from lexicmap_tpu_torch.parallel import pseudo_device as PD
+
+    recorded, keep, real_probe = [], ["main path, first batch"], PD.pseudo_probe
+
+    def recording_probe(*a):
+        if len(recorded) < len(keep):
+            recorded.append((keep[len(recorded)], a))
+        return real_probe(*a)
+
+    PD.pseudo_probe = recording_probe
+    try:
+        # `rounds` rounds of (host, device, device, host) passes, so drift
+        # of the host clock hits both engines alike; the host engine
+        # launches no kernel, so the counts cover exactly the device
+        # engine's passes
+        host_s, dev_s = [], []
+        reset_launches()  # the main path's run starts here
+        for _ in range(rounds):
+            host_s.append(timed(host, seqs)[1])
+            dev_results, s1 = timed(dev_idx, seqs)
+            _, s2 = timed(dev_idx, seqs)
+            dev_s += [s1, s2]
+            host_s.append(timed(host, seqs)[1])
+        launches = launch_counts()  # ... and ends here
+        stats, times, ptimes = dict(eng.pseudo.stats), dict(eng.times), dict(eng.pseudo.times)
+
+        # the many-hit set: each query planted in 16 genomes, hundreds of
+        # windows in one batch
+        keep.append("many-hit batch")
+        mids, mseqs = [m[0] for m in many], [m[1] for m in many]
+        mhost, mh_s = timed(host, mseqs)
+        w0, l0 = eng.pseudo.stats["windows"], launch_counts()
+        mdev, md_s = timed(dev_idx, mseqs)
+        ml = launch_counts()
+    finally:
+        PD.pseudo_probe = real_probe
+    mwin = eng.pseudo.stats["windows"] - w0
+    dev_rows = rows(dev_results, ids, seqs)
+
+    # the many-hit set again, in turns: host engine, device engine, and the
+    # device engine with its phase 5 run per genome instead of in the one
+    # threaded native call (LEXICMAP_TPU_NO_BATCH)
+    many_s = {"host": [mh_s], "device": [md_s], "device_per_genome": []}
+    for name in ("device_per_genome", "device_per_genome", "device", "host"):
+        if name == "device_per_genome":
+            os.environ["LEXICMAP_TPU_NO_BATCH"] = "1"
+        try:
+            got, s = timed(host if name == "host" else dev_idx, mseqs)
+        finally:
+            os.environ.pop("LEXICMAP_TPU_NO_BATCH", None)
+        if rows(got, mids, mseqs) != rows(mhost, mids, mseqs):
+            raise AssertionError(f"many-hit set: {name} rows differ from the host rows")
+        many_s[name].append(s)
+
+    # pseudo_probe and pseudo_chain against their plain versions on the
+    # batches the main path gave them
+    p = eng.pseudo
+    chain_args = (p.band_base, p.band_count, p.max_gap, p.min_score, p.min_align_len,
+                  PD.HEURISTIC_PIDENT)
+    main_err = {"pseudo_probe": 0, "pseudo_chain": 0}
+    if len(recorded) != len(keep):
+        raise AssertionError(f"recorded {len(recorded)} phase-4 launches, expected {len(keep)}")
+    for label, (blob_w, win, *tables) in recorded:
+        probe, chain, perr, cerr, _, _ = compare_pseudo(dev, blob_w, win, tables, chain_args)
+        if perr or cerr:
+            raise AssertionError(f"{label}: pseudo_probe / pseudo_chain != plain "
+                                 f"(max abs err {perr} / {cerr})")
+        main_err["pseudo_probe"] = max(main_err["pseudo_probe"], perr)
+        main_err["pseudo_chain"] = max(main_err["pseudo_chain"], cerr)
+        log(f"[e2e] {label}: pseudo_probe and pseudo_chain == plain on its {win.shape[0]} "
+            f"windows ({int((probe[3] > 0).sum())} with anchors, {int(chain[1].sum())} "
+            f"chain rows)")
+    del recorded
 
     if dev_rows != host_rows:
         bad = [ids[i] for i in range(len(ids)) if dev_rows[i] != host_rows[i]]
         raise AssertionError(f"device rows differ from host rows for {bad}")
     n_buckets = len(dev_idx.device_matcher.buckets)
-    want_launches = len(dev_s) * -(-len(seqs) // 32) * n_buckets  # batches of 32 queries
-    if dev.type == "cuda" and launches != want_launches:
-        raise AssertionError(f"the main path launched seed_locate_batch {launches} times, "
-                             f"expected {want_launches} (one per bucket per batch)")
+    batches = len(dev_s) * -(-len(seqs) // 32)  # batches of 32 queries
+    per_batch = stats["windows"] / batches
+    if dev.type == "cuda":
+        if launches["seed_locate_batch"] != batches * n_buckets:
+            raise AssertionError(f"the main path launched seed_locate_batch "
+                                 f"{launches['seed_locate_batch']} times, expected "
+                                 f"{batches * n_buckets} (one per bucket per batch)")
+        # each batch has windows, fewer than W_CHUNK: one launch of each
+        if per_batch >= W_CHUNK or not (launches["pseudo_probe"] == launches["pseudo_chain"]
+                                        == batches):
+            raise AssertionError(f"phase-4 launches {launches}, expected {batches} each")
+    device_share = stats["device_windows"] / max(stats["windows"], 1)
+    if device_share < 0.9:
+        raise AssertionError(f"only {device_share:.1%} of the windows were answered on the card")
     for qid, r in zip(ids, dev_results):
         want = qid.split("_")[-1]
         if not r or r[0].genome_id.decode() != want:
@@ -423,22 +1085,64 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
     dev_qpm = [n / t * 60 for t in dev_s]
     host_qpm = [n / t * 60 for t in host_s]
     log(f"[e2e] device rows == host rows ({sum(map(len, dev_rows))} rows), all {n} "
-        f"queries top-hit their genome; launches={launches} in {len(dev_s)} passes "
-        f"(one per bucket per batch)")
+        f"queries top-hit their genome; launches {json.dumps(launches)} in {len(dev_s)} passes "
+        f"({batches} batches)")
+    log(f"[e2e] phase 4 on the card: {stats['device_windows']} of {stats['windows']} windows "
+        f"answered there ({device_share:.4f}), {per_batch:.1f} windows per batch; stats "
+        f"{json.dumps(stats)}; aligner times (s) {json.dumps(ptimes)}")
     log(f"[e2e] q/min per pass: device {dev_qpm}, host {host_qpm} [{card}]")
     log(f"[e2e] q/min median (min-max) over {len(dev_s)} passes of {n} queries each: "
         f"device {np.median(dev_qpm):.1f} ({min(dev_qpm):.1f}-{max(dev_qpm):.1f}), "
         f"host {np.median(host_qpm):.1f} ({min(host_qpm):.1f}-{max(host_qpm):.1f})")
-    log("[e2e] phase4: host")
-    log(f"[e2e] device engine times over {len(dev_s)} passes (s): {json.dumps(eng.times)}")
+    log(f"[e2e] device engine times over {len(dev_s)} passes (s): {json.dumps(times)}")
+
+    if rows(mdev, mids, mseqs) != rows(mhost, mids, mseqs):
+        raise AssertionError("many-hit set: device rows differ from host rows")
+    if dev.type == "cuda" and ml["pseudo_probe"] - l0["pseudo_probe"] != 1:
+        raise AssertionError("many-hit set: expected one pseudo_probe launch for its batch")
+    mrows = sum(len(r) for r in rows(mdev, mids, mseqs))
+    log(f"[e2e] many-hit set ({len(mseqs)} queries x {many_in} planted genomes): device rows == host "
+        f"rows ({mrows} rows, {mwin} windows in one batch); seconds per pass, in the order "
+        f"run: {json.dumps(many_s)} [{card}]")
+    if mrows < len(mseqs) * many_in:
+        raise AssertionError("many-hit set: fewer rows than planted copies")
+
+    # an engine whose genome store is over its device budget: the same
+    # kernels read each batch's windows packed and uploaded
+    from lexicmap_tpu_torch.parallel.engine import DeviceSearchEngine
+
+    up = DeviceSearchEngine(dev_idx, hbm_budget=0)
+    saved, dev_idx._device_engine = dev_idx._device_engine, up
+    try:
+        up_rows, up_s = timed(dev_idx, seqs)
+    finally:
+        dev_idx._device_engine = saved
+    up_share = up.pseudo.stats["device_windows"] / max(up.pseudo.stats["windows"], 1)
+    if up.blob is not None or rows(up_rows, ids, seqs) != host_rows or up_share < 0.9:
+        raise AssertionError(f"store over budget: rows differ or {up_share:.1%} on the card")
+    log(f"[e2e] store over the device budget (windows uploaded per batch): rows == host rows, "
+        f"{up_share:.4f} of {up.pseudo.stats['windows']} windows on the card, one pass "
+        f"{up_s:.3f} s [{card}]")
 
     # the kernel vs its plain version at the shapes the main path gives it
     batch = np.stack([dev_idx._mask_query(seq_to_codes(s.upper()))[0] for s in seqs[:32]])
     shapes = check_main_path_shapes(dev, card, dev_idx, batch)
 
+    # single-query search with the device matcher: seed_locate (B2) per bucket
+    reset_launches()  # the single-query path's run starts here
+    one = [dev_idx.search(seq_to_codes(s.upper())) for s in seqs[:8]]
+    single_launches = launch_counts()["seed_locate"]  # ... and ends here
+    if rows(one, ids[:8], seqs[:8]) != host_rows[:8]:
+        raise AssertionError("single-query search rows differ from the host rows")
+    if dev.type == "cuda" and single_launches != 8 * n_buckets:
+        raise AssertionError(f"single-query search launched seed_locate {single_launches} "
+                             f"times, expected {8 * n_buckets}")
+    log(f"[e2e] single-query search x 8: rows == host rows; seed_locate launches "
+        f"{single_launches} (8 queries x {n_buckets} buckets)")
+
     # the CLI, as a user runs it: same TSV as the host engine's rows
     out = os.path.join(tmp, "dev.tsv")
-    l0 = seed_locate_batch.launches
+    reset_launches()
     rc = cli.main(["search", "--quiet", "-d", db, qpath, "-o", out, "--engine", "device",
                    "--device", str(dev)])
     if rc != 0:
@@ -447,12 +1151,18 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
         tsv = fh.read().splitlines()[1:]
     if tsv != [r for rr in host_rows for r in rr]:
         raise AssertionError("cli search --engine device TSV differs from the host rows")
-    if dev.type == "cuda" and seed_locate_batch.launches == l0:
-        raise AssertionError("cli search launched no kernel")
-    log(f"[e2e] cli search --engine device: TSV == host rows ({len(tsv)} rows)")
-    return {"launches": launches, "dev_qpm": dev_qpm, "host_qpm": host_qpm,
-            "times": dict(eng.times), "rows": sum(map(len, dev_rows)), "shapes": shapes,
-            "hbm_bytes": dev_idx.device_matcher.hbm_bytes}
+    cli_launches = launch_counts()
+    if dev.type == "cuda" and not (cli_launches["seed_locate_batch"]
+                                   and cli_launches["pseudo_probe"]):
+        raise AssertionError(f"cli search launched {cli_launches}")
+    log(f"[e2e] cli search --engine device: TSV == host rows ({len(tsv)} rows); "
+        f"launches {json.dumps(cli_launches)}")
+    return {"launches": launches, "single_launches": single_launches, "dev_qpm": dev_qpm,
+            "host_qpm": host_qpm, "times": times, "rows": sum(map(len, dev_rows)),
+            "shapes": shapes, "hbm_bytes": dev_idx.device_matcher.hbm_bytes,
+            "main_path_err": main_err,
+            "device_share": device_share, "windows_per_batch": per_batch,
+            "many_hit": {"rows": mrows, "windows": mwin, "seconds": many_s}}
 
 
 def check_main_path_shapes(dev, card, idx, kmers):
@@ -513,7 +1223,6 @@ def main() -> int:
         print("chip_smoke: lexicmap_tpu_torch is not beside this script", file=sys.stderr)
         return 1
     from lexicmap_tpu_torch.kernels import build
-    from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
 
     t_all = time.perf_counter()
     dev = torch.device("cuda")
@@ -522,34 +1231,64 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, card: {card}")
 
     t0 = time.perf_counter()
-    libs = build.build(["seed_locate"])
-    log(f"[build] {len(libs)} kernel(s) built with nvcc in {time.perf_counter() - t0:.1f} s")
+    libs = build.build(["seed_locate", "seed_match", "pseudo_align"])
+    log(f"[build] {len(libs)} kernel sources built with nvcc in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    kres = phase_kernel(dev, card, Mb=20_000, E=10_240, B=32, p=15, seed=args.seed, reps=20)
+    kres, sres = phase_kernel(dev, card, Mb=20_000, E=10_240, B=32, p=15, seed=args.seed,
+                              reps=20)
+    torch.cuda.empty_cache()
+    bres = phase_seed_match(dev, card, Mb=20_000, E=10_240, p=15, seed=args.seed + 3, reps=20)
     torch.cuda.empty_cache()
     mres = phase_matcher(dev, card, M=20_000, E=10_240, B=32, p=15, seed=args.seed, reps=5)
+    torch.cuda.empty_cache()
+    pres, cres, p4 = phase_pseudo(dev, card, n_stores=4, per_store=250, genome_len=4 << 20,
+                                  n_sites=2048, n_sample=256, seed=args.seed + 5, reps=5)
+    if p4["blob_bytes"] < 1e9:
+        raise AssertionError("the phase-4 blob must hold at least 1 GB")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
                                 args.rounds)
 
-    kernels = [{
-        "name": "seed_locate_batch", "route": "cuda",
-        "source": "lexicmap_tpu_torch/csrc/seed_locate.cu",
-        "replaces": "lexicmap_tpu/parallel/pallas_kernels.py:119",
-        "launches": eres["launches"], "equal": kres["equal"],
-        "max_abs_err": kres["max_abs_err"], "ms": kres["kernel_ms"],
-        "kernel_ms": kres["kernel_ms"], "plain_ms": kres["plain_ms"],
-        "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
-        "library_ms": kres["library_ms"],
-        "shape": {"Mb": kres["Mb"], "E": kres["E"], "B": kres["B"], "p": kres["p"]},
-        "main_path_shapes": eres["shapes"],
-    }]
+    def seed_row(name, source, replaces, res, launches, extra=None):
+        return {"name": name, "route": "cuda", "source": f"lexicmap_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "equal": res["equal"],
+                "max_abs_err": res["max_abs_err"], "ms": res["kernel_ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+                "shape": {"Mb": res["Mb"], "E": res["E"], "B": res["B"], "p": res["p"]},
+                **(extra or {})}
+
+    def pseudo_row(name, replaces, res):
+        err = max(res["max_abs_err"], eres["main_path_err"][name])
+        return {"name": name, "route": "cuda",
+                "source": "lexicmap_tpu_torch/csrc/pseudo_align.cu", "replaces": replaces,
+                "launches": eres["launches"][name], "equal": err == 0, "max_abs_err": err,
+                "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None,
+                "shape": {"windows": res["windows"], "full_windows": res["full_windows"],
+                          "full_ms": res["full_ms"]}}
+
+    kernels = [
+        seed_row("seed_locate_batch", "seed_locate.cu",
+                 "lexicmap_tpu/parallel/pallas_kernels.py:119", kres,
+                 eres["launches"]["seed_locate_batch"], {"main_path_shapes": eres["shapes"]}),
+        seed_row("seed_locate", "seed_locate.cu", "lexicmap_tpu/parallel/pallas_kernels.py:79",
+                 sres,
+                 eres["single_launches"]),
+        seed_row("seed_match", "seed_match.cu", "lexicmap_tpu/parallel/pallas_kernels.py:205",
+                 bres, 0),
+        pseudo_row("pseudo_probe", "lexicmap_tpu/parallel/pseudo_device.py:196", pres),
+        pseudo_row("pseudo_chain", "lexicmap_tpu/parallel/pseudo_device.py:464", cres),
+    ]
     log(f"[summary] matcher {json.dumps(mres)}")
-    log(f"[summary] e2e q/min device {eres['dev_qpm']} host {eres['host_qpm']}; "
-        f"total {time.perf_counter() - t_all:.1f} s")
-    if seed_locate_batch.launches == 0:
-        raise AssertionError("no kernel launch in this run")
+    log(f"[summary] phase4 {json.dumps(p4)}")
+    log(f"[summary] e2e q/min device {eres['dev_qpm']} host {eres['host_qpm']}; many-hit "
+        f"{json.dumps(eres['many_hit'])}; total {time.perf_counter() - t_all:.1f} s")
+    on_path = ("seed_locate_batch", "pseudo_probe", "pseudo_chain")
+    if not all(eres["launches"][n] for n in on_path) or not eres["single_launches"]:
+        raise AssertionError(f"a kernel of the path was not launched: {eres['launches']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,10 @@
     python -m lexicmap_tpu_torch.cli index -O db.lmt genomes/*.fa.gz
     python -m lexicmap_tpu_torch.cli search -d db.lmt q.fasta -o out.tsv
 
-`search --engine device` (the default) matches seeds on the GPU through the
-CUDA seed-locate kernel; `--device cpu` runs the kernel's plain PyTorch twin
-instead, and `--engine host` the host bisection.  The TSV is byte-compatible
+`search --engine device` (the default) matches seeds (phase 2a) and
+pseudo-aligns candidate windows (phase 4) on the GPU through the CUDA
+kernels; `--device cpu` runs the kernels' plain PyTorch twins instead, and
+`--engine host` the host engine.  The TSV is byte-compatible
 with the reference's 20/24-column search output (ref: search.go:427-519).
 """
 
@@ -372,13 +373,13 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--show-sseq-idx", action="store_true")
     ps.add_argument(
         "--engine", choices=["host", "device"], default="device",
-        help="seed matching: the CUDA seed-locate kernel (device, the "
-        "default) or host bisection",
+        help="seed matching and pseudo-alignment: the CUDA kernels (device, "
+        "the default) or the host engine",
     )
     ps.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="where the device engine runs: the GPU (default) or the CPU "
-        "(the kernel's plain PyTorch twin)",
+        "(the kernels' plain PyTorch twins)",
     )
     ps.add_argument("--debug", action="store_true", help="per-phase timings")
     ps.add_argument("-J", "--max-query-conc", type=int, default=1)

@@ -1,7 +1,9 @@
 // Batched >=p-prefix seed locate for NVIDIA Hopper (sm_90a).
 //
 // Replaces lexicmap_tpu/parallel/pallas_kernels.py::seed_locate_batch_pallas
-// (body _seed_locate_kernel).  For every query b and packed table row m:
+// (body _seed_locate_kernel) and, launched at B = 1, ::seed_locate_pallas
+// (the same body for one query; kernels/seed_locate.py::seed_locate).  For
+// every query b and packed table row m:
 //
 //     suf = 2^(32-2p) - 1,  lb = qhi & ~suf,  rb = qhi | suf
 //     e0[b,m]     = #{e < cnt[m] : hi[m,e] <  lb}

@@ -784,10 +784,12 @@ class IndexSearcher:
         return windows, metas, trec
 
     def _align_prepare_native(self, qcodes, hit: GenomeHit, anchors: Anchors, paths, cpr,
-                              pseudo=None):
+                              pseudo=None, wins=None):
         """Stage 1 of the fused native phase 5: prepare the per-genome
         align_paths argument pack (target windows, metas, injected device
-        pseudo-align rows).  Returns NotImplemented (no native lib), None
+        pseudo-align rows).  wins: this genome's _path_windows result when
+        the caller already extracted it (the device engine's phase 4).
+        Returns NotImplemented (no native lib), None
         (no target record), or a ctx dict consumed by _align_spans_native /
         _align_finish_native.  Split out so the device engine can batch the
         WFA spans of EVERY genome of EVERY query in a batch into one device
@@ -801,7 +803,9 @@ class IndexSearcher:
         k = self.k
         qlen = qcodes.shape[0]
 
-        windows, metas, trec = self._path_windows(qcodes, hit, anchors, paths)
+        if wins is None:
+            wins = self._path_windows(qcodes, hit, anchors, paths)
+        windows, metas, trec = wins
         if trec is None:
             return None
 
@@ -971,7 +975,7 @@ class IndexSearcher:
         return hit
 
     def _align_genome_native(self, qcodes, hit: GenomeHit, anchors: Anchors, paths, cpr,
-                             pseudo=None):
+                             pseudo=None, wins=None):
         """Fused native phase 4: one C call per genome runs pseudo-alignment,
         contig assignment, dedup, extension, WFA and scoring for every chain
         window (core.cpp align_paths).  Composition of the prepare / spans /
@@ -979,9 +983,10 @@ class IndexSearcher:
         the WFA spans of a whole query batch into one device dispatch.
         pseudo: optional device pseudo-align results, one entry per sorted
         path: ('rows', int64 [C, 8]) | ('none', None) | ('host', None).
+        wins: the genome's _path_windows result, when already extracted.
         Same semantics as the loop in _align_genome (ref: falin,
         lib-index-search.go:1845-2720)."""
-        ctx = self._align_prepare_native(qcodes, hit, anchors, paths, cpr, pseudo)
+        ctx = self._align_prepare_native(qcodes, hit, anchors, paths, cpr, pseudo, wins)
         if ctx is NotImplemented:
             return NotImplemented
         if ctx is None:
@@ -997,20 +1002,26 @@ class IndexSearcher:
                 ops_lists = self.device_wfa.align_batch(pairs)
         return self._align_finish_native(qcodes, hit, ctx, ops_lists)
 
-    def _phase4_batch_native(self, qcodes, hits, cpr, threads=0):
+    def _phase4_batch_native(self, qcodes, hits, cpr, threads=0, pseudo_map=None,
+                             wins_map=None):
         """MANY-HIT phase 4: prepare every genome's align_paths argument
         pack, then run ONE threaded native call for the whole genome set
         (native/core.cpp::align_paths_batch).  Bit-identical to the
         per-genome loop (same align_paths core per genome).  Rare per-genome
         overflow / WFA-failure slots are retried via the per-genome paths.
+        pseudo_map / wins_map: per hit index, the device engine's chain rows
+        and extracted windows (see _phase4_assemble).
         Returns the results list, or None when the native path is
         unavailable (caller falls back)."""
         from ..native import align_paths_batch_native
 
+        pseudo_map = pseudo_map or {}
+        wins_map = wins_map or {}
         ctxs = []
-        for hit, anchors, paths in hits:
+        for i, (hit, anchors, paths) in enumerate(hits):
             paths = sorted(paths, key=lambda p: int(anchors.tbegin[p[0]]))
-            ctx = self._align_prepare_native(qcodes, hit, anchors, paths, cpr)
+            ctx = self._align_prepare_native(qcodes, hit, anchors, paths, cpr,
+                                             pseudo_map.get(i), wins_map.get(i))
             if ctx is NotImplemented:
                 return None
             ctxs.append(ctx)  # may be None (missing target record)
@@ -1018,7 +1029,8 @@ class IndexSearcher:
         if not live:
             return []
         batch = align_paths_batch_native(
-            [c["args"] for _, c in live], threads=threads
+            [c["args"] for _, c in live], threads=threads,
+            ctx_kw_list=[c["kw"] for _, c in live],
         )
         if batch is None:
             return None
@@ -1030,9 +1042,11 @@ class IndexSearcher:
                     # per-genome retry grows the row buffer as needed
                     r = self._align_finish_native(qcodes, hit, ctx)
                     if r is NotImplemented:
-                        r = self._align_genome(qcodes, hit, anchors, paths, cpr)
+                        r = self._align_genome(qcodes, hit, anchors, paths, cpr,
+                                               pseudo_map.get(i))
                 else:  # wfa_fail: per-chain Python path
-                    r = self._align_genome(qcodes, hit, anchors, paths, cpr)
+                    r = self._align_genome(qcodes, hit, anchors, paths, cpr,
+                                           pseudo_map.get(i))
             elif rows.shape[0] == 0:
                 r = None
             else:
@@ -1042,7 +1056,7 @@ class IndexSearcher:
         return results
 
     def _align_genome(self, qcodes, hit: GenomeHit, anchors: Anchors, paths, cpr: SeqComparator,
-                      pseudo=None):
+                      pseudo=None, wins=None):
         """(ref: falin, lib-index-search.go:1845-2720)"""
         opt = self.opt
         k = self.k
@@ -1058,7 +1072,8 @@ class IndexSearcher:
         paths = sorted(paths, key=lambda p: int(anchors.tbegin[p[0]]))
 
         if not opt.output_seq:
-            r = self._align_genome_native(qcodes, hit, anchors, paths, cpr, pseudo=pseudo)
+            r = self._align_genome_native(qcodes, hit, anchors, paths, cpr, pseudo=pseudo,
+                                          wins=wins)
             if r is not NotImplemented:
                 return r
 
@@ -1451,24 +1466,28 @@ class IndexSearcher:
 
         return self._phase4_assemble(qcodes, hits, debug=debug, t0=t0)
 
-    def _phase4_assemble(self, qcodes, hits, pseudo_map=None, debug=False, t0=0.0):
+    def _phase4_assemble(self, qcodes, hits, pseudo_map=None, debug=False, t0=0.0,
+                         cpr=None, wins_map=None):
         """Phase 4 (per-genome alignment) + final result assembly.
 
         pseudo_map: optional {hit_index -> per-sorted-path device pseudo-align
-        results} computed up front by the device engine (parallel/engine.py)."""
+        results} computed up front by the device engine (parallel/engine.py),
+        which also hands over the query's indexed comparator (cpr) and each
+        hit's extracted windows ({hit_index -> _path_windows result})."""
         import sys
         import time
 
-        cpr = SeqComparator(self.opt.seqcompare_options())
-        cpr.index(qcodes)
+        if cpr is None:
+            cpr = SeqComparator(self.opt.seqcompare_options())
+            cpr.index(qcodes)
+        wins_map = wins_map or {}
 
         results: list[GenomeHit] = []
         import multiprocessing as _mp
 
         in_pool_worker = _mp.current_process().daemon
         if (
-            pseudo_map is None
-            and len(hits) >= 8
+            len(hits) >= 8
             and self.device_wfa is None
             and not self.opt.output_seq
             and not os.environ.get("LEXICMAP_TPU_NO_BATCH")
@@ -1477,7 +1496,8 @@ class IndexSearcher:
             # genome (align_paths_batch); per-genome futures + ctypes
             # marshaling dominate beyond a few hundred genome hits
             res = self._phase4_batch_native(
-                qcodes, hits, cpr, threads=1 if in_pool_worker else 0
+                qcodes, hits, cpr, threads=1 if in_pool_worker else 0,
+                pseudo_map=pseudo_map, wins_map=wins_map,
             )
             if res is not None:
                 if debug:
@@ -1501,7 +1521,7 @@ class IndexSearcher:
             futs = [
                 ex.submit(
                     self._align_genome, qcodes, hit, anchors, paths, cpr,
-                    pseudo_map.get(i) if pseudo_map else None,
+                    pseudo_map.get(i) if pseudo_map else None, wins_map.get(i),
                 )
                 for i, (hit, anchors, paths) in enumerate(hits)
             ]
@@ -1513,7 +1533,7 @@ class IndexSearcher:
             for i, (hit, anchors, paths) in enumerate(hits):
                 r = self._align_genome(
                     qcodes, hit, anchors, paths, cpr,
-                    pseudo_map.get(i) if pseudo_map else None,
+                    pseudo_map.get(i) if pseudo_map else None, wins_map.get(i),
                 )
                 if r is not None:
                     results.append(r)
@@ -1577,8 +1597,9 @@ class IndexSearcher:
     def search_many(self, seqs: list[bytes]) -> list[list[GenomeHit]]:
         """Search a batch of queries.  With --engine device, the whole batch
         flows through the device engine (parallel/engine.py): seed matching
-        runs as one batched kernel launch per bucket, with the remaining host
-        phases threaded.  Host engine: per-query loop."""
+        runs as one batched kernel launch per bucket and pseudo-alignment as
+        one launch each of the probe and chain kernels, with the remaining
+        host phases threaded.  Host engine: per-query loop."""
         if self.device_matcher is None:
             return [self.search(seq_to_codes(s.upper())) for s in seqs]
 

@@ -1,7 +1,10 @@
-"""Batched >=p-prefix seed locate: the hand-written CUDA kernel
-(`csrc/seed_locate.cu`) and its plain PyTorch twin.
+"""Batched and single-query >=p-prefix seed locate: the hand-written CUDA
+kernel (`csrc/seed_locate.cu`) and its plain PyTorch twins.
 
-Counterpart of lexicmap_tpu/parallel/pallas_kernels.py::seed_locate_batch_pallas.
+`seed_locate_batch` is the counterpart of
+lexicmap_tpu/parallel/pallas_kernels.py::seed_locate_batch_pallas and
+`seed_locate` of ::seed_locate_pallas (the same function for one query); one
+`__global__` serves both, `seed_locate` launches it at B = 1.
 Table and query hi words are int32 tensors that hold the uint32 bits
 (PyTorch cannot compare uint32 tensors on the CPU); the kernel reads them as
 uint32, the plain version widens them to int64 with `& 0xFFFFFFFF`.
@@ -102,7 +105,7 @@ def seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p: int,
     return nh, e0
 
 
-def _launch(seed_hi, seed_cnt, query_hi, query_valid, p):
+def _launch(seed_hi, seed_cnt, query_hi, query_valid, p, counter):
     from .build import load
 
     lib = load("seed_locate")
@@ -133,7 +136,7 @@ def _launch(seed_hi, seed_cnt, query_hi, query_valid, p):
         raise RuntimeError(
             f"seed_locate_batch launch failed: {lib.seed_locate_error_string(err).decode()}"
         )
-    seed_locate_batch.launches += 1
+    counter.launches += 1
     return nh, e0
 
 
@@ -152,7 +155,38 @@ def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int):
         return seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
     if seed_hi.device.type != "cuda":
         raise ValueError(f"unsupported device {seed_hi.device}")
-    return _launch(seed_hi, seed_cnt, query_hi, query_valid, p)
+    return _launch(seed_hi, seed_cnt, query_hi, query_valid, p, seed_locate_batch)
 
 
 seed_locate_batch.launches = 0
+
+
+def seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p: int):
+    """The single-query plain version: the batched one on a batch of one."""
+    nh, e0 = seed_locate_batch_plain(seed_hi, seed_cnt, query_hi[None], query_valid[None], p)
+    return nh[0], e0[0]
+
+
+def seed_locate(seed_hi, seed_cnt, query_hi, query_valid, p: int):
+    """Per-row >=p-prefix entry range of a sorted hi-word table for ONE
+    query: query_hi int32 [Mb], query_valid bool [Mb]; otherwise as
+    `seed_locate_batch`.  Returns (n_hits, e0), both int32 [Mb].
+
+    CUDA tensors launch the kernel at B = 1 (`launches` counts them); CPU
+    tensors run the plain version."""
+    for name, t in (("query_hi", query_hi), ("query_valid", query_valid)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dim() != 1:
+            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+    _check(seed_hi, seed_cnt, query_hi[None], query_valid[None])
+    suffix_mask(p)
+    if seed_hi.device.type == "cpu":
+        return seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
+    if seed_hi.device.type != "cuda":
+        raise ValueError(f"unsupported device {seed_hi.device}")
+    nh, e0 = _launch(seed_hi, seed_cnt, query_hi[None], query_valid[None], p, seed_locate)
+    return nh[0], e0[0]
+
+
+seed_locate.launches = 0

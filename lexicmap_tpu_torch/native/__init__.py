@@ -222,6 +222,7 @@ def get_lib():
            ctypes.c_double, ctypes.c_double]         # ext2, totals, filters
         + [ctypes.c_int32] * 6                       # wfa params
         + [ctypes.c_int64, ctypes.c_int32]           # n_genomes, n_threads
+        + [ctypes.c_void_p] * 3                      # pre_rows, pre_off, pre_cnt
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]  # rows, goff, counts
     )
     lib.capture_native.restype = ctypes.c_int64
@@ -444,11 +445,13 @@ def collect_anchors_native(chunk_ptrs, chunk_of_hit, eidx, lcp, qmask,
         )
 
 
-def align_paths_batch_native(ctx_args_list, threads=0):
+def align_paths_batch_native(ctx_args_list, threads=0, ctx_kw_list=None):
     """Fused phase 4 for MANY genomes of one query in a single threaded C
     call.  `ctx_args_list` is a list of align_paths_native arg tuples (the
     ctx["args"] built by search.py::_align_prepare_native — per-query
-    constants must be identical across entries).  Returns a list with one
+    constants must be identical across entries); `ctx_kw_list` the matching
+    ctx["kw"] dicts (device pseudo-alignment rows, pre_cnt None for a
+    genome without them), or None.  Returns a list with one
     entry per genome: float64 [n, 18] row matrix, or the string "overflow"
     (caller retries that genome via align_paths_native) or "wfa_fail"
     (caller uses the Python per-chain path).  None if the lib is missing."""
@@ -501,6 +504,24 @@ def align_paths_batch_native(ctx_args_list, threads=0):
     p_tbegin, p_tend = cat(ptb), cat(pte)
     p_rc = cat(prc)
     seq_sizes_all = cat(seqs)
+    pre_ptrs = (0, 0, 0)
+    if ctx_kw_list is not None and any(kw["pre_cnt"] is not None for kw in ctx_kw_list):
+        # per path: -1 (host compare) unless the genome brought device rows;
+        # offsets made absolute in the concatenated row block
+        pre_cnt_all = np.full(int(path_goff[-1]), -1, dtype=np.int64)
+        pre_off_all = np.zeros(int(path_goff[-1]), dtype=np.int64)
+        blocks, base = [], 0
+        for g, kw in enumerate(ctx_kw_list):
+            if kw["pre_cnt"] is None:
+                continue
+            s, t = int(path_goff[g]), int(path_goff[g + 1])
+            pre_cnt_all[s:t] = kw["pre_cnt"]
+            pre_off_all[s:t] = i64(kw["pre_off"]) + base
+            blocks.append(i64(kw["pre_rows"]).reshape(-1, 8))
+            base += blocks[-1].shape[0]
+        pre_rows_all = cat(blocks) if base else np.zeros((1, 8), dtype=np.int64)
+        pre_ptrs = (pre_rows_all.ctypes.data, pre_off_all.ctypes.data,
+                    pre_cnt_all.ctypes.data)
     out_rows = np.empty((int(row_goff[-1]), 18), dtype=np.float64)
     out_counts = np.empty(n_g, dtype=np.int64)
     lib.align_paths_batch(
@@ -521,6 +542,7 @@ def align_paths_batch_native(ctx_args_list, threads=0):
         float(min_qcov_hsp), float(min_identity),
         4, 6, 2, 1, 10, 50,
         n_g, int(threads),
+        *pre_ptrs,
         out_rows.ctypes.data, row_goff.ctypes.data, out_counts.ctypes.data,
     )
     out = []

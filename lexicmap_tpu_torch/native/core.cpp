@@ -2185,6 +2185,11 @@ void align_paths_batch(
     int32_t x, int32_t o, int32_t e,
     int32_t adaptive, int32_t min_wf_len, int32_t max_dist_diff,
     int64_t n_genomes, int32_t n_threads,
+    // optional device pseudo-alignment rows, as align_paths takes them:
+    // pre_cnt_all/pre_off_all per path (path_goff ranges), pre_off_all
+    // indexing pre_rows_all directly; null pre_cnt_all: none
+    const int64_t* pre_rows_all, const int64_t* pre_off_all,
+    const int64_t* pre_cnt_all,
     double* out_rows, const int64_t* row_goff, int64_t* out_counts) {
     std::atomic<int64_t> next(0);
     auto worker = [&]() {
@@ -2194,6 +2199,7 @@ void align_paths_batch(
             const int64_t p0 = path_goff[g];
             const int64_t np = path_goff[g + 1] - p0;
             const int64_t s0 = seq_goff[g];
+            const bool pre = pre_cnt_all != nullptr;
             out_counts[g] = align_paths(
                 qcodes, qlen, qk, qv, nq, qtab, bbits,
                 cmp_k, cmp_min_prefix, band_base, band_count, c2_max_gap,
@@ -2204,7 +2210,8 @@ void align_paths_batch(
                 seq_sizes_all + s0, seq_goff[g + 1] - s0, interval, k,
                 ext2_base, total_bases, max_evalue, min_qcov_hsp, min_identity,
                 x, o, e, adaptive, min_wf_len, max_dist_diff,
-                nullptr, nullptr, nullptr,
+                pre ? pre_rows_all : nullptr, pre ? pre_off_all + p0 : nullptr,
+                pre ? pre_cnt_all + p0 : nullptr,
                 out_rows + row_goff[g] * 18, row_goff[g + 1] - row_goff[g],
                 0, nullptr, 0, nullptr, nullptr, nullptr);
         }

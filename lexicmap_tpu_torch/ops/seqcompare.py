@@ -79,6 +79,20 @@ def coverage_len(regions: list[tuple[int, int]]) -> int:
     return total
 
 
+def min_prefix_for(L: int, m: int) -> int:
+    """The minimum prefix for a target window of length L: longer windows
+    need longer prefixes (ref: lib-seq_compare.go:345-354)."""
+    if L >= 1_000_000:
+        return m + 8
+    if L >= 250_000:
+        return m + 6
+    if L >= 50_000:
+        return m + 4
+    if L >= 10_000:
+        return m + 2
+    return m
+
+
 class SeqComparator:
     def __init__(self, opt: SeqComparatorOptions):
         self.opt = opt
@@ -128,16 +142,8 @@ class SeqComparator:
         """(ref: Compare, lib-seq_compare.go:335-521).  begin/end bound the
         query region anchors may fall into (flanking regions are skipped)."""
         k = self.k
-        m = self.opt.min_prefix
         L = tcodes.shape[0]
-        if L >= 1_000_000:
-            m += 8
-        elif L >= 250_000:
-            m += 6
-        elif L >= 50_000:
-            m += 4
-        elif L >= 10_000:
-            m += 2
+        m = min_prefix_for(L, self.opt.min_prefix)
 
         if L < k or self.qk is None or self.qk.shape[0] == 0:
             return None

@@ -4,8 +4,10 @@ DeviceSeedMatcher packs the columnar seed index into device-resident
 [rows, entries] hi-word tables and answers each query batch's per-mask
 >=p-prefix range queries with one launch of the CUDA seed-locate kernel
 (kernels/seed_locate.py) per bucket.  The kernel returns (n_hits, e0) per
-(query, row); PyTorch tensor code compacts the rows with hits into
-(mask, e0, n_hits) triples on the device, and the host gathers the matched
+(query, row); single-query `match` launches the same kernel at B = 1
+(kernels/seed_locate.py::seed_locate).  PyTorch tensor code compacts the
+rows with hits into (mask, e0, n_hits) triples on the device, shared by
+both, and the host gathers the matched
 entries/postings from the columnar store — results are identical to the
 host path.
 
@@ -20,8 +22,11 @@ Layout (the same as the JAX matcher's, lexicmap_tpu/parallel/device_search.py):
     quantiles, each its own [rows, E] table, so device memory is ~sum(count)
     rather than rows * max(count).
   - a device-memory budget (by default the card's free memory less an
-    eighth for per-batch tensors) admits a row prefix of the buckets; the
-    rest matches by vectorized host bisection (the host tier).
+    eighth for per-batch tensors and less phase 4's working set;
+    `default_budget`) admits a row prefix of the buckets; the rest matches
+    by vectorized host bisection (the host tier).  The seed table is sized
+    before the genome store (parallel/engine.py), which takes what it
+    leaves.
 
 The suffix (reversed k-mer) search stays on the host.
 """
@@ -33,8 +38,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.seed_locate import PAD_HI, seed_locate_batch, split_kmers_hi_lo
+from ..kernels.seed_locate import PAD_HI, seed_locate, seed_locate_batch, split_kmers_hi_lo
 from . import count_d2h, count_h2d, resolve_device
+from .pseudo_device import WORKING_BYTES
 
 # entry-count ceiling of one packed row; read at call time, so tests can
 # shrink it to force column chunking
@@ -102,14 +108,15 @@ def pack_vrow_bucket(per_mask, vmask, vstart, vcnt, rows, k, E):
 
 
 def default_budget(device: torch.device) -> int:
-    """Bytes the resident seed table may take on `device`: on CUDA the free
-    device memory less an eighth of it, left for the per-batch query,
-    count and compaction tensors; on the CPU no cap (the table lives in
-    host memory either way)."""
+    """Bytes a resident structure (the seed table, then the genome store)
+    may take on `device`: on CUDA the free device memory less an eighth of
+    it, left for the per-batch query, count and compaction tensors, and
+    less phase 4's per-launch working set; on the CPU no cap (everything
+    lives in host memory either way)."""
     if device.type != "cuda":
         return 1 << 62
     free, _total = torch.cuda.mem_get_info(device)
-    return free - free // 8
+    return max(0, free - free // 8 - WORKING_BYTES)
 
 
 def tables_from_jax_matcher(jax_matcher) -> list[SeedBucket]:
@@ -225,8 +232,11 @@ class DeviceSeedMatcher:
             f"{len(self.buckets)} buckets [" + ", ".join(parts) + "]"
         )
 
-    def _device_hits(self, qh: np.ndarray, sel: np.ndarray, min_prefix: int):
-        """All buckets' hit triples as numpy (b, mask, e0, n_hits) columns."""
+    def _device_hits(self, qh: np.ndarray, sel: np.ndarray, min_prefix: int,
+                     single: bool = False):
+        """All buckets' hit triples as numpy (b, mask, e0, n_hits) columns.
+        qh/sel are [B, m]; single=True (B == 1) runs the single-query
+        kernel `seed_locate` instead of `seed_locate_batch`."""
         d = self.device
         qh_d = torch.from_numpy(qh.view(np.int32)).to(d)
         sel_d = torch.from_numpy(sel).to(d)
@@ -235,7 +245,11 @@ class DeviceSeedMatcher:
         for bk in self.buckets:
             qh_b = qh_d.index_select(1, bk.gids)
             qv_b = sel_d.index_select(1, bk.gids)
-            nh, e0 = seed_locate_batch(bk.hi, bk.cnt, qh_b, qv_b, min_prefix)
+            if single:
+                nh, e0 = seed_locate(bk.hi, bk.cnt, qh_b[0], qv_b[0], min_prefix)
+                nh, e0 = nh[None], e0[None]
+            else:
+                nh, e0 = seed_locate_batch(bk.hi, bk.cnt, qh_b, qv_b, min_prefix)
             # compaction: the (query, row) pairs with hits, row-major, so
             # each query's triples are contiguous; e0 made mask-global
             b_idx, r_idx = torch.nonzero(nh > 0, as_tuple=True)
@@ -256,12 +270,20 @@ class DeviceSeedMatcher:
         (hit_masks, e0, n_hits) int64 triples, sorted by (mask, e0), one
         kernel launch per bucket.  A device failure (out of memory
         included) raises: the batch is never moved to the host."""
+        return self._match(query_kmers_batch, min_prefix, single=False)
+
+    def match(self, query_kmers: np.ndarray, min_prefix: int):
+        """Single-query variant: (mask_idx, e0, n_hits) triples, one launch
+        of the single-query kernel per bucket."""
+        return self._match(query_kmers[None, :], min_prefix, single=True)[0]
+
+    def _match(self, query_kmers_batch: np.ndarray, min_prefix: int, single: bool):
         B = query_kmers_batch.shape[0]
         sel = query_kmers_batch != 0
         qh = np.zeros(query_kmers_batch.shape, dtype=np.uint32)
         if sel.any():
             qh[sel] = split_kmers_hi_lo(query_kmers_batch[sel], self.k)[0]
-        qb, hm_all, e0_all, nh_all = self._device_hits(qh, sel, min_prefix)
+        qb, hm_all, e0_all, nh_all = self._device_hits(qh, sel, min_prefix, single)
 
         # host bisection for the budget-spilled chunk rows, vectorized over
         # all (row, query) pairs
@@ -305,7 +327,3 @@ class DeviceSeedMatcher:
                     hm, e0, nh = hm[starts], e0[starts], np.add.reduceat(nh, starts)
             out.append((hm.astype(np.int64), e0.astype(np.int64), nh.astype(np.int64)))
         return out
-
-    def match(self, query_kmers: np.ndarray, min_prefix: int):
-        """Single-query variant: (mask_idx, e0, n_hits) triples."""
-        return self.match_batch(query_kmers[None, :], min_prefix)[0]

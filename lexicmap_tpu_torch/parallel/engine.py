@@ -1,23 +1,34 @@
 """The device search engine: a whole query batch flows through the search
-pipeline with seed matching on the GPU.
+pipeline with its two device phases on the GPU.
 
 Per batch of up to 32 queries:
   1. host: query masking (capture + reversed k-mers)
   2a. device: prefix seed matching for ALL queries x all masks, one launch
       of the CUDA seed-locate kernel per bucket (device_search.py)
   2b-3. host: posting gather + anchor chaining
-  4-6. host: pseudo-alignment, alignment and result assembly — the host
-      engine's own phase 4 (`_phase4_assemble`), threaded per genome
+  4. host: window extraction (the windows phase 5 extends and aligns);
+     device: pseudo-alignment of every candidate window of every query,
+     one launch each of the pseudo_probe and pseudo_chain kernels
+     (pseudo_device.py)
+  5-6. host: extension, WFA, scoring and result assembly with the device
+     chain rows injected (`_phase4_assemble` with `pseudo_map`), threaded
+     per genome or in one threaded native call for a many-hit query
 
-Phase 4 runs on the host for every window in this version of the port
-(`pseudo` is None: the device pseudo-aligner and the resident genome blob
-of the JAX engine are not ported yet), so no genome blob is built.
-Phases 4-6 of batch N overlap with phases 1-3 of batch N+1 through
-`search_many`'s finish pool.
+Device memory: the seed table is sized first (IndexSearcher builds the
+matcher), then the genome store is made resident (resident.py) when it fits
+the budget the table leaves; the kernels then read each window from it by
+geometry.  A store larger than that leaves the kernels to read each
+batch's windows packed and uploaded, the same work on the same card.
+
+Every batch that has windows runs phase 4 on the device; a window the
+kernels flag (or one too long for them) is aligned by the host code inside
+phase 5.  Phases 5-6 of batch N overlap with phases 1-4 of batch N+1
+through `search_many`'s finish pool.
 
 Output is identical to the host engine: the device matcher returns exactly
-the host bisection's triples, and everything downstream is the identical
-host code (ref: lib-index-search.go:1154-2897 for the phase structure).
+the host bisection's triples, the device pseudo-aligner exactly the host's
+chain rows, and everything downstream is the identical host code
+(ref: lib-index-search.go:1154-2897 for the phase structure).
 """
 
 from __future__ import annotations
@@ -26,32 +37,56 @@ import time
 
 import numpy as np
 
+from ..ops.seqcompare import SeqComparator
 from ..utils.kmers import seq_to_codes
+from .device_search import default_budget
+from .pseudo_device import WORDS_OUT, DevicePseudoAligner
+from .resident import DeviceGenomeBlob, store_bytes
 
 
 class DeviceSearchEngine:
-    def __init__(self, idx):
+    def __init__(self, idx, hbm_budget: int | None = None):
+        """hbm_budget: bytes the resident genome store may take (default
+        `default_budget`, read from the card once the seed table is on
+        it)."""
         self.idx = idx
         self.matcher = idx.device_matcher
-        #: device pseudo-aligner: None, phase 4 runs on the host
-        self.pseudo = None
+        copt = idx.opt.seqcompare_options().chaining
+        self.pseudo = DevicePseudoAligner(
+            band_base=copt.band_base,
+            band_count=copt.band_count,
+            max_gap=int(copt.max_gap),
+            min_score=copt.min_score,
+            min_align_len=copt.min_align_len,
+            device=idx.opt.device,
+        )
+        if hbm_budget is None:
+            hbm_budget = default_budget(self.pseudo.device)
+        # the genome store, resident on the card when it fits: phase-4
+        # windows are then read from it by geometry, else uploaded per batch
+        self.blob = None
+        if store_bytes(idx.genome_stores) <= hbm_budget:
+            self.blob = DeviceGenomeBlob(idx.genome_stores, device=self.pseudo.device)
+        self.pseudo.blob = self.blob
         #: cumulative wall per engine phase (seconds): mask (1), match (2a),
-        #: anchors (2b), chain (3), align (4-6, host)
+        #: anchors (2b), chain (3), winprep and pseudo (4), align (5-6, host)
         self.times = {"mask": 0.0, "match": 0.0, "anchors": 0.0, "chain": 0.0,
-                      "align": 0.0}
+                      "winprep": 0.0, "pseudo": 0.0, "align": 0.0}
 
-    # two-stage API so that search_many can overlap host phases 4-6 of
-    # batch N with phases 1-3 of batch N+1
+    # two-stage API so that search_many can overlap host phases 5-6 of
+    # batch N with phases 1-4 of batch N+1
 
     def prepare_batch(self, seqs: list[bytes]):
-        """Phases 1-3: host masking, device seed matching, host posting
-        gather and chaining.  Returns an opaque state for finish_batch."""
+        """Phases 1-4: host masking, device seed matching, host posting
+        gather and chaining, device pseudo-alignment.  Returns an opaque
+        state for finish_batch."""
         idx = self.idx
+        sopt = idx.opt.seqcompare_options()
         t0 = time.perf_counter()
         codes = [seq_to_codes(s.upper()) for s in seqs]
         valid = [i for i, c in enumerate(codes) if c.shape[0] >= idx.k]
         if not valid:
-            return (codes, [], {})
+            return (codes, [], {}, {}, {}, {})
         if len(valid) > 32:
             raise ValueError("engine batches are capped at 32 queries")
 
@@ -75,16 +110,58 @@ class DeviceSearchEngine:
         t0 = time.perf_counter()
         hits_of = {i: (idx._chain_genomes(pg_of[i]) if pg_of[i] else []) for i in valid}
         self.times["chain"] += time.perf_counter() - t0
-        return (codes, valid, hits_of)
+        t0 = time.perf_counter()
+
+        # window prep, then one device pseudo-align run over every window of
+        # every query (the JAX engine's phase 4, lexicmap_tpu/parallel/engine.py);
+        # the comparators and windows go on to phase 5
+        queries, windows, geoms, wmeta = [], [], [], []
+        cpr_of: dict[int, SeqComparator] = {}
+        wins_of: dict[int, dict[int, tuple]] = {}
+        for i in valid:
+            if not hits_of[i]:
+                continue
+            cpr = cpr_of[i] = SeqComparator(sopt)
+            cpr.index(codes[i])
+            qpos = len(queries)
+            queries.append((cpr.qk, cpr.qv))
+            for hi, (hit, anchors, paths) in enumerate(hits_of[i]):
+                spaths = sorted(paths, key=lambda p: int(anchors.tbegin[p[0]]))
+                wins = wins_of.setdefault(i, {})[hi] = idx._path_windows(
+                    codes[i], hit, anchors, spaths)
+                for pp, (w, meta) in enumerate(zip(wins[0], wins[1])):
+                    windows.append((qpos, w, meta[0], meta[1]))
+                    wmeta.append((i, hi, pp))
+                    if self.blob is None:
+                        continue
+                    # meta = (q_begin, q_end, t_begin, t_end, rc, seeds); t_end
+                    # is already clipped, so the geometry's length equals the
+                    # window's unless the store disagrees (then: the host)
+                    wb, ph, L = self.blob.geometry(hit.genome_batch, hit.genome_index,
+                                                   meta[2], meta[3], meta[4], WORDS_OUT)
+                    geoms.append((wb, ph, bool(meta[4])) if L == w.shape[0] else None)
+        self.times["winprep"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = self.pseudo.run_batch(queries, windows, geoms if self.blob is not None else None)
+        self.times["pseudo"] += time.perf_counter() - t0
+        pseudo_maps: dict[int, dict[int, list]] = {}
+        for (i, hi, pp), r in zip(wmeta, res):
+            lst = pseudo_maps.setdefault(i, {}).setdefault(hi, [])
+            assert len(lst) == pp
+            lst.append(r)
+        return (codes, valid, hits_of, pseudo_maps, cpr_of, wins_of)
 
     def finish_batch(self, prepared):
-        """Phases 4-6 (host): pseudo-alignment, alignment and assembly."""
-        codes, valid, hits_of = prepared
+        """Phases 5-6 (host): extension, alignment and assembly, with the
+        device chain rows of phase 4."""
+        codes, valid, hits_of, pseudo_maps, cpr_of, wins_of = prepared
         idx = self.idx
         out = [[] for _ in codes]
         t0 = time.perf_counter()
         for i in valid:
             if hits_of[i]:
-                out[i] = idx._phase4_assemble(codes[i], hits_of[i])
+                out[i] = idx._phase4_assemble(codes[i], hits_of[i],
+                                              pseudo_map=pseudo_maps.get(i),
+                                              cpr=cpr_of[i], wins_map=wins_of.get(i))
         self.times["align"] += time.perf_counter() - t0
         return out

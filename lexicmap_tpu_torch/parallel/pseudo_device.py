@@ -1,0 +1,234 @@
+"""Device pseudo-alignment of a batch of candidate windows (phase 4): the
+SeqComparator probe -> anchor sort -> nested-anchor removal -> tandem trim
+-> Chainer2 forward DP -> region-splitting backtrack, for every window of a
+query batch in two kernel launches (kernels/pseudo_align.py).
+
+Twin of lexicmap_tpu/parallel/pseudo_device.py.  It replaces the per-window
+host calls compare_prepare + chain2_backtrack with the same results: every
+window the kernels do not flag gets exactly the native oracle's chain rows.
+The JAX package's TPU workarounds are gone: the probe gathers from the
+query's k-mer table instead of sort-joining (no 3-way prefix-collision
+flag, no J <= 2 limit), anchors are int32 (no 13-bit query-length cap), the
+nested-anchor check scans every predecessor it needs (no dedup window), and
+PyTorch runs eagerly (no compile-shape buckets).
+
+The kernels read a window's codes from a blob of 2-bit words: the genome
+store resident on the card (parallel/resident.py; the engine passes each
+window's geometry) or, when the store does not fit there, the batch's
+windows packed and uploaded per launch as a blob of their own (geoms=None).
+
+A window goes to the host ('host') when it is longer than L_CAP, its query
+does not fit the 21-bit anchor key fields, its geometry does not match its
+length, or a kernel flags it: more than A_CAP anchors, more than C_CAP
+chains, or a region stack deeper than S_CAP.
+ref: lib-seq_compare.go:335-521, lib-chaining2.go:152-658.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..kernels.pseudo_align import (  # noqa: F401  (the flag bits are re-exported)
+    A_CAP,
+    C_CAP,
+    COORD_MAX,
+    F_ANCHOR_OVERFLOW,
+    F_CHAIN_OVERFLOW,
+    F_STACK_OVERFLOW,
+    K,
+    L_CAP,
+    QTAB_BITS,
+    WORDS_OUT,
+    pseudo_chain,
+    pseudo_probe,
+)
+from ..constants import SearchDefaults
+from ..ops.seqcompare import min_prefix_for
+from . import count_d2h, count_h2d, resolve_device
+
+M_PREFIX = SearchDefaults.CMP_MIN_PREFIX  # SeqComparator minimum prefix
+HEURISTIC_PIDENT = SearchDefaults.HEURISTIC_KMER_PIDENT_THRESHOLD  # chain pident gate
+W_CHUNK = 2048  # windows per launch: bounds the [W, A_CAP] anchor tensors
+#: device bytes of one launch's tensors: probe anchors (3 x [W, A_CAP]
+#: int32), chain scratch (2 x [W, A_CAP]) and rows, uploaded window words,
+#: and the query bucket tables of a 32-query batch
+WORKING_BYTES = (W_CHUNK * (5 * A_CAP * 4 + C_CAP * 8 * 8 + L_CAP // 4 + 128)
+                 + 32 * ((1 << QTAB_BITS) + 1) * 4)
+
+
+# ---------------------------------------------------------------------------
+# host-side packing helpers
+
+
+def pack_codes_2bit(codes: np.ndarray, pad_to: int) -> np.ndarray:
+    """[L] uint8 codes -> [pad_to//16] uint32, base i at bits 2*(i%16)."""
+    buf = np.zeros(pad_to, dtype=np.uint32)
+    buf[: codes.shape[0]] = codes
+    buf = buf.reshape(-1, 16)
+    shifts = (2 * np.arange(16, dtype=np.uint32))[None, :]
+    return np.bitwise_or.reduce(buf << shifts, axis=1).astype(np.uint32)
+
+
+def build_query_table(queries):
+    """The batch's query k-mer tables in the probe kernel's layout.
+
+    queries: list of (qk u64 sorted, qv u32) per query (SeqComparator.qk,
+    .qv).  Returns (qk int64 concatenated, qv int32, qoff int64 [NQ+1],
+    qtab int32 [NQ, 2^16+1] (the 16-bit prefix buckets of
+    SeqComparator.index), ok bool [NQ]); ok is False for a query whose
+    anchor coordinates would not fit the 21-bit key fields."""
+    nq = len(queries)
+    sizes = np.array([q[0].shape[0] for q in queries], dtype=np.int64)
+    qoff = np.zeros(nq + 1, dtype=np.int64)
+    np.cumsum(sizes, out=qoff[1:])
+    qk = np.concatenate([q[0] for q in queries]).astype(np.int64) if nq else \
+        np.zeros(0, np.int64)
+    qv = np.concatenate([q[1] for q in queries]).astype(np.int32) if nq else \
+        np.zeros(0, np.int32)
+    qtab = np.zeros((nq, (1 << QTAB_BITS) + 1), dtype=np.int32)
+    ok = np.ones(nq, dtype=bool)
+    for i, (k, v) in enumerate(queries):
+        if k.shape[0] == 0:
+            continue
+        pref = (np.asarray(k, dtype=np.uint64) >> np.uint64(2 * K - QTAB_BITS)).astype(np.int64)
+        np.cumsum(np.bincount(pref, minlength=1 << QTAB_BITS), out=qtab[i, 1:])
+        ok[i] = int(np.asarray(v).max() >> 1) + K <= COORD_MAX
+    return qk, qv, qoff, qtab, ok
+
+
+# ---------------------------------------------------------------------------
+
+
+class DevicePseudoAligner:
+    """Batched device pseudo-alignment with per-window host fallback.
+
+    run_batch(queries, windows, geoms=None) -> list of per-window results:
+      ('rows', int64 [C, 8])  chains in emission order, columns
+          [n_anchors, aligned_q, aligned_t, matched, qb, qe, tb, te]: the
+          exact output of native chain2_backtrack, as align_paths takes it
+          (pre_rows; pident is recomputed there in float64);
+      ('host', None)  the caller runs the host compare path;
+      ('none', None)  no chains (no anchors, or none survived).
+    """
+
+    def __init__(self, band_base=100, band_count=50, max_gap=20, min_score=35,
+                 min_align_len=50, device=None):
+        self.device = resolve_device(device)
+        self.band_base = band_base
+        self.band_count = band_count
+        self.max_gap = max_gap
+        self.min_score = min_score
+        self.min_align_len = min_align_len
+        #: DeviceGenomeBlob: with geometry, windows are read from it on the
+        #: card; without, each batch's windows are packed and uploaded as a
+        #: blob of their own
+        self.blob = None
+        #: windows seen, answered on the device ('rows' or 'none'), sent to
+        #: the host; queries whose windows all go to the host; flag<bits>
+        self.stats = {"windows": 0, "device_windows": 0, "host_windows": 0,
+                      "host_queries": 0}
+        #: cumulative wall per internal stage (seconds); probe_fetch waits
+        #: for the probe kernel, chain_fetch for the chain kernel
+        self.times = {"tables": 0.0, "probe_pack": 0.0, "probe_fetch": 0.0,
+                      "chain_dispatch": 0.0, "chain_fetch": 0.0, "decode": 0.0}
+
+    def _flag(self, f: int):
+        self.stats[f"flag{f}"] = self.stats.get(f"flag{f}", 0) + 1
+        self.stats["host_windows"] += 1
+
+    def run_batch(self, queries, windows, geoms=None):
+        """queries: list of (qk u64 sorted, qv u32) per batch query.
+        windows: list of (qidx, tcodes uint8[L], begin, end).
+        geoms: optional list aligned with windows of (word_base, phase, rc)
+        blob geometry (words_out = WORDS_OUT), None for a window that has
+        none; needs self.blob."""
+        n_win = len(windows)
+        results = [("host", None)] * n_win
+        if n_win == 0:
+            return results
+        self.stats["windows"] += n_win
+        t0 = time.perf_counter()
+        qk, qv, qoff, qtab, q_ok = build_query_table(queries)
+        self.stats["host_queries"] += int((~q_ok).sum())
+        dev_idx = [
+            i for i, (qidx, tcodes, _b, _e) in enumerate(windows)
+            if q_ok[qidx] and tcodes.shape[0] <= L_CAP
+            and (geoms is None or geoms[i] is not None)
+        ]
+        self.stats["host_windows"] += n_win - len(dev_idx)
+        if not dev_idx:
+            return results
+        d = self.device
+        count_h2d("device pseudo-align probe", qk, qv, qoff, qtab)
+        tables = [torch.from_numpy(a).to(d) for a in (qk, qv, qoff, qtab)]
+        self.times["tables"] += time.perf_counter() - t0
+
+        for o in range(0, len(dev_idx), W_CHUNK):
+            self._run_chunk(dev_idx[o: o + W_CHUNK], windows, geoms, tables, results)
+        return results
+
+    def _run_chunk(self, idxs, windows, geoms, tables, results):
+        t0 = time.perf_counter()
+        d = self.device
+        win = np.zeros((len(idxs), 8), dtype=np.int64)
+        packed = []
+        off = 0
+        for row, i in enumerate(idxs):
+            qidx, tcodes, begin, end = windows[i]
+            L = tcodes.shape[0]
+            if geoms is not None:
+                wb, ph, rc = geoms[i]
+            else:  # an uploaded window: a blob of its own at phase 0
+                packed.append(pack_codes_2bit(tcodes, 16 * ((L + 15) // 16)))
+                wb, ph, rc = off, 0, False
+                off += packed[-1].shape[0]
+            win[row] = (wb, ph, L, int(rc), qidx, begin, end, min_prefix_for(L, M_PREFIX))
+        if geoms is not None:
+            blob = self.blob.words
+        else:
+            words = np.concatenate(packed) if off else np.zeros(1, np.uint32)
+            count_h2d("device pseudo-align probe", words)
+            blob = torch.from_numpy(words.view(np.int32)).to(d)
+        count_h2d("device pseudo-align probe", win)
+        aqb, atb, aln, acnt, aflg = pseudo_probe(blob, torch.from_numpy(win).to(d), *tables)
+        self.times["probe_pack"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pflags = aflg.cpu().numpy()
+        count_d2h("device pseudo-align probe", pflags)
+        self.times["probe_fetch"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows, ccnt, cflg = pseudo_chain(
+            aqb, atb, aln, acnt, aflg, self.band_base, self.band_count, self.max_gap,
+            self.min_score, self.min_align_len, HEURISTIC_PIDENT)
+        # compaction on the device: only the emitted rows cross to the host
+        valid = torch.arange(C_CAP, device=d)[None, :] < ccnt[:, None].to(torch.int64)
+        packed_rows = rows[valid]
+        self.times["chain_dispatch"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cnt = ccnt.cpu().numpy()
+        cflags = cflg.cpu().numpy()
+        flat = packed_rows.cpu().numpy()
+        count_d2h("device pseudo-align chain", cnt, cflags, flat)
+        self.times["chain_fetch"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._decode(idxs, pflags | cflags, cnt, flat, results)
+        self.times["decode"] += time.perf_counter() - t0
+
+    def _decode(self, idxs, flags, cnt, flat, results):
+        """Per-window results from the compacted rows (window order, each
+        window's rows in emission order)."""
+        ptr = 0
+        for k, i in enumerate(idxs):
+            if flags[k]:
+                self._flag(int(flags[k]))
+                continue
+            self.stats["device_windows"] += 1
+            c = int(cnt[k])
+            if c == 0:
+                results[i] = ("none", None)
+                continue
+            results[i] = ("rows", flat[ptr: ptr + c].astype(np.int64))
+            ptr += c

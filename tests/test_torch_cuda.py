@@ -2,12 +2,16 @@
 card.  Needs a CUDA device and nvcc; skips where there is none.  Run on the
 GPU machine with:  python -m pytest tests/test_torch_cuda.py -q"""
 
+import numpy as np
 import pytest
 import torch
 
-from torch_parity import make_case, to_torch
+from chip_smoke import native_rows, same_prefix
+from torch_parity import make_case, phase4_tensors, seed_match_case, seed_match_torch, to_torch
 
+from lexicmap_tpu_torch.kernels import pseudo_align as PA
 from lexicmap_tpu_torch.kernels import seed_locate as SL
+from lexicmap_tpu_torch.kernels import seed_match as SM
 
 
 @pytest.fixture
@@ -27,3 +31,64 @@ def test_cuda_kernel_equals_plain(cuda_device, p):
     assert SL.seed_locate_batch.launches == before + 1
     pn, pe = SL.seed_locate_batch_plain(*args, p)
     assert torch.equal(nh, pn) and torch.equal(e0, pe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [11, 15, 16])
+def test_cuda_single_query_kernel_equals_plain(cuda_device, p):
+    hi, cnt, qh, qv = to_torch(*make_case(p, 1, M=512, E=384, seed=4), device=cuda_device)
+    before = SL.seed_locate.launches
+    nh, e0 = SL.seed_locate(hi, cnt, qh[0], qv[0], p)
+    torch.cuda.synchronize()
+    assert SL.seed_locate.launches == before + 1
+    pn, pe = SL.seed_locate_plain(hi, cnt, qh[0], qv[0], p)
+    assert torch.equal(nh, pn) and torch.equal(e0, pe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [11, 15, 16])
+@pytest.mark.parametrize("dup", [False, True])
+def test_cuda_seed_match_equals_plain(cuda_device, p, dup):
+    args = seed_match_torch(*seed_match_case(seed=p, dup=dup), device=cuda_device)
+    before = SM.seed_match.launches
+    got = SM.seed_match(*args, p)
+    torch.cuda.synchronize()
+    assert SM.seed_match.launches == before + 1
+    want = SM.seed_match_plain(*args, p)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_pseudo_kernels_equal_plain(cuda_device):
+    blob, win, tables, _windows, _cprs = phase4_tensors(cuda_device)
+    before = (PA.pseudo_probe.launches, PA.pseudo_chain.launches)
+    probe = PA.pseudo_probe(blob.words, win, *tables)
+    torch.cuda.synchronize()
+    plain = PA.pseudo_probe_plain(blob.words, win, *tables)
+    assert torch.equal(probe[3], plain[3]) and torch.equal(probe[4], plain[4])
+    assert all(same_prefix(a, b, probe[3], PA.A_CAP) for a, b in zip(probe[:3], plain[:3]))
+    assert int((probe[3] > 0).sum()) == win.shape[0]  # every planted window has anchors
+    chain = PA.pseudo_chain(*probe)
+    torch.cuda.synchronize()
+    cplain = PA.pseudo_chain_plain(*probe, 100, 50, 20, 35.0, 50, 15.0)
+    assert torch.equal(chain[1], cplain[1]) and torch.equal(chain[2], cplain[2])
+    assert same_prefix(chain[0], cplain[0], chain[1], PA.C_CAP)
+    assert (PA.pseudo_probe.launches, PA.pseudo_chain.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_run_batch_equals_native_oracle(cuda_device):
+    from lexicmap_tpu_torch.index.search import SearchOptions
+    from lexicmap_tpu_torch.parallel.pseudo_device import DevicePseudoAligner
+
+    blob, win, _tables, windows, cprs = phase4_tensors(cuda_device, seed=5)
+    copt = SearchOptions().seqcompare_options().chaining
+    dev = DevicePseudoAligner(copt.band_base, copt.band_count, int(copt.max_gap),
+                              copt.min_score, copt.min_align_len, device=cuda_device)
+    dev.blob = blob
+    geoms = [(int(r[0]), int(r[1]), bool(r[3])) for r in win.tolist()]
+    res = dev.run_batch([(c.qk, c.qv) for c in cprs], windows, geoms)
+    assert [r[0] for r in res].count("rows") == len(windows)
+    for (qi, codes, b, e), (kind, rows) in zip(windows, res):
+        assert np.array_equal(rows, native_rows(cprs[qi], codes, b, e, copt))

@@ -175,10 +175,14 @@ def test_out_of_memory_raises(port_idx, db, monkeypatch):
 
 
 def test_default_budget(port_idx, monkeypatch):
-    """No cap on the CPU; on CUDA the card's free memory less an eighth."""
+    """No cap on the CPU; on CUDA the card's free memory less an eighth and
+    less phase 4's per-launch working set."""
     assert tds.default_budget(torch.device("cpu")) >= 1 << 62
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (8 << 30, 80 << 30))
-    assert tds.default_budget(torch.device("cuda")) == 7 << 30
+    assert tds.default_budget(torch.device("cuda")) == (7 << 30) - tds.WORKING_BYTES
+    assert 300e6 < tds.WORKING_BYTES < 400e6
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (256 << 20, 80 << 30))
+    assert tds.default_budget(torch.device("cuda")) == 0
     pm = tds.DeviceSeedMatcher(port_idx, device="cpu")
     assert pm.host_rows == 0 and pm.budget_spill == 0
 

@@ -1,6 +1,7 @@
-"""The port's search path end to end (engine='device', device='cpu') vs the
-JAX package's host engine and its DeviceSearchEngine: the TSV rows must be
-identical.  Also the port's CLI."""
+"""The port's search path end to end (engine='device', device='cpu', with
+phases 2a and 4 through the kernels' plain twins) vs the JAX package's host
+engine and its DeviceSearchEngine: the TSV rows must be identical.  Also
+single-query search with the device matcher, and the port's CLI."""
 
 import numpy as np
 import pytest
@@ -14,7 +15,8 @@ from lexicmap_tpu.index.search import IndexSearcher as JaxSearcher
 from lexicmap_tpu.index.search import SearchOptions as JaxOptions
 from lexicmap_tpu_torch import cli as tcli
 from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
-from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
+from lexicmap_tpu_torch.kernels import pseudo_align as PA
+from lexicmap_tpu_torch.kernels.seed_locate import seed_locate, seed_locate_batch
 
 
 @pytest.fixture(scope="module")
@@ -48,9 +50,11 @@ def test_engine_matches_jax_host_and_jax_device(db, jax_host):
     _, seqs, _ = db
     qs = queries8(seqs)
     port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu"))
-    before = seed_locate_batch.launches
+    before = (seed_locate_batch.launches, PA.pseudo_probe.launches, PA.pseudo_chain.launches)
     got = all_rows(port.search_many(qs))
-    assert seed_locate_batch.launches == before  # CPU: the plain twin, no launch
+    # CPU: the plain twins, no launch
+    assert (seed_locate_batch.launches, PA.pseudo_probe.launches,
+            PA.pseudo_chain.launches) == before
     want_host = all_rows([jax_host.search_bytes(q) for q in qs])
     want_dev = all_rows(JaxSearcher(db[0], JaxOptions(engine="device")).search_many(qs))
     assert got == want_host
@@ -58,7 +62,12 @@ def test_engine_matches_jax_host_and_jax_device(db, jax_host):
     assert sum(map(len, got)) >= 6
     assert got[0] and got[0][0].split("\t")[3] == "D0"
     eng = port._device_engine
-    assert eng.pseudo is None and eng.times["match"] > 0 and eng.times["align"] > 0
+    st = eng.pseudo.stats
+    # phase 4 answered on the device path: every window of this set
+    assert st["windows"] >= 6 and st["device_windows"] == st["windows"], st
+    assert eng.blob.words.numel() > 0 and eng.pseudo.blob is eng.blob
+    for key in ("match", "winprep", "pseudo", "align"):
+        assert eng.times[key] > 0, key
 
 
 def test_engine_across_batch_boundary(db, jax_host):
@@ -72,6 +81,107 @@ def test_engine_across_batch_boundary(db, jax_host):
     got = all_rows(port.search_many(qs))
     assert got == all_rows([jax_host.search_bytes(q) for q in qs])
     assert all(got)
+    st = port._device_engine.pseudo.stats
+    assert st["windows"] >= 33 and st["device_windows"] == st["windows"], st
+
+
+def test_single_query_search_with_device_matcher(db, jax_host):
+    """IndexSearcher.search (one query at a time) with the device matcher:
+    the single-query kernel's plain twin per bucket; rows == host."""
+    _, seqs, _ = db
+    qs = queries8(seqs)
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu"))
+    calls = []
+    match = port.device_matcher.match
+    port.device_matcher.match = lambda *a: calls.append(1) or match(*a)
+    before = seed_locate.launches
+    got = all_rows([port.search_bytes(q) for q in qs])
+    assert got == all_rows([jax_host.search_bytes(q) for q in qs])
+    assert len(calls) == sum(len(q) >= 31 for q in qs)
+    assert seed_locate.launches == before
+
+
+@pytest.mark.parametrize("starve", ["argument", "card"])
+def test_store_over_budget_uploads_windows(db, jax_host, monkeypatch, starve):
+    """A genome store over the device budget is not made resident: phase 4
+    packs and uploads each batch's windows for the same kernels (here their
+    plain twins); every window is still answered on the device path and the
+    rows stay the host's.  The budget is the engine's argument, or by
+    default what the card has free once the seed table is on it."""
+    from lexicmap_tpu_torch.parallel import engine as E
+    from lexicmap_tpu_torch.parallel.resident import store_bytes
+
+    _, seqs, _ = db
+    qs = queries8(seqs)
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu"))
+    need = store_bytes(port.genome_stores)
+    if starve == "argument":
+        eng = E.DeviceSearchEngine(port, hbm_budget=need - 1)
+    else:
+        monkeypatch.setattr(E, "default_budget", lambda d: need - 1)
+        eng = E.DeviceSearchEngine(port)
+    assert eng.blob is None and eng.pseudo.blob is None
+    port._device_engine = eng
+    got = all_rows(port.search_many(qs))
+    assert got == all_rows([jax_host.search_bytes(q) for q in qs])
+    st = eng.pseudo.stats
+    assert st["windows"] >= 6 and st["device_windows"] == st["windows"], st
+    assert E.DeviceSearchEngine(port, hbm_budget=need).blob.hbm_bytes == need
+
+
+def test_many_hit_batch_path_takes_device_rows(db):
+    """The threaded native call for queries with many genome hits
+    (_phase4_batch_native) consumes the device chain rows: with the device
+    aligner's rows it equals the per-genome path, and with every window
+    answered 'none' it aligns nothing."""
+    from lexicmap_tpu_torch.parallel.engine import DeviceSearchEngine
+
+    _, seqs, _ = db
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu"))
+    eng = DeviceSearchEngine(port)
+    chimera = queries8(seqs)[-3]
+    codes, valid, hits_of, pmaps, cprs, wins = eng.prepare_batch([chimera])
+    hits, pmap, cpr = hits_of[0], pmaps[0], cprs[0]
+    assert len(hits) == 2 and all(r[0] == "rows" for v in pmap.values() for r in v)
+    batch = port._phase4_batch_native(codes[0], hits, cpr, pseudo_map=pmap, wins_map=wins[0])
+    got = rows_of(port._assemble_results(codes[0], batch))
+    per = [port._align_genome(codes[0], *h, cpr, pmap[g]) for g, h in enumerate(hits)]
+    assert got == rows_of(port._assemble_results(codes[0], [r for r in per if r]))
+    assert len(got) >= 2
+    none = {g: [("none", None)] * len(v) for g, v in pmap.items()}
+    assert port._phase4_batch_native(codes[0], hits, cpr, pseudo_map=none) == []
+
+
+def test_blob_failure_raises(db, monkeypatch):
+    """A store within budget whose resident blob cannot be built all the
+    same raises out of search_many: a failure never sends the engine to
+    uploading windows or to the host."""
+    import torch
+
+    from lexicmap_tpu_torch.parallel import engine as E
+
+    def oom(*a, **k):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (test)")
+
+    monkeypatch.setattr(E, "DeviceGenomeBlob", oom)
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu"))
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        port.search_many(queries8(db[1])[:2])
+
+
+def test_pseudo_failure_propagates(db, monkeypatch):
+    import torch
+
+    _, seqs, _ = db
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu"))
+    port.search_many(queries8(seqs)[:1])
+
+    def boom(*a, **k):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (test)")
+
+    monkeypatch.setattr(port._device_engine.pseudo, "run_batch", boom)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        port.search_many(queries8(seqs)[:4])
 
 
 def test_device_failure_propagates_from_search_many(db, monkeypatch):

@@ -10,7 +10,7 @@ jax = pytest.importorskip("jax")
 
 from torch_parity import make_case, to_torch
 
-from lexicmap_tpu.parallel.pallas_kernels import seed_locate_batch_pallas
+from lexicmap_tpu.parallel.pallas_kernels import seed_locate_batch_pallas, seed_locate_pallas
 from lexicmap_tpu_torch.kernels import seed_locate as SL
 
 
@@ -87,3 +87,35 @@ def test_wrapper_rejects_shape(which):
 def test_wrapper_rejects_prefix(p):
     with pytest.raises(ValueError):
         SL.seed_locate_batch(*to_torch(*make_case(15, 1)), p)
+
+
+@pytest.mark.parametrize("p", [11, 15, 16])
+def test_single_plain_equals_pallas(p):
+    """B2: the single-query plain version vs seed_locate_pallas at M = 256,
+    poly-T and saturated-rb rows included."""
+    hi, cnt, qh, qv = make_case(p, 1, M=256, seed=3)
+    nh_ref, e0_ref = seed_locate_pallas(hi, cnt, qh[0], qv[0].astype(np.int32), p=p,
+                                        tile_m=256, interpret=True)
+    t_hi, t_cnt, t_qh, t_qv = to_torch(hi, cnt, qh, qv)
+    nh, e0 = SL.seed_locate_plain(t_hi, t_cnt, t_qh[0], t_qv[0], p)
+    np.testing.assert_array_equal(nh.numpy(), np.asarray(nh_ref))
+    np.testing.assert_array_equal(e0.numpy(), np.asarray(e0_ref))
+    assert nh[0] == 3 and nh[1] == 2 and int((nh > 0).sum()) > 20
+    before = SL.seed_locate.launches
+    wn, we = SL.seed_locate(t_hi, t_cnt, t_qh[0].contiguous(), t_qv[0].contiguous(), p)
+    assert torch.equal(wn, nh) and torch.equal(we, e0)
+    assert SL.seed_locate.launches == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("which", ["query_2d", "query_len", "dtype"])
+def test_single_wrapper_rejects(which):
+    hi, cnt, qh, qv = to_torch(*make_case(15, 1))
+    qh, qv = qh[0], qv[0]
+    if which == "query_2d":
+        qh = qh[None]
+    elif which == "query_len":
+        qv = qv[:-1]
+    else:
+        qh = qh.to(torch.int64)
+    with pytest.raises((TypeError, ValueError)):
+        SL.seed_locate(hi, cnt, qh, qv, 15)

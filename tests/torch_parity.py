@@ -1,7 +1,9 @@
 """Shared fixtures of the port's parity tests (tests/test_torch_*.py):
 the synthetic 3-genome / 512-mask db of tests/test_device_search.py, query
-makers, a host-bisection oracle and the seed-locate kernel's test tables.  Inputs come from numpy seeds and are
-handed to the JAX package and the port alike."""
+makers, a host-bisection oracle, the seed kernels' test tables and a small
+phase-4 batch.  Inputs come from numpy seeds and are handed to the JAX
+package and the port alike; nothing here imports JAX, so the card's tests
+(tests/test_torch_cuda.py) use it too."""
 
 from __future__ import annotations
 
@@ -115,3 +117,76 @@ def to_torch(hi, cnt, qh, qv, device="cpu"):
             torch.from_numpy(cnt.copy()).to(device),
             torch.from_numpy(qh.view(np.int32).copy()).to(device),
             torch.from_numpy(qv.copy()).to(device))
+
+
+def seed_match_case(seed=1, M=256, E=128, dup=False):
+    """The construction of tests/test_pallas.py:26-76 (rows of random sorted
+    31-mers, 80% of queries drawn from their row).  dup=True gives every
+    row runs of entries that share their hi word and differ in lo."""
+    rng = np.random.default_rng(seed)
+    n = E - 16
+    if dup:
+        his = rng.integers(0, 1 << 62, size=(M, n // 4), dtype=np.uint64) >> np.uint64(30)
+        his = np.repeat(his, 4, axis=1) << np.uint64(30)
+        table = np.sort(his | rng.integers(0, 1 << 30, size=(M, n), dtype=np.uint64), axis=1)
+    else:
+        table = np.sort(rng.integers(0, 1 << 62, size=(M, n), dtype=np.uint64), axis=1)
+    queries = np.zeros(M, dtype=np.uint64)
+    has = rng.random(M) < 0.8
+    pick = rng.integers(0, n, size=M)
+    queries[has] = table[np.arange(M), pick][has]
+    # a quarter of the queries mutated in their last bases (best LCP < k)
+    mut = rng.random(M) < 0.25
+    queries[mut] ^= rng.integers(1, 1 << 12, size=int(mut.sum()), dtype=np.uint64)
+    hi = np.full((M, E), SL.PAD_HI, dtype=np.uint32)
+    lo = np.full((M, E), SL.PAD_HI, dtype=np.uint32)
+    th, tl = SL.split_kmers_hi_lo(table.ravel(), K)
+    hi[:, :n] = th.reshape(M, n)
+    lo[:, :n] = tl.reshape(M, n)
+    cnt = np.full(M, n, dtype=np.int32)
+    cnt[3:7] = rng.integers(0, n, size=4)  # partly padded rows
+    qh2, ql2 = SL.split_kmers_hi_lo(queries, K)
+    qh = np.where(has, qh2, 0).astype(np.uint32)
+    ql = np.where(has, ql2, 0).astype(np.uint32)
+    return hi, lo, cnt, qh, ql, has
+
+
+def seed_match_torch(hi, lo, cnt, qh, ql, has, device="cpu"):
+    i32 = lambda a: torch.from_numpy(a.view(np.int32).copy()).to(device)  # noqa: E731
+    return (i32(hi), i32(lo), torch.from_numpy(cnt.copy()).to(device), i32(qh), i32(ql),
+            torch.from_numpy(has.copy()).to(device))
+
+
+def phase4_tensors(device, seed=3, n_sites=24):
+    """A small phase-4 batch from chip_smoke.phase4_case: the resident blob,
+    the window table (both strands) and the query tables on `device`, plus
+    (windows, queries-as-SeqComparators) for the host oracle."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import genome_codes, phase4_case
+
+    from lexicmap_tpu_torch.index.search import SearchOptions
+    from lexicmap_tpu_torch.ops.seqcompare import SeqComparator
+    from lexicmap_tpu_torch.parallel.pseudo_device import WORDS_OUT, build_query_table
+    from lexicmap_tpu_torch.parallel.resident import DeviceGenomeBlob
+
+    stores, qcodes, wins = phase4_case(2, 3, 1 << 16, 4, n_sites, seed)
+    blob = DeviceGenomeBlob(stores, device=device)
+    cprs = []
+    for q in qcodes:
+        cpr = SeqComparator(SearchOptions().seqcompare_options())
+        cpr.index(q)
+        cprs.append(cpr)
+    win = np.zeros((len(wins), 8), dtype=np.int64)
+    windows = []
+    for i, (qi, st, g, a, b, rc) in enumerate(wins):
+        wb, ph, L = blob.geometry(st, g, a, b, rc, WORDS_OUT)
+        win[i] = (wb, ph, L, int(rc), qi, 0, qcodes[qi].shape[0] - 1, 11)
+        codes = genome_codes(stores[st], g, a, b)
+        windows.append((qi, np.ascontiguousarray((3 - codes)[::-1] if rc else codes), 0,
+                        qcodes[qi].shape[0] - 1))
+    tables = [torch.from_numpy(a).to(device)
+              for a in build_query_table([(c.qk, c.qv) for c in cprs])[:4]]
+    return blob, torch.from_numpy(win).to(device), tables, windows, cprs
