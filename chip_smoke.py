@@ -16,8 +16,10 @@ Phases, each of which raises on a wrong result (nothing falls back):
      table vs a numpy bisection oracle;
   5. phase 4 at real state size: a >= 1 GB resident genome blob (1,000
      genomes of 4 Mb) with mutated copies of 32 queries planted at 2,048
-     window sites; pseudo_probe and pseudo_chain vs their plain versions,
-     and DevicePseudoAligner.run_batch vs the native oracle;
+     window sites; pseudo_probe and pseudo_chain vs their plain versions
+     there, pseudo_chain also on the chain stress windows of
+     tests/torch_parity.py, and DevicePseudoAligner.run_batch vs the native
+     oracle;
   6. end to end: a 200-genome index built with the port's `index` command,
      40 queries with 3% mutations plus a many-hit set (32 queries planted in
      16 genomes each) searched with the device engine (phases 2a and 4 on
@@ -725,6 +727,53 @@ def compare_pseudo(dev, blob, win, tables, chain_args):
     return probe, chain, perr, cerr, probe_plain_ms, chain_plain_ms
 
 
+def chain_chunk_steps(qb, tb, ln, counts, band_base, band_count, max_gap):
+    """Per window, the serial steps of pseudo_chain's warp DP on these
+    anchors: for each anchor i, the 32-predecessor chunks its scan reads,
+    from j = i - 1 down to the first break of the band rules (the plain
+    DP's cut) or j = 0.  int64 [W]."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels.pseudo_align import _chain_dp
+
+    n = counts.to(torch.int64)
+    N = int(n.max()) if n.numel() else 0
+    q, t, l = (a[:, :N].to(torch.int64) for a in (qb, tb, ln))
+    cut = _chain_dp(q, t, l, n, band_base, band_count, max_gap)[2]
+    i = torch.arange(N, device=q.device)[None, :]
+    visits = i - cut.clamp(min=0)  # j = i - 1 down to the cut, or to 0
+    return torch.where(i < n[:, None], (visits + 31) // 32, 0).sum(1)
+
+
+def chain_stress(dev):
+    """pseudo_chain against its plain version on the chain stress windows of
+    tests/torch_parity.py (band_count reached mid-chunk, breaks on every
+    lane, ties across a chunk boundary and with the DP's start, bt > at
+    skips, 1 to A_CAP anchors, a probe-flagged window) under each of its
+    parameter sets; the plain version runs on a CPU copy.  Returns the
+    largest |kernel - plain| and the rows compared.  These launches are
+    taken off the kernel's counter."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_parity import CHAIN_PARAMS, chain_stress_windows, chain_tensors
+
+    from lexicmap_tpu_torch.kernels import pseudo_align as PA
+
+    wins = chain_stress_windows(a_cap=PA.A_CAP)
+    args = chain_tensors(wins + [wins[2]], dev, flagged=[len(wins)])
+    host = [a.cpu() for a in args]
+    n0, err, n_rows = PA.pseudo_chain.launches, 0, 0
+    for params in CHAIN_PARAMS:
+        got = [t.cpu() for t in PA.pseudo_chain(*args, *params)]
+        want = PA.pseudo_chain_plain(*host, *params)
+        err = max(err, int((got[1] - want[1]).abs().max()), int((got[2] - want[2]).abs().max()),
+                  prefix_err(got[0], want[0], torch.maximum(got[1], want[1]), PA.C_CAP))
+        n_rows += int(want[1].sum())
+    PA.pseudo_chain.launches = n0
+    return err, len(args[3]), n_rows
+
+
 def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, seed, reps):
     import numpy as np
     import torch
@@ -733,7 +782,8 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
     from lexicmap_tpu_torch.kernels import pseudo_align as PA
     from lexicmap_tpu_torch.ops.seqcompare import SeqComparator
     from lexicmap_tpu_torch.ops.seqcompare import min_prefix_for
-    from lexicmap_tpu_torch.parallel.pseudo_device import DevicePseudoAligner, build_query_table
+    from lexicmap_tpu_torch.parallel.pseudo_device import (
+        DevicePseudoAligner, query_tables)
     from lexicmap_tpu_torch.parallel.resident import DeviceGenomeBlob
 
     t0 = time.perf_counter()
@@ -763,8 +813,8 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
         geoms.append((wb, ph, rc))
         win[i] = (wb, ph, L, int(rc), qi, 0, qcodes[qi].shape[0] - 1,
                   min_prefix_for(L, opts.min_prefix))
-    qk, qv, qoff, qtab, ok = build_query_table(queries)
-    tables = [torch.from_numpy(a).to(dev) for a in (qk, qv, qoff, qtab)]
+    tables, _ok = query_tables(queries, dev)
+    qoff = tables[2].tolist()
     win_d = torch.from_numpy(win).to(dev)
     chain_args = (copt.band_base, copt.band_count, int(copt.max_gap), float(copt.min_score),
                   copt.min_align_len, float(copt.heuristic_kmer_pident_threshold))
@@ -782,12 +832,27 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
         f"({int((probe[3] > 0).sum())} with anchors, {int(chain[1].sum())} chain rows, "
         f"{int((probe[4] != 0).sum() + (chain[2] != 0).sum())} flagged)")
 
-    # kernel times: the sample (the plain versions' shape) and all windows
-    probe_ms = time_ms(lambda: PA.pseudo_probe(blob.words, ws, *tables), dev, reps)
+    stress_err, stress_windows, stress_rows = chain_stress(dev)
+    if stress_err:
+        raise AssertionError(f"pseudo_chain != plain on the chain stress set (max abs err "
+                             f"{stress_err})")
+    log(f"[phase4] pseudo_chain == plain on the chain stress set ({stress_windows} windows under "
+        f"each parameter set of tests/torch_parity.py, {stress_rows} chain rows)")
+
+    # kernel times: the sample (the plain versions' shape) and all windows,
+    # the probe called as run_batch calls it (its window table checked on
+    # the host copy, so the wrapper does not read it back)
+    PA.check_windows(win, len(queries))
+    probe_ms = time_ms(lambda: PA.pseudo_probe(blob.words, ws, *tables, checked=True), dev,
+                       reps)
     chain_ms = time_ms(lambda: PA.pseudo_chain(*probe, *chain_args), dev, reps)
-    full = PA.pseudo_probe(blob.words, win_d, *tables)
-    full_probe_ms = time_ms(lambda: PA.pseudo_probe(blob.words, win_d, *tables), dev, reps)
+    full = PA.pseudo_probe(blob.words, win_d, *tables, checked=True)
+    full_probe_ms = time_ms(lambda: PA.pseudo_probe(blob.words, win_d, *tables, checked=True),
+                            dev, reps)
     full_chain_ms = time_ms(lambda: PA.pseudo_chain(*full, *chain_args), dev, reps)
+    # the batch's query tables ready on the card: host staging, the copy
+    # and the bucket table (CUDA events around whole calls)
+    tables_ms = time_ms(lambda: query_tables(queries, dev), dev, reps)
 
     # bounds from this run's data
     ns = sample.tolist()
@@ -796,7 +861,7 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
     positions = sum(max(int(win[i, 2]) - PA.K + 1, 0) for i in ns)
     code_bytes = sum((int(win[i, 2]) + 3) // 4 for i in ns)
     qsel = sorted({int(win[i, 4]) for i in ns})
-    qtab_bytes = len(qsel) * qtab.shape[1] * 4
+    qtab_bytes = len(qsel) * tables[3].shape[1] * 4
     table_bytes = sum(int(qoff[i + 1] - qoff[i]) * 12 for i in qsel)
     pb_bytes = code_bytes + ws.numel() * 8 + table_bytes + qtab_bytes + anchors * 12 + 8 * n_sample
     counts = probe[3].tolist()
@@ -814,7 +879,13 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
         f"pseudo_chain {chain_ms:.4f} ms (plain {chain_plain_ms:.1f} ms, bound {max(ch):.5f} "
         f"ms by {'bytes' if ch[0] >= ch[1] else 'operations'}) [{card}]")
     log(f"[phase4] all {len(wins)} windows in one launch: pseudo_probe {full_probe_ms:.4f} ms, "
-        f"pseudo_chain {full_chain_ms:.4f} ms [{card}]")
+        f"pseudo_chain {full_chain_ms:.4f} ms; the {len(queries)} queries' tables built on the "
+        f"card in {tables_ms:.4f} ms [{card}]")
+    steps = chain_chunk_steps(*full[:4], copt.band_base, copt.band_count, int(copt.max_gap))
+    serial = {"max": int(steps.max()), "mean": float(steps.float().mean()),
+              "anchors_of_longest": int(full[3][int(steps.argmax())])}
+    log(f"[phase4] pseudo_chain's serial warp steps per window (32-predecessor chunks), all "
+        f"{len(wins)} windows: {json.dumps(serial)}")
 
     # run_batch on every window vs the native oracle
     aligner = DevicePseudoAligner(copt.band_base, copt.band_count, int(copt.max_gap),
@@ -861,9 +932,10 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
     res_chain = {"windows": n_sample, "ms": chain_ms, "plain_ms": chain_plain_ms,
                  "bound_ms": max(ch), "bound_by": "bytes" if ch[0] >= ch[1] else "operations",
                  "full_windows": len(wins), "full_ms": full_chain_ms, "dp_visits": scan,
-                 "rows": rows_out, "max_abs_err": chain_err}
+                 "rows": rows_out, "max_abs_err": max(chain_err, stress_err),
+                 "serial_steps": serial}
     info = {"host_share": host_share, "blob_bytes": blob.hbm_bytes, "run_batch_s": run_s,
-            "run_batch_upload_s": up_s}
+            "run_batch_upload_s": up_s, "tables_ms": tables_ms}
     del blob, full, probe, chain
     return res_probe, res_chain, info
 
@@ -971,8 +1043,9 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
         raise AssertionError("the 200-genome store must be resident on the card")
     log(f"[e2e] {dev_idx.device_matcher.describe()}; resident genome blob "
         f"{eng.blob.hbm_bytes / 1e6:.1f} MB; init + warm pass {init_s:.1f} s")
-    for key in eng.times:
-        eng.times[key] = 0.0
+    for times in (eng.times, eng.pseudo.times):  # the timed passes only, as the stats
+        for key in times:
+            times[key] = 0.0
     for key in eng.pseudo.stats:
         eng.pseudo.stats[key] = 0
 
@@ -989,10 +1062,10 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
 
     recorded, keep, real_probe = [], ["main path, first batch"], PD.pseudo_probe
 
-    def recording_probe(*a):
+    def recording_probe(*a, **kw):
         if len(recorded) < len(keep):
             recorded.append((keep[len(recorded)], a))
-        return real_probe(*a)
+        return real_probe(*a, **kw)
 
     PD.pseudo_probe = recording_probe
     try:
@@ -1087,9 +1160,11 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
     log(f"[e2e] device rows == host rows ({sum(map(len, dev_rows))} rows), all {n} "
         f"queries top-hit their genome; launches {json.dumps(launches)} in {len(dev_s)} passes "
         f"({batches} batches)")
+    ptimes_batch = {k: v * 1e3 / batches for k, v in ptimes.items()}
     log(f"[e2e] phase 4 on the card: {stats['device_windows']} of {stats['windows']} windows "
         f"answered there ({device_share:.4f}), {per_batch:.1f} windows per batch; stats "
-        f"{json.dumps(stats)}; aligner times (s) {json.dumps(ptimes)}")
+        f"{json.dumps(stats)}; aligner host times per batch (ms; the host waits for the card "
+        f"under chain_dispatch) {json.dumps(ptimes_batch)}")
     log(f"[e2e] q/min per pass: device {dev_qpm}, host {host_qpm} [{card}]")
     log(f"[e2e] q/min median (min-max) over {len(dev_s)} passes of {n} queries each: "
         f"device {np.median(dev_qpm):.1f} ({min(dev_qpm):.1f}-{max(dev_qpm):.1f}), "
@@ -1158,7 +1233,8 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
     log(f"[e2e] cli search --engine device: TSV == host rows ({len(tsv)} rows); "
         f"launches {json.dumps(cli_launches)}")
     return {"launches": launches, "single_launches": single_launches, "dev_qpm": dev_qpm,
-            "host_qpm": host_qpm, "times": times, "rows": sum(map(len, dev_rows)),
+            "host_qpm": host_qpm, "times": times, "pseudo_ms_per_batch": ptimes_batch,
+            "rows": sum(map(len, dev_rows)),
             "shapes": shapes, "hbm_bytes": dev_idx.device_matcher.hbm_bytes,
             "main_path_err": main_err,
             "device_share": device_share, "windows_per_batch": per_batch,

@@ -8,42 +8,56 @@
 // removal / tandem trim of compare_prepare, chain2_forward, and
 // chain2_backtrack with c2_region.
 //
-// pseudo_probe, one CTA (512 threads) per window:
+// pseudo_probe, one CTA (512 threads, 69 KB of shared memory, three per SM)
+// per window:
 //   1. read the window's 2-bit words from the resident genome blob into
 //      shared memory: funnel shift by the phase, and for a reverse-complement
 //      window take the geometry block's words back to front, reversed in-word
 //      and complemented (extract_packed's arithmetic, word by word);
 //   2. one thread per position builds the forward and reverse-complement
-//      31-mers from three shared words, drops homopolymers, and probes the
-//      query's 16-bit prefix bucket table plus a lower_bound over its sorted
-//      k-mers; every pair that passes the strand and begin/end rules is
-//      appended with a shared atomic, keyed (qb, A - qe, tb) in 63 bits and
-//      tagged with its emission order 2*position + strand, which is the
-//      host's order among equal keys;
-//   3. bitonic sort of (key, tag) in shared memory;
+//      31-mers from three shared words, drops homopolymers, loads both
+//      strands' bounds from the query's 16-bit prefix bucket table at once,
+//      and runs a lower_bound over its sorted k-mers; every pair that passes
+//      the strand and begin/end rules takes a slot (one shared atomicAdd per
+//      group of lanes that append together) and is written as one u64 key
+//      (qb, K - ln, tb, emission tag 2*position + strand): the host's order,
+//      equal anchors in emission order, in one word;
+//   3. bitonic sort of the keys, padded to a power of two of at least 128:
+//      merges within 128-key blocks run in registers (shuffles and in-lane
+//      swaps), only partners 128 or more apart go through shared memory
+//      between block barriers;
 //   4. nested-anchor removal, one thread per anchor: anchor i against every
 //      earlier anchor of the sorted, uncompacted array from
-//      lower_bound(qe_i - k), as the host loop does, so no window cap;
-//   5. a stable compaction (block scan), then the trim on one thread, with
-//      its two double compares made in double as on the host.
-// pseudo_chain, one thread per window: the integer DP with the early-exit
-// and band_count rules as written, ties to the smallest j, then the
-// backtrack with an explicit region stack (the left region pushed first, so
-// the right one pops first: the recursion's emission order), the pident
-// gate in double.
+//      lower_bound(qe_i - k), as the host loop does, so no window cap; the
+//      keep bits are each warp's ballot;
+//   5. a stable compaction (a scan of the keep words), then the trim on one
+//      thread, with its two double compares made in double as on the host.
+// pseudo_chain, one warp per window (four per block): the window's q, t, ln
+// and the DP's ms (score + ln) and prev sit in the warp's 1,280-anchor slice
+// of shared memory, or past it in global memory through the same code.
+// Anchor i scans its predecessors 32 at a time, lane l taking j = i-1-32c-l:
+// a ballot of eligibility and a prefix popcount give each lane the host
+// loop's band_count before and after j, a ballot of the two break rules
+// finds the first breaking lane, and a warp max (ties to the largest lane,
+// the smallest j) merges with the running best by s >= m, exactly as the
+// host's serial scan.  The backtrack keeps the explicit region stack (left
+// region pushed first, so the right one pops first: the recursion's
+// emission order) walked by every lane in step, the region maxima as warp
+// reductions (strict >, ties to the smallest i), lane 0 writing the rows;
+// the pident gate in double.
 //
-// Bound.  pseudo_probe moves few bytes (the window's 2-bit codes, the query
-// table entries it probes, the anchors it writes) and does few operations;
-// it is bound by the latency of the dependent probes and by the block-wide
-// barriers of the sort.  pseudo_chain is bound by its serial DP: one thread
-// per window walks ~70 predecessors per anchor, and since neighbouring
-// threads read different windows its loads are neither coalesced nor
-// overlapped, so each costs a full L2 round trip.  chip_smoke.py computes
-// both bounds from the run's own data (PERF.md has the times).  Making them
-// fast (a warp per window scanning 32 predecessors at once with ballots, a
-// segmented sort) is later work.
+// Bound.  Both kernels move few bytes and do few operations (chip_smoke.py
+// computes the bounds from the run's own data; PERF.md has the times).
+// pseudo_probe is bound by latency: the dependent table and k-mer loads of
+// the probe (now half its cycles), then the sort's shared-memory stages and
+// barriers.  pseudo_chain is bound by the serial DP: each warp step waits
+// on the previous anchor's score, so a window costs its count of 32-
+// predecessor chunk steps (~2,500 on the 1 GB set) of a few shared-memory
+// round trips and warp reductions each; the warp makes the loads coalesced
+// and 32-wide, the slices in shared memory make them short.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -56,16 +70,24 @@ constexpr int QTAB_BITS = 16;
 constexpr int COORD_BITS = 21;
 constexpr uint64_t COORD_MAX = (1ull << COORD_BITS) - 1;
 constexpr uint64_t M62 = (1ull << 62) - 1;
+constexpr int TAG_BITS = 15;  // emission tags 2 * position + strand < 2 * L_CAP
 constexpr int PROBE_THREADS = 512;
-constexpr int PER_THREAD = A_CAP / PROBE_THREADS;
-constexpr int CHAIN_THREADS = 64;
+constexpr int PROBE_BLOCKS_PER_SM = 3;  // 69 KB of shared memory each
+constexpr int SORT_E = 4;               // keys a lane holds in the sort's register stages
+constexpr int SORT_BLOCK = 32 * SORT_E;  // keys a warp sorts in registers
+constexpr int CHAIN_WARPS = 4;      // windows per pseudo_chain block, a warp each
+constexpr int CHAIN_SLICE = 1280;   // anchors a warp stages in shared memory
+constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int F_ANCHOR_OVERFLOW = 1;
 constexpr int F_CHAIN_OVERFLOW = 16;
 constexpr int F_STACK_OVERFLOW = 32;
 
-constexpr size_t PROBE_SMEM =
-    A_CAP * sizeof(uint64_t) + A_CAP * sizeof(uint32_t) + (L_CAP / 16 + 2) * sizeof(uint32_t);
+constexpr size_t CHAIN_SMEM = (size_t)CHAIN_WARPS * 5 * CHAIN_SLICE * sizeof(int32_t);
+constexpr size_t PROBE_SMEM = A_CAP * sizeof(uint64_t) + (L_CAP / 16 + 2) * sizeof(uint32_t);
+static_assert(L_CAP / 16 + 2 >= A_CAP / 32, "the keep bits reuse the window's words");
+static_assert(2 * L_CAP <= (1 << TAG_BITS), "emission tags fit the key's tag field");
+static_assert(A_CAP / 32 <= PROBE_THREADS, "one keep word per thread in the compaction scan");
 
 __device__ __forceinline__ uint32_t rev_pairs32(uint32_t x) {
   x = ((x & 0x33333333u) << 2) | ((x >> 2) & 0x33333333u);
@@ -94,23 +116,45 @@ __device__ __forceinline__ int64_t lower_bound_u64(const int64_t* __restrict__ t
   return lo;
 }
 
-__device__ __forceinline__ bool pair_less(uint64_t ka, uint32_t ta, uint64_t kb, uint32_t tb) {
-  return ka < kb || (ka == kb && ta < tb);
+// A slot for this lane's anchor: the lanes that reach the append together
+// take consecutive slots with one shared atomicAdd, made by the first of them.
+__device__ __forceinline__ int warp_slot(int* counter) {
+  const unsigned act = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(act) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(act));
+  return __shfl_sync(act, base, leader) + __popc(act & ((1u << lane) - 1u));
 }
 
-__device__ __forceinline__ int64_t key_qb(uint64_t key) { return (int64_t)(key >> (2 * COORD_BITS)); }
-__device__ __forceinline__ int64_t key_qe(uint64_t key) {
-  return (int64_t)(COORD_MAX - ((key >> COORD_BITS) & COORD_MAX));
+// The anchor sort key, the host's order in one u64: qb ascending in bits
+// 41-61, qe descending as K - ln in bits 36-40 (qe = qb + ln, ln <= K), tb
+// ascending in bits 15-35, and the emission tag 2 * position + strand
+// (< 2^15) in bits 0-14, which orders equal (qb, qe, tb) as the host emits
+// them.  ~0 pads the sort.
+constexpr int LN_SHIFT = TAG_BITS + COORD_BITS;
+constexpr int QB_SHIFT = LN_SHIFT + 5;
+
+__device__ __forceinline__ uint64_t anchor_key(int64_t qb, int64_t ln, int64_t tb, uint32_t tag) {
+  return ((uint64_t)qb << QB_SHIFT) | ((uint64_t)(K - ln) << LN_SHIFT) |
+         ((uint64_t)tb << TAG_BITS) | tag;
 }
-__device__ __forceinline__ int64_t key_tb(uint64_t key) { return (int64_t)(key & COORD_MAX); }
+__device__ __forceinline__ int64_t key_qb(uint64_t key) { return (int64_t)(key >> QB_SHIFT); }
+__device__ __forceinline__ int64_t key_ln(uint64_t key) {
+  return K - (int64_t)((key >> LN_SHIFT) & 31);
+}
+__device__ __forceinline__ int64_t key_qe(uint64_t key) { return key_qb(key) + key_ln(key); }
+__device__ __forceinline__ int64_t key_tb(uint64_t key) {
+  return (int64_t)((key >> TAG_BITS) & COORD_MAX);
+}
 
 // the trim's run condition (core.cpp compare_prepare): a in front of b,
 // `prev` the run's previous anchor whose length divides the overlap
 __device__ bool trim_cond(const uint64_t* keys, int a, int b, int prev) {
   const int64_t qa = key_qb(keys[a]), qb2 = key_qb(keys[b]);
   const int64_t ta = key_tb(keys[a]), tb2 = key_tb(keys[b]);
-  const int64_t la = key_qe(keys[a]) - qa;
-  const int64_t lp = key_qe(keys[prev]) - key_qb(keys[prev]);
+  const int64_t la = key_ln(keys[a]);
+  const int64_t lp = key_ln(keys[prev]);
   const int64_t dq = qa > qb2 ? qa - qb2 : qb2 - qa;
   const int64_t dt = ta > tb2 ? ta - tb2 : tb2 - ta;
   if (!((double)(dq > dt ? dq : dt) < 100.0)) return false;
@@ -122,7 +166,82 @@ __device__ bool trim_cond(const uint64_t* keys, int a, int b, int prev) {
   return gap > 11 && (double)(qo > to ? qo : to) / (double)lp > 0.8;
 }
 
-__global__ void __launch_bounds__(PROBE_THREADS) pseudo_probe_kernel(
+// ---- the bitonic sort of the keys.  A stage compares each key i with its
+// partner i ^ j, ascending where i & k2 == 0.  Lane l of a warp holds keys
+// base + l + 32 e (e < SORT_E) of a SORT_BLOCK-key block in registers: a
+// partner fewer than 32 keys away is a shuffle away, one 32 or 64 away sits
+// in the same lane.  Only stages with j >= SORT_BLOCK go through shared
+// memory, between block barriers.
+
+template <int D>  // partners 32 * D apart: registers e and e + D of a lane
+__device__ __forceinline__ void stage_in_lane(uint64_t (&x)[SORT_E], int i0, int k2) {
+#pragma unroll
+  for (int e = 0; e < SORT_E; ++e) {
+    if (e & D) continue;
+    const bool up = ((i0 + 32 * e) & k2) == 0;
+    const uint64_t a = x[e], b = x[e + D];
+    const bool sw = up ? b < a : a < b;
+    x[e] = sw ? b : a;
+    x[e + D] = sw ? a : b;
+  }
+}
+
+__device__ __forceinline__ void stage_shuffle(uint64_t (&x)[SORT_E], int i0, int k2, int j) {
+#pragma unroll
+  for (int e = 0; e < SORT_E; ++e) {
+    const int i = i0 + 32 * e;
+    const uint64_t y = __shfl_xor_sync(FULL, x[e], j);
+    const bool keep_min = ((i & j) == 0) == ((i & k2) == 0);
+    x[e] = keep_min == (x[e] < y) ? x[e] : y;
+  }
+}
+
+// the stages j = j_top .. 1 of merge k2 within one block (i0 = base + lane)
+__device__ __forceinline__ void stages_in_block(uint64_t (&x)[SORT_E], int i0, int k2, int j_top) {
+  static_assert(SORT_E == 4, "the in-lane stages are written for 4 keys a lane");
+  if (j_top >= 64) stage_in_lane<2>(x, i0, k2);
+  if (j_top >= 32) stage_in_lane<1>(x, i0, k2);
+  for (int j = j_top < 16 ? j_top : 16; j > 0; j >>= 1) stage_shuffle(x, i0, k2, j);
+}
+
+// keys[0, P) ascending; P a power of two in [SORT_BLOCK, A_CAP]
+__device__ void sort_keys(uint64_t* keys, int P) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int WARPS = PROBE_THREADS / 32;
+  uint64_t x[SORT_E];
+  // merges k2 = 2 .. SORT_BLOCK: each block wholly in one warp's registers
+  for (int base = warp * SORT_BLOCK; base < P; base += WARPS * SORT_BLOCK) {
+#pragma unroll
+    for (int e = 0; e < SORT_E; ++e) x[e] = keys[base + lane + 32 * e];
+    for (int k2 = 2; k2 <= SORT_BLOCK; k2 <<= 1) stages_in_block(x, base + lane, k2, k2 >> 1);
+#pragma unroll
+    for (int e = 0; e < SORT_E; ++e) keys[base + lane + 32 * e] = x[e];
+  }
+  __syncthreads();
+  for (int k2 = 2 * SORT_BLOCK; k2 <= P; k2 <<= 1) {
+    for (int j = k2 >> 1; j >= SORT_BLOCK; j >>= 1) {
+      for (int p = tid; p < P / 2; p += PROBE_THREADS) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));  // bit j of i clear
+        const uint64_t a = keys[i], b = keys[i + j];
+        if ((i & k2) == 0 ? b < a : a < b) {
+          keys[i] = b;
+          keys[i + j] = a;
+        }
+      }
+      __syncthreads();
+    }
+    for (int base = warp * SORT_BLOCK; base < P; base += WARPS * SORT_BLOCK) {
+#pragma unroll
+      for (int e = 0; e < SORT_E; ++e) x[e] = keys[base + lane + 32 * e];
+      stages_in_block(x, base + lane, k2, SORT_BLOCK / 2);
+#pragma unroll
+      for (int e = 0; e < SORT_E; ++e) keys[base + lane + 32 * e] = x[e];
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(PROBE_THREADS, PROBE_BLOCKS_PER_SM) pseudo_probe_kernel(
     const uint32_t* __restrict__ blob, int64_t n_words,
     const int64_t* __restrict__ win,       // [W, 8]
     int words_out,
@@ -135,12 +254,12 @@ __global__ void __launch_bounds__(PROBE_THREADS) pseudo_probe_kernel(
     int32_t* __restrict__ counts, int32_t* __restrict__ flags) {
   extern __shared__ uint64_t smem[];
   uint64_t* keys = smem;                               // [A_CAP]
-  uint32_t* tags = (uint32_t*)(keys + A_CAP);          // [A_CAP]
-  uint32_t* words = tags + A_CAP;                      // [L_CAP/16 + 2]
+  uint32_t* words = (uint32_t*)(keys + A_CAP);         // [L_CAP/16 + 2]; later keep bits
   __shared__ int s_n, s_lo, s_cnt;
-  __shared__ int s_scan[PROBE_THREADS];
+  __shared__ int s_warp[PROBE_THREADS / 32];
+  __shared__ int s_woff[A_CAP / 32];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int w = blockIdx.x;
   const int64_t* g = win + (int64_t)w * 8;
   const int64_t word_base = g[0];
@@ -190,21 +309,23 @@ __global__ void __launch_bounds__(PROBE_THREADS) pseudo_probe_kernel(
     const uint64_t fwd = y >> 2;  // code i in the top pair
     if (fwd == 0 || fwd == ccc || fwd == ggg || fwd == ttt) continue;
     const uint64_t rcm = ~x & M62;
+    // both strands' bucket bounds at once: four independent loads
+    int64_t bnd[2][2] = {{0, nq}, {0, nq}};
+    if (use_tab) {
+      const uint64_t bf = fwd >> (2 * K - QTAB_BITS), br = rcm >> (2 * K - QTAB_BITS);
+      bnd[0][0] = tab[bf];
+      bnd[0][1] = tab[bf + 1];
+      bnd[1][0] = tab[br];
+      bnd[1][1] = tab[br + 1];
+    }
+#pragma unroll
     for (int s = 0; s < 2; ++s) {
       const uint64_t t = s == 0 ? fwd : rcm;
       const uint64_t lb = t & ~suf, rb = t | suf;
-      int64_t lo, jhi;
-      if (use_tab) {
-        const uint64_t b = t >> (2 * K - QTAB_BITS);
-        const int64_t blo = tab[b], bhi = tab[b + 1];
-        if (blo >= bhi) continue;
-        lo = lower_bound_u64(qkq, blo, bhi, lb);
-        jhi = bhi;
-      } else {
-        lo = lower_bound_u64(qkq, 0, nq, lb);
-        jhi = nq;
-      }
-      for (int64_t j = lo; j < jhi && (uint64_t)qkq[j] <= rb; ++j) {
+      const int64_t jhi = bnd[s][1];
+      if (bnd[s][0] >= jhi) continue;
+      for (int64_t j = lower_bound_u64(qkq, bnd[s][0], jhi, lb);
+           j < jhi && (uint64_t)qkq[j] <= rb; ++j) {
         const uint64_t d = t ^ (uint64_t)qkq[j];
         const int lcp = d == 0 ? K : (__clzll((long long)d) >> 1) + (K - 32);
         const uint32_t v = (uint32_t)qvq[j];
@@ -220,12 +341,8 @@ __global__ void __launch_bounds__(PROBE_THREADS) pseudo_probe_kernel(
           if (aq + lcp < begin || aq > end) continue;
           at = i + K - lcp;
         }
-        const int slot = atomicAdd(&s_n, 1);
-        if (slot < A_CAP) {
-          keys[slot] = ((uint64_t)aq << (2 * COORD_BITS)) |
-                       ((COORD_MAX - (uint64_t)(aq + lcp)) << COORD_BITS) | (uint64_t)at;
-          tags[slot] = 2u * (uint32_t)i + (uint32_t)s;
-        }
+        const int slot = warp_slot(&s_n);
+        if (slot < A_CAP) keys[slot] = anchor_key(aq, lcp, at, 2u * (uint32_t)i + (uint32_t)s);
       }
     }
   }
@@ -239,78 +356,69 @@ __global__ void __launch_bounds__(PROBE_THREADS) pseudo_probe_kernel(
     return;
   }
 
-  // ---- 3. bitonic sort of (key, tag) ----
-  int P = 1;
+  // ---- 3. sort (key, tag), padded to a power of two ----
+  int P = SORT_BLOCK;
   while (P < n) P <<= 1;
-  for (int i = n + tid; i < P; i += blockDim.x) {
-    keys[i] = ~0ull;
-    tags[i] = ~0u;
-  }
+  for (int i = n + tid; i < P; i += blockDim.x) keys[i] = ~0ull;
   __syncthreads();
-  for (int k2 = 2; k2 <= P; k2 <<= 1) {
-    for (int j = k2 >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < P; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const bool up = (i & k2) == 0;
-          const uint64_t ka = keys[i], kb = keys[ixj];
-          const uint32_t ta = tags[i], tb = tags[ixj];
-          if (pair_less(kb, tb, ka, ta) == up) {
-            keys[i] = kb; keys[ixj] = ka;
-            tags[i] = tb; tags[ixj] = ta;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  sort_keys(keys, P);
 
-  // ---- 4. nested-anchor removal (keep flags into tags) ----
-  for (int i = tid; i < n; i += blockDim.x) {
-    uint32_t keep = 1;
-    if (i > 0) {
+  // ---- 4. nested-anchor removal: anchor i against every earlier anchor of
+  // the sorted array from lower_bound(qe_i - k); a warp's ballot is the
+  // keep bits of its 32 anchors (the window's words are no longer read) ----
+  uint32_t* keep = words;  // [A_CAP / 32]
+  for (int base = 0; base < n; base += PROBE_THREADS) {
+    const int i = base + tid;
+    bool kept = i < n;
+    if (i > 0 && i < n) {
       const uint64_t ki = keys[i];
       const int64_t qe = key_qe(ki), tb0 = key_tb(ki);
-      const int64_t te = tb0 + qe - key_qb(ki);
-      int64_t up = qe - K;
-      if (up < 0) up = 0;
+      const int64_t te = tb0 + key_ln(ki);
+      const uint64_t first = (uint64_t)(qe > K ? qe - K : 0) << QB_SHIFT;
       int lo = 0, hi = i + 1;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (key_qb(keys[mid]) < up) lo = mid + 1; else hi = mid;
+        if (keys[mid] < first) lo = mid + 1; else hi = mid;
       }
       for (int j = lo; j < i; ++j) {
         const uint64_t kj = keys[j];
-        const int64_t qej = key_qe(kj), tbj = key_tb(kj);
-        if (qe <= qej && tb0 >= tbj && te <= tbj + qej - key_qb(kj)) { keep = 0; break; }
+        const int64_t tbj = key_tb(kj);
+        if (qe <= key_qe(kj) && tb0 >= tbj && te <= tbj + key_ln(kj)) { kept = false; break; }
       }
     }
-    tags[i] = keep;  // only keys are read in this loop
+    const unsigned bits = __ballot_sync(FULL, kept);
+    if (lane == 0) keep[(base >> 5) + warp] = bits;
   }
   __syncthreads();
 
-  // ---- 5a. stable compaction of the kept anchors ----
-  const int per = (n + blockDim.x - 1) / blockDim.x;
-  const int s0 = min(n, tid * per), s1 = min(n, s0 + per);
-  int mine = 0;
-  for (int i = s0; i < s1; ++i) mine += (int)tags[i];
-  s_scan[tid] = mine;
+  // ---- 5a. stable compaction: each keep word's offset by a block scan, then
+  // the kept keys move down in rounds of PROBE_THREADS ----
+  const int nw = (n + 31) >> 5;  // <= A_CAP / 32 <= PROBE_THREADS
+  const int c = tid < nw ? __popc(keep[tid]) : 0;
+  int incl = c;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
   __syncthreads();
-  for (int d = 1; d < (int)blockDim.x; d <<= 1) {
-    const int v = tid >= d ? s_scan[tid - d] : 0;
+  int before = 0, nk = 0;
+  for (int k = 0; k < PROBE_THREADS / 32; ++k) {
+    before += k < warp ? s_warp[k] : 0;
+    nk += s_warp[k];
+  }
+  if (tid < nw) s_woff[tid] = before + incl - c;
+  __syncthreads();
+  for (int base = 0; base < n; base += PROBE_THREADS) {
+    const int i = base + tid;
+    const uint32_t word = i < n ? keep[i >> 5] : 0;
+    const bool kept = (word >> (i & 31)) & 1u;
+    const uint64_t key = kept ? keys[i] : 0;
+    const int pos = kept ? s_woff[i >> 5] + __popc(word & ((1u << (i & 31)) - 1u)) : 0;
     __syncthreads();
-    s_scan[tid] += v;
+    if (kept) keys[pos] = key;
     __syncthreads();
   }
-  const int base = s_scan[tid] - mine;
-  const int nk = s_scan[blockDim.x - 1];
-  uint64_t buf[PER_THREAD];
-  int c = 0;
-  for (int i = s0; i < s1; ++i)
-    if (tags[i]) buf[c++] = keys[i];
-  __syncthreads();
-  for (int x = 0; x < c; ++x) keys[base + x] = buf[x];
-  __syncthreads();
 
   // ---- 5b. tandem-repeat trim on one thread ----
   if (tid == 0) {
@@ -346,10 +454,9 @@ __global__ void __launch_bounds__(PROBE_THREADS) pseudo_probe_kernel(
   int32_t* ol = out_ln + (int64_t)w * A_CAP;
   for (int x = tid; x < cnt; x += blockDim.x) {
     const uint64_t key = keys[lo + x];
-    const int64_t qb = key_qb(key);
-    oq[x] = (int32_t)qb;
+    oq[x] = (int32_t)key_qb(key);
     ot[x] = (int32_t)key_tb(key);
-    ol[x] = (int32_t)(key_qe(key) - qb);
+    ol[x] = (int32_t)key_ln(key);
   }
 }
 
@@ -360,65 +467,128 @@ struct Region {
   int lo, hi, mi;
 };
 
-__global__ void __launch_bounds__(CHAIN_THREADS) pseudo_chain_kernel(
+// The first index of the largest score ms[i] - ln[i] over [lo, hi) (strict
+// >, so ties go to the smallest i), reduced over the warp; every lane gets
+// (best, bi).  An empty range gives (INT_MIN, INT_MAX).
+__device__ __forceinline__ void region_max(const int32_t* cm, const int32_t* cl, int lo, int hi,
+                                           int lane, int& best, int& bi) {
+  int b = INT_MIN, x = INT_MAX;
+  for (int i = lo + lane; i < hi; i += 32) {
+    const int v = cm[i] - cl[i];
+    if (v > b) { b = v; x = i; }
+  }
+  best = __reduce_max_sync(FULL, b);
+  bi = __reduce_min_sync(FULL, b == best ? x : INT_MAX);
+}
+
+__global__ void __launch_bounds__(CHAIN_WARPS * 32) pseudo_chain_kernel(
     const int32_t* __restrict__ aqb, const int32_t* __restrict__ atb,
     const int32_t* __restrict__ aln,        // [W, A_CAP]
     const int32_t* __restrict__ acnt, const int32_t* __restrict__ aflg,
     int W, int band_base, int band_count, int max_gap, double min_score,
     int min_align_len, double heur,
-    int32_t* __restrict__ ms, int32_t* __restrict__ pv,  // scratch [W, A_CAP]
+    int32_t* __restrict__ ms, int32_t* __restrict__ pv,  // [W, A_CAP], past CHAIN_SLICE
     int64_t* __restrict__ rows, int32_t* __restrict__ ccnt, int32_t* __restrict__ cflg,
     int c_cap) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
+  extern __shared__ int32_t chain_smem[];  // [CHAIN_WARPS][5][CHAIN_SLICE]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w = blockIdx.x * CHAIN_WARPS + warp;
+  if (w >= W) return;  // a whole warp: nothing below syncs across warps
   const int n = aflg[w] ? 0 : acnt[w];
   int nout = 0, flag = 0;
   int64_t* out = rows + (int64_t)w * c_cap * 8;
-  const int32_t* cq = aqb + (int64_t)w * A_CAP;
-  const int32_t* ct = atb + (int64_t)w * A_CAP;
-  const int32_t* cl = aln + (int64_t)w * A_CAP;
-  int32_t* sc = ms + (int64_t)w * A_CAP;
-  int32_t* pp = pv + (int64_t)w * A_CAP;
+  const int32_t* gq = aqb + (int64_t)w * A_CAP;
+  const int32_t* gt = atb + (int64_t)w * A_CAP;
+  const int32_t* gl = aln + (int64_t)w * A_CAP;
 
   if (n == 1) {  // align_paths' single-anchor rule
-    const int64_t s = cl[0];
+    const int64_t s = gl[0];
     if ((double)s >= min_score && s >= min_align_len) {
-      const int64_t r[8] = {1, s, s, s, cq[0], cq[0] + s - 1, ct[0], ct[0] + s - 1};
-      for (int c = 0; c < 8; ++c) out[c] = r[c];
+      const int64_t r[8] = {1, s, s, s, gq[0], gq[0] + s - 1, gt[0], gt[0] + s - 1};
+      if (lane < 8) out[lane] = r[lane];
       nout = 1;
     }
   } else if (n >= 2) {
-    // ---- chain2_forward ----
-    int max_ln = 0;
-    for (int j = 0; j < n; ++j) max_ln = max(max_ln, cl[j]);
-    sc[0] = cl[0];
-    pp[0] = 0;
-    for (int i = 1; i < n; ++i) {
-      const int aq = cq[i], at = ct[i];
-      const int thr = aq - max_ln - band_base;
-      int m = cl[i], mj = i, bcount = 0;
-      for (int j = i - 1; j >= 0; --j) {
-        const int bq2 = cq[j];
-        if (bcount >= band_count && bq2 < thr) break;
-        const int bt2 = ct[j];
-        if (bq2 == aq || bt2 > at) continue;
-        ++bcount;
-        const int blj = cl[j];
-        if (aq - bq2 - blj > band_base && bcount > band_count) break;
-        const int qd = aq - bq2, td = at - bt2;
-        const int g = qd > td ? qd - td : td - qd;
-        if (g > max_gap) continue;
-        const int s = sc[j] + blj - g;
-        if (s >= m) { m = s; mj = j; }
+    // the window's columns q, t, ln and the DP's ms (= score + ln) and prev:
+    // in the warp's slice of shared memory when they fit it, else read from
+    // global memory through the same code (the scratch holds ms and prev)
+    const int32_t *cq = gq, *ct = gt, *cl = gl;
+    int32_t* cm = ms + (int64_t)w * A_CAP;
+    int32_t* cp = pv + (int64_t)w * A_CAP;
+    if (n <= CHAIN_SLICE) {
+      int32_t* s = chain_smem + warp * 5 * CHAIN_SLICE;
+      for (int j = lane; j < n; j += 32) {
+        s[j] = gq[j];
+        s[CHAIN_SLICE + j] = gt[j];
+        s[2 * CHAIN_SLICE + j] = gl[j];
       }
-      sc[i] = m;
-      pp[i] = mj;
+      cq = s;
+      ct = s + CHAIN_SLICE;
+      cl = s + 2 * CHAIN_SLICE;
+      cm = s + 3 * CHAIN_SLICE;
+      cp = s + 4 * CHAIN_SLICE;
+      __syncwarp();
     }
 
-    // ---- chain2_backtrack / c2_region with an explicit stack ----
-    int M = 0, Mi = 0;
-    for (int i = 0; i < n; ++i)
-      if (sc[i] > M) { M = sc[i]; Mi = i; }
+    // ---- chain2_forward: anchor i scans its predecessors 32 at a time ----
+    int max_ln = 0;
+    for (int j = lane; j < n; j += 32) max_ln = max(max_ln, cl[j]);
+    max_ln = __reduce_max_sync(FULL, max_ln);
+    if (lane == 0) {
+      cm[0] = 2 * cl[0];
+      cp[0] = 0;
+    }
+    __syncwarp();
+    const unsigned earlier = (1u << lane) - 1u;  // lanes the host loop visits first
+    for (int i = 1; i < n; ++i) {
+      const int aq = cq[i], at = ct[i], al = cl[i];
+      const int thr = aq - max_ln - band_base;
+      int m = al, mj = i, bcount = 0;
+      for (int top = i - 1; top >= 0; top -= 32) {
+        const int j = top - lane;  // lane l of the chunk: the l-th predecessor visited
+        int qj = 0, tj = 0, lj = 0, mlj = 0;
+        if (j >= 0) {
+          qj = cq[j];
+          tj = ct[j];
+          lj = cl[j];
+          mlj = cm[j];
+        }
+        const bool elig = j >= 0 && qj != aq && tj <= at;
+        const unsigned eb = __ballot_sync(FULL, elig);
+        // bcount as the host loop holds it on reaching j, and after j
+        const int before = bcount + __popc(eb & earlier);
+        const bool brk = j >= 0 && ((before >= band_count && qj < thr) ||
+                                    (elig && aq - qj - lj > band_base && before + 1 > band_count));
+        const unsigned bb = __ballot_sync(FULL, brk);
+        const unsigned open = bb ? (bb & (0u - bb)) - 1u : FULL;  // lanes before the first break
+        const int qd = aq - qj, td = at - tj;
+        const int g = qd > td ? qd - td : td - qd;
+        const int s = elig && ((open >> lane) & 1u) && g <= max_gap ? mlj - g : INT_MIN;
+        const int best = __reduce_max_sync(FULL, s);
+        if (best != INT_MIN && best >= m) {  // ties: the largest lane is the smallest j
+          m = best;
+          mj = top - (31 - __clz(__ballot_sync(FULL, s == best)));
+        }
+        if (bb) break;
+        bcount += __popc(eb);
+      }
+      if (lane == 0) {
+        cm[i] = m + al;
+        cp[i] = mj;
+      }
+      __syncwarp();
+    }
+
+    // ---- chain2_backtrack / c2_region with an explicit stack: every lane
+    // walks it in step (uniform loads), the region scans are warp-wide, and
+    // lane 0 writes the rows ----
+    int M, Mi;
+    region_max(cm, cl, 0, n, lane, M, Mi);
+    if (M <= 0) {  // the host's scan starts from (0, 0)
+      M = 0;
+      Mi = 0;
+    }
     if (!((double)M < min_score)) {
       Region stack[S_CAP];
       int sp = 0;
@@ -428,10 +598,8 @@ __global__ void __launch_bounds__(CHAIN_THREADS) pseudo_chain_kernel(
         const int lo = r.lo, hi = r.hi;
         int mi = r.mi;
         if (mi < 0) {
-          mi = lo;
-          int best = sc[lo];
-          for (int i = lo + 1; i < hi; ++i)
-            if (sc[i] > best) { best = sc[i]; mi = i; }
+          int best;
+          region_max(cm, cl, lo, hi, lane, best, mi);
           if ((double)best < min_score) continue;
         }
         int i = mi;
@@ -439,7 +607,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS) pseudo_chain_kernel(
         int64_t n_anchors = 0, n_matched = 0, naq = 0, nat = 0, begin_next = 0;
         int64_t qb_b = 0, tb_b = 0, qe = 0, te = 0;
         while (true) {
-          const int j = pp[i];
+          const int j = cp[i];
           if (j < lo) { left_exit = true; break; }
           ++n_anchors;
           const int64_t qi = cq[i], ti = ct[i], li = cl[i];
@@ -477,7 +645,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS) pseudo_chain_kernel(
         if (emit) {
           if (nout == c_cap) { flag = F_CHAIN_OVERFLOW; break; }
           const int64_t r8[8] = {n_anchors, naq, nat, n_matched, qb_b, qe, tb_b, te};
-          for (int c = 0; c < 8; ++c) out[nout * 8 + c] = r8[c];
+          if (lane < 8) out[nout * 8 + lane] = r8[lane];
           ++nout;
         }
         // left region first, so the right region pops first
@@ -492,8 +660,10 @@ __global__ void __launch_bounds__(CHAIN_THREADS) pseudo_chain_kernel(
       }
     }
   }
-  ccnt[w] = flag ? 0 : nout;
-  cflg[w] = flag;
+  if (lane == 0) {
+    ccnt[w] = flag ? 0 : nout;
+    cflg[w] = flag;
+  }
 }
 
 }  // namespace
@@ -528,8 +698,12 @@ int pseudo_chain(const void* qb, const void* tb, const void* ln, const void* cou
                  void* stream) {
   if (a_cap != A_CAP || c_cap <= 0) return (int)cudaErrorInvalidValue;
   if (W <= 0) return 0;
-  const int blocks = (W + CHAIN_THREADS - 1) / CHAIN_THREADS;
-  pseudo_chain_kernel<<<blocks, CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+  cudaError_t e = cudaFuncSetAttribute(pseudo_chain_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)CHAIN_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (W + CHAIN_WARPS - 1) / CHAIN_WARPS;
+  pseudo_chain_kernel<<<blocks, CHAIN_WARPS * 32, CHAIN_SMEM, (cudaStream_t)stream>>>(
       (const int32_t*)qb, (const int32_t*)tb, (const int32_t*)ln, (const int32_t*)counts,
       (const int32_t*)flags, W, band_base, band_count, max_gap, min_score, min_align_len,
       heur, (int32_t*)ms, (int32_t*)pv, (int64_t*)rows, (int32_t*)ccnt, (int32_t*)cflg,

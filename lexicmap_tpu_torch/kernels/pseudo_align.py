@@ -25,7 +25,8 @@ Shared layout:
       WORDS_OUT words);
   query tables: qk int64 (every query's sorted k-mers, concatenated), qv
       int32 (pos<<1 | strand), qoff int64 [NQ+1], qtab int32 [NQ, 2^16+1]
-      (first index of each 16-bit prefix bucket, as ops/seqcompare.py);
+      (first index of each 16-bit prefix bucket, as ops/seqcompare.py;
+      parallel/pseudo_device.py::query_bucket_table builds it on the card);
   anchors: qb, tb, ln int32 [W, A_CAP], counts and flags int32 [W];
   chain rows: int64 [W, C_CAP, 8] (n_anchors, aligned_q, aligned_t,
       matched, qb, qe, tb, te), counts and flags int32 [W].
@@ -214,7 +215,8 @@ def _chain_dp(qb, tb, ln, n, band_base, band_count, max_gap):
     """Chainer2 forward DP (core.cpp chain2_forward) for all windows at once,
     one anchor step at a time over the full predecessor prefix, the
     early-exit rules evaluated as masks.  qb/tb/ln int64 [W, N], n [W].
-    Returns (scores, prev) int64 [W, N]."""
+    Returns (scores, prev, cut) int64 [W, N]; cut is the predecessor at
+    which anchor i's scan breaks (-1 when it reaches j = 0 unbroken)."""
     W, N = qb.shape
     dev = qb.device
     lane = torch.arange(N, device=dev)
@@ -224,6 +226,7 @@ def _chain_dp(qb, tb, ln, n, band_base, band_count, max_gap):
     scores[:, 0] = ln[:, 0]
     msl = torch.zeros((W, N), dtype=torch.int64, device=dev)
     msl[:, 0] = 2 * ln[:, 0]
+    cuts = torch.full((W, N), -1, dtype=torch.int64, device=dev)
     for i in range(1, N):
         aq, at, al = qb[:, i: i + 1], tb[:, i: i + 1], ln[:, i: i + 1]
         qj, tj, lj, mj_ = qb[:, :i], tb[:, :i], ln[:, :i], msl[:, :i]
@@ -244,7 +247,8 @@ def _chain_dp(qb, tb, ln, n, band_base, band_count, max_gap):
         scores[:, i: i + 1] = m
         prev[:, i: i + 1] = torch.where(use, jbest, i)
         msl[:, i: i + 1] = m + al
-    return scores, prev
+        cuts[:, i: i + 1] = cut
+    return scores, prev, cuts
 
 
 def _backtrack(qb, tb, ln, ms, pv, n, min_score, min_align_len, heur):
@@ -331,7 +335,7 @@ def pseudo_chain_plain(qb, tb, ln, counts, flags, band_base, band_count, max_gap
     if N == 0:
         return rows, ccnt, cflg
     q, t, ll = (a[:, :N].to(torch.int64) for a in (qb, tb, ln))
-    ms, pv = _chain_dp(q, t, ll, n, band_base, band_count, max_gap)
+    ms, pv, _cut = _chain_dp(q, t, ll, n, band_base, band_count, max_gap)
     nl = n.tolist()
     for w in range(W):
         nw = nl[w]
@@ -391,15 +395,34 @@ def _raise_if(err, lib, what):
         raise RuntimeError(f"{what} launch failed: {lib.pseudo_align_error_string(err).decode()}")
 
 
-def pseudo_probe(blob, win, qk, qv, qoff, qtab):
+def check_windows(win, nq):
+    """The window table's value checks, from its column extremes: on a host
+    array (numpy) with no wait, on a card tensor with one read of it."""
+    if not win.shape[0]:
+        return
+    if isinstance(win, torch.Tensor):
+        lo, hi = torch.stack(torch.aminmax(win, dim=0)).tolist()
+    else:
+        lo, hi = win.min(0).tolist(), win.max(0).tolist()
+    if hi[2] > L_CAP or lo[2] < 0:
+        raise ValueError(f"window lengths must be in [0, {L_CAP}]")
+    if lo[4] < 0 or hi[4] >= nq:
+        raise ValueError("a window's query index is out of range")
+    if lo[7] < 1 or hi[7] > K:
+        raise ValueError(f"min prefix must be in [1, {K}]")
+
+
+def pseudo_probe(blob, win, qk, qv, qoff, qtab, checked=False):
     """Anchors of every window: probe, sort, dedup, trim.
 
     blob int32 [NW] (normalized 2-bit words), win int64 [W, 8], qk int64,
     qv int32, qoff int64 [NQ+1], qtab int32 [NQ, 2^16+1] (see the module
     docstring).  Windows must be at most L_CAP long and every query index in
-    range.  Returns (qb, tb, ln int32 [W, A_CAP], counts, flags int32 [W]).
-    CUDA tensors launch the kernel (`launches` counts them); CPU tensors run
-    the plain version."""
+    range; `checked` says the caller has run check_windows on the table's
+    host copy, so the wrapper does not read it back (on the card, the host
+    then does not wait before the launch).  Returns (qb, tb, ln int32
+    [W, A_CAP], counts, flags int32 [W]).  CUDA tensors launch the kernel
+    (`launches` counts them); CPU tensors run the plain version."""
     dev = blob.device
     _require("blob", blob, torch.int32, dev)
     if blob.dim() != 1 or blob.shape[0] == 0:
@@ -413,15 +436,9 @@ def pseudo_probe(blob, win, qk, qv, qoff, qtab):
     _require("qv", qv, torch.int32, dev, qk.shape)
     _require("qtab", qtab, torch.int32, dev, (NQ, (1 << QTAB_BITS) + 1))
     W = win.shape[0]
-    if W:
-        lens, qidx, mpre = win[:, 2], win[:, 4], win[:, 7]
-        if int(lens.max()) > L_CAP or int(lens.min()) < 0:
-            raise ValueError(f"window lengths must be in [0, {L_CAP}]")
-        if int(qidx.min()) < 0 or int(qidx.max()) >= NQ:
-            raise ValueError("a window's query index is out of range")
-        if int(mpre.min()) < 1 or int(mpre.max()) > K:
-            raise ValueError(f"min prefix must be in [1, {K}]")
     if dev.type == "cpu":
+        if not checked:
+            check_windows(win, NQ)
         return pseudo_probe_plain(blob, win, qk, qv, qoff, qtab)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -431,6 +448,8 @@ def pseudo_probe(blob, win, qk, qv, qoff, qtab):
     flags = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return (*out, counts, flags)
+    if not checked:  # the host waits here: everything else is ready to launch
+        check_windows(win, NQ)
     with torch.cuda.device(dev):
         err = lib.pseudo_probe(
             blob.data_ptr(), blob.shape[0], win.data_ptr(), W, WORDS_OUT, qk.data_ptr(),

@@ -42,6 +42,7 @@ from ..kernels.pseudo_align import (  # noqa: F401  (the flag bits are re-export
     L_CAP,
     QTAB_BITS,
     WORDS_OUT,
+    check_windows,
     pseudo_chain,
     pseudo_probe,
 )
@@ -54,9 +55,10 @@ HEURISTIC_PIDENT = SearchDefaults.HEURISTIC_KMER_PIDENT_THRESHOLD  # chain piden
 W_CHUNK = 2048  # windows per launch: bounds the [W, A_CAP] anchor tensors
 #: device bytes of one launch's tensors: probe anchors (3 x [W, A_CAP]
 #: int32), chain scratch (2 x [W, A_CAP]) and rows, uploaded window words,
-#: and the query bucket tables of a 32-query batch
+#: and the query bucket tables of a 32-query batch with their int64
+#: searchsorted probes
 WORKING_BYTES = (W_CHUNK * (5 * A_CAP * 4 + C_CAP * 8 * 8 + L_CAP // 4 + 128)
-                 + 32 * ((1 << QTAB_BITS) + 1) * 4)
+                 + 32 * ((1 << QTAB_BITS) + 1) * 20)
 
 
 # ---------------------------------------------------------------------------
@@ -72,31 +74,64 @@ def pack_codes_2bit(codes: np.ndarray, pad_to: int) -> np.ndarray:
     return np.bitwise_or.reduce(buf << shifts, axis=1).astype(np.uint32)
 
 
-def build_query_table(queries):
-    """The batch's query k-mer tables in the probe kernel's layout.
+def _upload(a: np.ndarray, dev):
+    """a host array on `dev`; to the card through pinned memory, so the copy
+    is queued and the host does not wait for the card's earlier work."""
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def query_tables(queries, dev):
+    """The batch's query k-mer tables in the probe kernel's layout, on `dev`.
 
     queries: list of (qk u64 sorted, qv u32) per query (SeqComparator.qk,
-    .qv).  Returns (qk int64 concatenated, qv int32, qoff int64 [NQ+1],
-    qtab int32 [NQ, 2^16+1] (the 16-bit prefix buckets of
-    SeqComparator.index), ok bool [NQ]); ok is False for a query whose
-    anchor coordinates would not fit the 21-bit key fields."""
+    .qv).  Returns ([qk int64 concatenated, qv int32, qoff int64 [NQ+1],
+    qtab int32 [NQ, 2^16+1]], ok bool [NQ] numpy); ok is False for a query
+    whose anchor coordinates would not fit the 21-bit key fields.  The
+    queries are concatenated straight into one staging tensor (pinned, so
+    its blocks are reused and the copy is asynchronous), copied once, and
+    the bucket table is built on `dev` (query_bucket_table)."""
     nq = len(queries)
     sizes = np.array([q[0].shape[0] for q in queries], dtype=np.int64)
-    qoff = np.zeros(nq + 1, dtype=np.int64)
+    n = int(sizes.sum())
+    host = torch.empty(n + nq + 1 + (n + 1) // 2, dtype=torch.int64,
+                       pin_memory=dev.type == "cuda")
+    buf = host.numpy()
+    qoff = buf[n: n + nq + 1]
+    qoff[0] = 0
     np.cumsum(sizes, out=qoff[1:])
-    qk = np.concatenate([q[0] for q in queries]).astype(np.int64) if nq else \
-        np.zeros(0, np.int64)
-    qv = np.concatenate([q[1] for q in queries]).astype(np.int32) if nq else \
-        np.zeros(0, np.int32)
-    qtab = np.zeros((nq, (1 << QTAB_BITS) + 1), dtype=np.int32)
+    # the k-mers (< 4^31) and packed positions (< 2^31) as their signed twins
+    qv = buf[n + nq + 1:].view(np.uint32)[:n]
     ok = np.ones(nq, dtype=bool)
-    for i, (k, v) in enumerate(queries):
-        if k.shape[0] == 0:
-            continue
-        pref = (np.asarray(k, dtype=np.uint64) >> np.uint64(2 * K - QTAB_BITS)).astype(np.int64)
-        np.cumsum(np.bincount(pref, minlength=1 << QTAB_BITS), out=qtab[i, 1:])
-        ok[i] = int(np.asarray(v).max() >> 1) + K <= COORD_MAX
-    return qk, qv, qoff, qtab, ok
+    if nq:
+        np.concatenate([np.asarray(q[0], dtype=np.uint64) for q in queries],
+                       out=buf[:n].view(np.uint64))
+        np.concatenate([np.asarray(q[1], dtype=np.uint32) for q in queries], out=qv)
+        has = sizes > 0
+        if has.any():  # each query's largest position, one reduceat over the batch
+            ok[has] = (np.maximum.reduceat(qv, qoff[:-1][has]) >> 1).astype(np.int64) \
+                + K <= COORD_MAX
+    count_h2d("device pseudo-align probe", buf)
+    d = host.to(dev, non_blocking=True)
+    qk_d, qoff_d = d[:n], d[n: n + nq + 1]
+    return [qk_d, d[n + nq + 1:].view(torch.int32)[:n], qoff_d,
+            query_bucket_table(qk_d, qoff_d)], ok
+
+
+def query_bucket_table(qk, qoff):
+    """qtab int32 [NQ, 2^16+1] on qk's device: row qi holds, for b in
+    0..2^16, the first index among query qi's sorted k-mers whose top 16
+    bits reach b (SeqComparator.index's buckets).  With R = 2^16 + 1, the
+    keys qi * R + (k-mer >> 46) of the concatenated, per-query-sorted
+    k-mers are sorted, so one searchsorted of qi * R + b, less qoff[qi],
+    gives every row."""
+    nq, row = qoff.shape[0] - 1, (1 << QTAB_BITS) + 1
+    dev = qk.device
+    base = torch.repeat_interleave(torch.arange(0, nq * row, row, device=dev), qoff.diff(),
+                                   output_size=qk.shape[0])
+    keys = base + (qk >> (2 * K - QTAB_BITS))
+    probes = torch.arange(nq * row, device=dev).view(nq, row)
+    return torch.searchsorted(keys, probes, out_int32=True).sub_(qoff[:-1, None])
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +165,13 @@ class DevicePseudoAligner:
         #: the host; queries whose windows all go to the host; flag<bits>
         self.stats = {"windows": 0, "device_windows": 0, "host_windows": 0,
                       "host_queries": 0}
-        #: cumulative wall per internal stage (seconds); probe_fetch waits
-        #: for the probe kernel, chain_fetch for the chain kernel
+        #: cumulative host wall per internal stage (seconds): tables (query
+        #: arrays staged, their copy and the card's bucket table queued),
+        #: probe_pack (window table, probe launch), chain_dispatch (chain
+        #: launch and the row compaction, where the host waits for the
+        #: card: the tables' copy and bucket table and both kernels),
+        #: probe_fetch (probe flags, chain counts and flags in one
+        #: transfer), chain_fetch (the rows), decode
         self.times = {"tables": 0.0, "probe_pack": 0.0, "probe_fetch": 0.0,
                       "chain_dispatch": 0.0, "chain_fetch": 0.0, "decode": 0.0}
 
@@ -151,7 +191,7 @@ class DevicePseudoAligner:
             return results
         self.stats["windows"] += n_win
         t0 = time.perf_counter()
-        qk, qv, qoff, qtab, q_ok = build_query_table(queries)
+        tables, q_ok = query_tables(queries, self.device)
         self.stats["host_queries"] += int((~q_ok).sum())
         dev_idx = [
             i for i, (qidx, tcodes, _b, _e) in enumerate(windows)
@@ -159,12 +199,9 @@ class DevicePseudoAligner:
             and (geoms is None or geoms[i] is not None)
         ]
         self.stats["host_windows"] += n_win - len(dev_idx)
+        self.times["tables"] += time.perf_counter() - t0
         if not dev_idx:
             return results
-        d = self.device
-        count_h2d("device pseudo-align probe", qk, qv, qoff, qtab)
-        tables = [torch.from_numpy(a).to(d) for a in (qk, qv, qoff, qtab)]
-        self.times["tables"] += time.perf_counter() - t0
 
         for o in range(0, len(dev_idx), W_CHUNK):
             self._run_chunk(dev_idx[o: o + W_CHUNK], windows, geoms, tables, results)
@@ -191,14 +228,16 @@ class DevicePseudoAligner:
         else:
             words = np.concatenate(packed) if off else np.zeros(1, np.uint32)
             count_h2d("device pseudo-align probe", words)
-            blob = torch.from_numpy(words.view(np.int32)).to(d)
+            blob = _upload(words.view(np.int32), d)
+        # checked here, on the host copy, and uploaded without a wait: the
+        # host does not wait for the card before the probe launch
+        check_windows(win, tables[2].shape[0] - 1)
         count_h2d("device pseudo-align probe", win)
-        aqb, atb, aln, acnt, aflg = pseudo_probe(blob, torch.from_numpy(win).to(d), *tables)
+        aqb, atb, aln, acnt, aflg = pseudo_probe(blob, _upload(win, d), *tables, checked=True)
         self.times["probe_pack"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pflags = aflg.cpu().numpy()
-        count_d2h("device pseudo-align probe", pflags)
-        self.times["probe_fetch"] += time.perf_counter() - t0
+        # the chain is queued right behind the probe: the host first waits
+        # for the card at the compaction after both; the fetches after it
+        # find the queue empty
         t0 = time.perf_counter()
         rows, ccnt, cflg = pseudo_chain(
             aqb, atb, aln, acnt, aflg, self.band_base, self.band_count, self.max_gap,
@@ -208,8 +247,10 @@ class DevicePseudoAligner:
         packed_rows = rows[valid]
         self.times["chain_dispatch"] += time.perf_counter() - t0
         t0 = time.perf_counter()
-        cnt = ccnt.cpu().numpy()
-        cflags = cflg.cpu().numpy()
+        pflags, cnt, cflags = torch.stack((aflg, ccnt, cflg)).cpu().numpy()
+        count_d2h("device pseudo-align probe", pflags)
+        self.times["probe_fetch"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
         flat = packed_rows.cpu().numpy()
         count_d2h("device pseudo-align chain", cnt, cflags, flat)
         self.times["chain_fetch"] += time.perf_counter() - t0

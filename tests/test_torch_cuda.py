@@ -7,7 +7,16 @@ import pytest
 import torch
 
 from chip_smoke import native_rows, same_prefix
-from torch_parity import make_case, phase4_tensors, seed_match_case, seed_match_torch, to_torch
+from torch_parity import (
+    CHAIN_PARAMS,
+    chain_stress_windows,
+    chain_tensors,
+    make_case,
+    phase4_tensors,
+    seed_match_case,
+    seed_match_torch,
+    to_torch,
+)
 
 from lexicmap_tpu_torch.kernels import pseudo_align as PA
 from lexicmap_tpu_torch.kernels import seed_locate as SL
@@ -92,3 +101,30 @@ def test_cuda_run_batch_equals_native_oracle(cuda_device):
     assert [r[0] for r in res].count("rows") == len(windows)
     for (qi, codes, b, e), (kind, rows) in zip(windows, res):
         assert np.array_equal(rows, native_rows(cprs[qi], codes, b, e, copt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", range(len(CHAIN_PARAMS)))
+def test_cuda_chain_stress_equals_plain(cuda_device, params):
+    """The warp DP's edge cases (tests/test_torch_chain_dp.py names them):
+    windows staged in shared memory and windows past the slice (1,600 and
+    A_CAP anchors), a probe-flagged window skipped."""
+    wins = chain_stress_windows(a_cap=PA.A_CAP)
+    args = chain_tensors(wins + [wins[2]], cuda_device, flagged=[len(wins)])
+    before = PA.pseudo_chain.launches
+    got = PA.pseudo_chain(*args, *CHAIN_PARAMS[params])
+    torch.cuda.synchronize()
+    assert PA.pseudo_chain.launches == before + 1
+    want = PA.pseudo_chain_plain(*(a.cpu() for a in args), *CHAIN_PARAMS[params])
+    assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+    assert same_prefix(got[0].cpu(), want[0], want[1], PA.C_CAP)
+    assert int(want[1].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_query_bucket_table_equals_cpu(cuda_device):
+    from lexicmap_tpu_torch.parallel.pseudo_device import query_bucket_table
+
+    _blob, _win, tables, _windows, _cprs = phase4_tensors(cuda_device)
+    qk, _qv, qoff, qtab = tables
+    assert torch.equal(qtab.cpu(), query_bucket_table(qk.cpu(), qoff.cpu()))

@@ -25,14 +25,16 @@ from lexicmap_tpu_torch.parallel.pseudo_device import (
     C_CAP,
     F_ANCHOR_OVERFLOW,
     DevicePseudoAligner,
-    build_query_table,
     pack_codes_2bit,
+    query_bucket_table,
+    query_tables,
 )
 from lexicmap_tpu_torch.utils.kmers import seq_to_codes
 
 pytestmark = pytest.mark.skipif(get_lib() is None, reason="native lib unavailable")
 
 ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
+CPU = torch.device("cpu")
 COPT = SearchOptions().seqcompare_options().chaining
 DEFAULT = dict(band_base=COPT.band_base, band_count=COPT.band_count,
                max_gap=int(COPT.max_gap), min_score=int(COPT.min_score),
@@ -179,12 +181,10 @@ def test_anchor_ties_keep_host_order():
     tcodes = seq_to_codes(t)
     keys = _raw_anchor_keys(cpr, tcodes, len(q) - 1)
     assert len(keys) - len(set(keys)) > 100  # many tied anchors
-    qk, qv, qoff, qtab, ok = build_query_table([(cpr.qk, cpr.qv)])
     words = pack_codes_2bit(tcodes, 16 * ((tcodes.shape[0] + 15) // 16))
     win = torch.tensor([[0, 0, tcodes.shape[0], 0, 0, 0, len(q) - 1, 11]], dtype=torch.int64)
     aqb, atb, aln, cnt, flg = PA.pseudo_probe(
-        torch.from_numpy(words.view(np.int32)), win,
-        *(torch.from_numpy(a) for a in (qk, qv, qoff, qtab)))
+        torch.from_numpy(words.view(np.int32)), win, *query_tables([(cpr.qk, cpr.qv)], CPU)[0])
     want = compare_prepare_native(cpr.qk, cpr.qv, tcodes, 11, 31, 0, len(q) - 1,
                                   COPT.band_base, COPT.band_count, COPT.max_gap,
                                   qtab=cpr.qtab, bbits=cpr.qtab_bits)
@@ -281,7 +281,78 @@ def test_wrappers_launch_nothing_on_cpu():
 
 def test_probe_rejects_long_window():
     win = torch.tensor([[0, 0, PA.L_CAP + 1, 0, 0, 0, 10, 11]], dtype=torch.int64)
-    qk, qv, qoff, qtab, _ = build_query_table([(np.zeros(1, np.uint64), np.zeros(1, np.uint32))])
     with pytest.raises(ValueError):
         PA.pseudo_probe(torch.zeros(4, dtype=torch.int32), win,
-                        *(torch.from_numpy(a) for a in (qk, qv, qoff, qtab)))
+                        *query_tables([(np.zeros(1, np.uint64), np.zeros(1, np.uint32))], CPU)[0])
+
+
+def _numpy_bucket_table(k):
+    """The host construction the card's table replaces: a bincount of the
+    16-bit prefixes, then its running sum."""
+    t = np.zeros((1 << 16) + 1, dtype=np.int64)
+    if k.shape[0]:
+        pref = (k >> np.uint64(46)).astype(np.int64)
+        np.cumsum(np.bincount(pref, minlength=1 << 16), out=t[1:])
+    return t
+
+
+def _jax_cpr(qseq: bytes):
+    from lexicmap_tpu.index.search import SearchOptions as JaxOptions
+    from lexicmap_tpu.ops.seqcompare import SeqComparator as JaxComparator
+
+    cpr = JaxComparator(JaxOptions().seqcompare_options())
+    cpr.index(seq_to_codes(qseq))
+    return cpr
+
+
+def test_query_bucket_table_equals_numpy():
+    """query_bucket_table (one searchsorted over every query's prefixes)
+    equals the JAX package's bucket table (its SeqComparator.index) on
+    indexed queries: random ones, an empty one (too short for a k-mer: the
+    JAX package builds no table, every bucket is empty), and one whose four
+    k-mers share one 16-bit prefix, that of the last bucket.  It also
+    equals the per-query numpy table on synthetic queries around them, one
+    of them wholly in the last bucket too."""
+    rng = np.random.default_rng(30)
+
+    def synthetic(prefix, n):
+        low = np.sort(rng.integers(0, 1 << 46, n, dtype=np.uint64))
+        return (np.uint64(prefix) << np.uint64(46)) | low, np.zeros(n, np.uint32)
+
+    # 2 positions x 2 strands, every k-mer led by 8 T: prefix 0xFFFF
+    last = b"T" * 9 + _rand_seq(rng, 14) + b"A" * 9
+    seqs = [_rand_seq(rng, 900), b"ACGT" * 5, last, _rand_seq(rng, 400)]
+    jcprs = [_jax_cpr(s) for s in seqs]
+    queries = ([(c.qk, c.qv) for c in jcprs]
+               + [synthetic(0xABCD, 50), synthetic(0xFFFF, 7)])
+    (qk, _qv, qoff, tab), ok = query_tables(queries, CPU)
+    assert ok.all() and qoff.tolist() == np.cumsum([0] + [q[0].shape[0] for q in queries]).tolist()
+    assert torch.equal(tab, query_bucket_table(qk, qoff))
+    assert tab.dtype == torch.int32 and tuple(tab.shape) == (len(queries), (1 << 16) + 1)
+    for i, (s, jc) in enumerate(zip(seqs, jcprs)):
+        want = jc.qtab.astype(np.int64) if jc.qk.shape[0] else np.zeros((1 << 16) + 1, np.int64)
+        assert np.array_equal(tab[i].numpy(), want)
+        pc = _mk_cpr(s)  # the port's comparator indexes the same k-mers
+        assert np.array_equal(pc.qk, jc.qk) and np.array_equal(pc.qv, jc.qv)
+    for i, (k, _v) in enumerate(queries):
+        assert np.array_equal(tab[i].numpy(), _numpy_bucket_table(k))
+    assert jcprs[1].qk.shape[0] == 0 and (tab[1] == 0).all()
+    assert (jcprs[2].qk >> np.uint64(46)).tolist() == [0xFFFF] * 4
+    assert int(tab[2, 0xFFFF]) == 0 and int(tab[2, -1]) == 4
+    assert int(tab[4, 0xABCD]) == 0 and int(tab[4, 0xABCE]) == 50 == int(tab[4, -1])
+    assert int(tab[5, 0xFFFF]) == 0 and int(tab[5, -1]) == 7
+
+
+def test_query_tables_flag_queries_past_the_key_fields():
+    """ok is False exactly for a query with a position whose anchors would
+    not fit the 21-bit key fields (empty queries are fine)."""
+    last = PA.COORD_MAX - PA.K  # the largest position that still fits
+    queries = [(np.arange(3, dtype=np.uint64), np.array([2, 4, 6], np.uint32)),
+               (np.zeros(0, np.uint64), np.zeros(0, np.uint32)),
+               (np.arange(2, dtype=np.uint64), np.array([(last + 1) << 1, 0], np.uint32)),
+               (np.arange(1, dtype=np.uint64), np.array([last << 1 | 1], np.uint32))]
+    (qk, qv, qoff, _tab), ok = query_tables(queries, CPU)
+    assert ok.tolist() == [True, True, False, True]
+    assert qk.dtype == torch.int64 and qv.dtype == torch.int32 and qoff.tolist() == [0, 3, 3, 5, 6]
+    assert qk.tolist() == [0, 1, 2, 0, 1, 0] and qk.is_contiguous() and qv.is_contiguous()
+    assert qv.tolist() == [2, 4, 6, (last + 1) << 1, 0, last << 1 | 1]

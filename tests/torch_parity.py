@@ -169,7 +169,7 @@ def phase4_tensors(device, seed=3, n_sites=24):
 
     from lexicmap_tpu_torch.index.search import SearchOptions
     from lexicmap_tpu_torch.ops.seqcompare import SeqComparator
-    from lexicmap_tpu_torch.parallel.pseudo_device import WORDS_OUT, build_query_table
+    from lexicmap_tpu_torch.parallel.pseudo_device import WORDS_OUT, query_tables
     from lexicmap_tpu_torch.parallel.resident import DeviceGenomeBlob
 
     stores, qcodes, wins = phase4_case(2, 3, 1 << 16, 4, n_sites, seed)
@@ -187,6 +187,94 @@ def phase4_tensors(device, seed=3, n_sites=24):
         codes = genome_codes(stores[st], g, a, b)
         windows.append((qi, np.ascontiguousarray((3 - codes)[::-1] if rc else codes), 0,
                         qcodes[qi].shape[0] - 1))
-    tables = [torch.from_numpy(a).to(device)
-              for a in build_query_table([(c.qk, c.qv) for c in cprs])[:4]]
+    tables, _ok = query_tables([(c.qk, c.qv) for c in cprs], torch.device(device))
     return blob, torch.from_numpy(win).to(device), tables, windows, cprs
+
+
+#: pseudo_chain parameter sets of the chain stress windows, as (band_base,
+#: band_count, max_gap, min_score, min_align_len, heur): the search
+#: defaults; a tight band, so that the band rules break on every lane of a
+#: 32-lane chunk; band_count 0, so that a break can fall on the very first
+#: predecessor visited
+CHAIN_PARAMS = (
+    (100, 50, 20, 35.0, 50, 15.0),
+    (12, 5, 8, 20.0, 25, 15.0),
+    (6, 0, 8, 20.0, 25, 15.0),
+)
+
+
+def _sorted_anchors(qb, tb, ln):
+    """Anchors in the probe's output order (qb asc, qe desc, tb asc)."""
+    o = np.lexsort((tb, -(qb + ln), qb))
+    return qb[o].astype(np.int64), tb[o].astype(np.int64), ln[o].astype(np.int64)
+
+
+def _noisy_diagonal(rng, n, max_step=3, jitter=4, p_jump=0.05):
+    """n anchors along a diagonal: qb steps of 0..max_step (0 gives equal
+    qb), tb off the diagonal by up to `jitter`, and a share p_jump of
+    anchors thrown far off it (tb above every later anchor's: bt > at)."""
+    qb = 50 + np.cumsum(rng.integers(0, max_step + 1, n))
+    tb = qb + rng.integers(-jitter, jitter + 1, n) + 40
+    jump = rng.random(n) < p_jump
+    tb[jump] += rng.integers(200, 5000, int(jump.sum()))
+    return _sorted_anchors(qb, tb, rng.integers(11, 32, n))
+
+
+def _tie_across_chunks():
+    """Anchor 40's two best predecessors score equal at j = 8 (the last lane
+    of its first 32-lane chunk) and j = 7 (the first lane of the next);
+    every other anchor sits above it in t (bt > at).  The host loop keeps
+    the smaller j."""
+    qb = np.concatenate([10 * np.arange(1, 8), [100, 101], 110 + 2 * np.arange(31), [200]])
+    tb = np.full(41, 1000)
+    ln = np.full(41, 25)
+    tb[7], ln[7] = 100, 20  # s = 2 * 20 - 0
+    tb[8], ln[8] = 95, 23  # s = 2 * 23 - 6
+    tb[40], ln[40] = 200, 20
+    return qb.astype(np.int64), tb.astype(np.int64), ln.astype(np.int64)
+
+
+def _ln_ties(n=96):
+    """Anchors one base apart on one target row, ln 1: every predecessor's
+    best score equals the anchor's own ln (a tie with the DP's start)."""
+    qb = np.arange(n, dtype=np.int64) + 5
+    return qb, np.zeros(n, dtype=np.int64), np.ones(n, dtype=np.int64)
+
+
+def chain_stress_windows(seed=0, a_cap=8192):
+    """The chain stress fixtures: anchor windows (qb, tb, ln int64, in the
+    probe's order) for pseudo_chain's warp DP and backtrack.  Counts 1, 2,
+    32, 33, 1,600 and a_cap; noisy diagonals whose band rules break on
+    every lane (under CHAIN_PARAMS[1:]), equal qb and bt > at skips; a tie
+    on both sides of a chunk boundary; ties with the DP's ln start; dense
+    windows with many chains."""
+    rng = np.random.default_rng(seed)
+    wins = [_noisy_diagonal(rng, n) for n in (1, 2, 32, 33)]
+    wins += [_tie_across_chunks(), _ln_ties()]
+    wins += [_noisy_diagonal(rng, n, max_step=s, jitter=j, p_jump=p)
+             for n, s, j, p in ((300, 1, 2, 0.1), (500, 3, 12, 0.02), (700, 6, 30, 0.2))]
+    segs = []  # many short diagonal runs: many chains and regions
+    for k in range(40):
+        q0, t0 = 400 * k, int(rng.integers(0, 16000))
+        m = int(rng.integers(3, 9))
+        segs.append((q0 + 5 * np.arange(m), t0 + 5 * np.arange(m), np.full(m, 31)))
+    wins.append(_sorted_anchors(*(np.concatenate(c) for c in zip(*segs))))
+    wins += [_noisy_diagonal(rng, 1600), _noisy_diagonal(rng, a_cap, max_step=2)]
+    return wins
+
+
+def chain_tensors(windows, device="cpu", flagged=()):
+    """pseudo_chain's inputs (qb, tb, ln int32 [W, A_CAP], counts, flags)
+    for anchor windows; the windows listed in `flagged` carry a probe flag
+    (the chain must skip them)."""
+    from lexicmap_tpu_torch.kernels.pseudo_align import A_CAP, F_ANCHOR_OVERFLOW
+
+    W = len(windows)
+    cols = [torch.zeros((W, A_CAP), dtype=torch.int32) for _ in range(3)]
+    for w, win in enumerate(windows):
+        for col, a in zip(cols, win):
+            col[w, : a.shape[0]] = torch.from_numpy(a.astype(np.int32))
+    counts = torch.tensor([w[0].shape[0] for w in windows], dtype=torch.int32)
+    flags = torch.zeros(W, dtype=torch.int32)
+    flags[list(flagged)] = F_ANCHOR_OVERFLOW
+    return [t.to(device) for t in (*cols, counts, flags)]
