@@ -2,16 +2,24 @@
 """Drive lexicmap_tpu_torch's main path on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 7] [--genomes 200] [--queries 40] [--rounds 5]
+                          [--compare-source OLD/seed_locate.cu]
 
 Phases, each of which raises on a wrong result (nothing falls back):
   1. environment: torch/CUDA versions and the card (nvidia-smi);
   2. build every hand-written kernel from the sources in the checkout, one
-     nvcc per source, all started together;
-  3. the seed kernels vs their plain PyTorch versions on the card, exact, at
-     the shape of a 10k-genome index (20,000 rows x 10,240 entries) plus edge
-     rows (poly-T, saturated rb, empty rows): seed_locate_batch (32
+     nvcc per source, all started together (and --compare-source's);
+  3. the seed kernels vs their plain PyTorch versions on the card, exact:
+     seed_locate_batch (B1) and seed_locate (B2) on edge shapes (both of
+     B1's regimes, B = 1-33, p = 1-16, edge counts, words past cnt), then
+     at the shape of a 10k-genome index (20,000 rows x 10,240 entries) plus
+     edge rows (poly-T, saturated rb, empty rows): seed_locate_batch (32
      queries), seed_locate (one query) and seed_match (hi and lo words, best
-     LCP); kernel, plain, library-call times and the bound;
+     LCP); times as called and on the device (the kernel's own rows in
+     torch.profiler), plain and library-call times, the sectors two
+     bisections touch and those the kernel reads (tests/torch_parity.py's
+     replays, held equal to the kernels), the bound from the fewer of them;
+     with --compare-source, an earlier tree's seed-locate kernel against
+     this one in turns, at the same shapes and the main path's;
   4. DeviceSeedMatcher over a synthetic 20,000-mask x 10,240-entry seed
      table vs a numpy bisection oracle;
   5. phase 4 at real state size: a >= 1 GB resident genome blob (1,000
@@ -79,6 +87,29 @@ def time_ms(fn, dev, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, name: str, reps: int = 20) -> tuple[float, str]:
+    """Mean device ms of the kernel launches whose name holds `name`, over
+    `reps` calls of fn after a warm one, from torch.profiler's CUDA rows.
+    Returns (ms, "profiler"), or (None, "not measured") where the profiler
+    shows no such row or there is no CUDA device."""
+    import torch
+    from torch.autograd import DeviceType
+
+    if not torch.cuda.is_available():
+        return None, "not measured"
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    if us:
+        return sum(us) / len(us) / 1e3, "profiler"
+    return None, "not measured"
+
+
 def sync(dev):
     import torch
 
@@ -131,10 +162,68 @@ def seed_locate_case(dev, Mb, E, B, k, seed):
     return to_i32_bits(hi64).contiguous(), cnt, to_i32_bits(qh64).contiguous(), qv, hi64
 
 
+def parent_build(path):
+    """Start nvcc on an earlier tree's seed_locate.cu (same flags), beside
+    the kernel build; parent_load() waits for it."""
+    from lexicmap_tpu_torch.kernels import build
+
+    out = os.path.splitext(path)[0] + ".so"
+    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, path],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def parent_load(started):
+    """The earlier tree's library, its seed_locate_batch(..., B, Mb, E, suf,
+    stream) bound."""
+    import ctypes
+
+    proc, out = started
+    log_, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the earlier source:\n{log_.decode(errors='replace')}")
+    lib = ctypes.CDLL(out)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.seed_locate_batch.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint, vp]
+    lib.seed_locate_batch.restype = ci
+    return lib
+
+
+def parent_raw(lib, hi, cnt, qh, qv, p):
+    """The earlier tree's kernel (one thread per (b, m), two bisections);
+    for one query, its B = 1 launch."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
+
+    q2, v2 = (qh, qv) if qh.dim() == 2 else (qh[None], qv[None])
+    out = torch.empty((2, *q2.shape), dtype=torch.int32, device=hi.device)
+    err = lib.seed_locate_batch(*[t.data_ptr() for t in (hi, cnt, q2, v2, out[0], out[1])],
+                                q2.shape[0], hi.shape[0], hi.shape[1], suffix_mask(p),
+                                torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the earlier kernel failed to launch ({err})")
+    return (out[0], out[1]) if qh.dim() == 2 else (out[0][0], out[1][0])
+
+
+def in_turns(parent_fn, new_fn, parent_name, new_name, reps=20):
+    """Device ms of the earlier kernel and this one in turns (parent, new,
+    new, parent).  Returns {"parent": [a, b], "new": [a, b], "by": ...}."""
+    order = [("parent", parent_fn, parent_name), ("new", new_fn, new_name),
+             ("new", new_fn, new_name), ("parent", parent_fn, parent_name)]
+    out = {"parent": [], "new": [], "by": []}
+    for key, fn, name in order:
+        ms, by = device_ms(fn, name, reps)
+        out[key].append(ms)
+        out["by"].append(by)
+    return out
+
+
 def bisection_probe_bytes(hi64, cnt, qh, qv, p) -> tuple[int, int]:
-    """Replay the kernel's two bisections per valid (b, row) and count the
-    distinct 32-byte table sectors they read and the probes made (the
-    data-dependent work of this run).  Returns (sector_bytes, probes)."""
+    """Replay two lower-bound bisections per valid (b, row), rb's started
+    from lb's answer (the earlier thread-per-(b, m) kernel's search), and
+    count the distinct 32-byte table sectors they read and the probes made
+    (the data-dependent work of this run).  Returns (sector_bytes, probes)."""
     import torch
 
     from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
@@ -170,7 +259,27 @@ def bisection_probe_bytes(hi64, cnt, qh, qv, p) -> tuple[int, int]:
     return distinct * SECTOR, probes
 
 
-def phase_kernel(dev, card, Mb, E, B, p, seed, reps):
+def parity():
+    """tests/torch_parity.py: the test tables and the seed kernels' replays."""
+    path = os.path.join(HERE, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import torch_parity
+
+    return torch_parity
+
+
+def locate_bound(sector_bytes, design_bytes, probes, io_bytes):
+    """(bound_ms, bound_by) of a seed-locate search: the fewer of the
+    sectors the bisection touches and those the kernel reads (either
+    computes the function), plus I/O, over HBM; or a load and a compare per
+    bisection probe."""
+    bytes_ms = (min(sector_bytes, design_bytes) + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * probes / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def phase_kernel(dev, card, Mb, E, B, p, seed, reps, parent=None):
     import torch
 
     from lexicmap_tpu_torch.kernels.seed_locate import (
@@ -180,7 +289,7 @@ def phase_kernel(dev, card, Mb, E, B, p, seed, reps):
     hi, cnt, qh, qv, hi64 = seed_locate_case(dev, Mb, E, B, k, seed)
     log(f"[kernel] seed_locate_batch: Mb={Mb} E={E} B={B}, table {hi.numel() * 4 / 1e6:.1f} MB")
     max_abs_err = 0
-    for pp in sorted({p, 11, 16}):
+    for pp in sorted({p, 1, 11, 16}):
         nh, e0 = seed_locate_batch(hi, cnt, qh, qv, pp)
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -212,30 +321,45 @@ def phase_kernel(dev, card, Mb, E, B, p, seed, reps):
         raise AssertionError("library searchsorted disagrees with the kernel")
 
     kernel_ms = time_ms(lambda: seed_locate_batch(hi, cnt, qh, qv, p), dev, reps)
+    dev_ms, dev_by = device_ms(lambda: seed_locate_batch(hi, cnt, qh, qv, p), "locate_batch",
+                               reps)
     plain_ms = time_ms(lambda: seed_locate_batch_plain(hi, cnt, qh, qv, p), dev, max(1, reps // 10))
     library_ms = time_ms(library, dev, reps)
+    rn, re_, design = parity().locate_batch_replay(hi, cnt, qh, qv, p)
+    if not (torch.equal(rn, nh) and torch.equal(re_, e0)):
+        raise AssertionError("the torch replay of the design disagrees with the kernel")
     sector_bytes, probes = bisection_probe_bytes(hi64, cnt, qh, qv, p)
+    design_bytes = design.numel() * SECTOR
     io_bytes = qh.numel() * 4 + qv.numel() + cnt.numel() * 4 + 2 * nh.numel() * 4
-    bytes_ms = (sector_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * probes / FP32_OPS_PER_S * 1e3  # a load and a compare per probe
+    bound_ms, bound_by = locate_bound(sector_bytes, design_bytes, probes, io_bytes)
     res = {
         "Mb": Mb, "E": E, "B": B, "p": p, "equal": True, "max_abs_err": max_abs_err,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "sector_bytes": sector_bytes, "table_bytes": hi.numel() * 4, "probes": probes,
+        "kernel_ms": kernel_ms, "device_ms": dev_ms, "device_ms_by": dev_by,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "sector_bytes": sector_bytes, "design_bytes": design_bytes,
+        "io_bytes": io_bytes, "table_bytes": hi.numel() * 4, "probes": probes,
     }
-    log(f"[kernel] p={p}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f} "
-        f"library_ms={library_ms:.4f} bound_ms={res['bound_ms']:.4f} "
-        f"(touched sectors {sector_bytes / 1e6:.1f} MB of {hi.numel() * 4 / 1e6:.1f} MB) "
-        f"[{card}]")
+    log(f"[kernel] p={p}: kernel_ms={kernel_ms:.4f} (device {dev_ms} by {dev_by}) "
+        f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"(bisection's sectors {sector_bytes / 1e6:.1f} MB, the design's "
+        f"{design_bytes / 1e6:.1f} MB, of {hi.numel() * 4 / 1e6:.1f} MB) [{card}]")
+    if parent is not None:
+        res["parent"] = in_turns(lambda: parent_raw(parent, hi, cnt, qh, qv, p),
+                                 lambda: seed_locate_batch(hi, cnt, qh, qv, p),
+                                 "seed_locate_batch_kernel", "locate_batch", reps)
+        if not all(torch.equal(a, b) for a, b in zip(parent_raw(parent, hi, cnt, qh, qv, p),
+                                                      (nh, e0))):
+            raise AssertionError("the earlier kernel disagrees with this one")
+        log(f"[kernel] seed_locate_batch device ms in turns, earlier tree's kernel vs this one: "
+            f"{json.dumps(res['parent'])} [{card}]")
     single = phase_single(dev, card, hi, cnt, qh[:1].contiguous(), qv[:1].contiguous(), hi64,
-                          p, reps)
+                          p, reps, parent)
     return res, single
 
 
-def phase_single(dev, card, hi, cnt, qh, qv, hi64, p, reps):
-    """seed_locate (B2: the same kernel at B = 1) on the B1 table, with the
-    first query of the batch (drawn entries, poly-T and saturated rows)."""
+def phase_single(dev, card, hi, cnt, qh, qv, hi64, p, reps, parent=None):
+    """seed_locate (B2, its own kernel) on the B1 table, with the first
+    query of the batch (drawn entries, poly-T and saturated rows)."""
     import torch
 
     from lexicmap_tpu_torch.kernels.seed_locate import (
@@ -243,7 +367,7 @@ def phase_single(dev, card, hi, cnt, qh, qv, hi64, p, reps):
 
     q, v = qh[0], qv[0]
     max_abs_err = 0
-    for pp in sorted({p, 11, 16}):
+    for pp in sorted({p, 1, 11, 16}):
         nh, e0 = seed_locate(hi, cnt, q, v, pp)
         sync(dev)
         pn, pe = seed_locate_plain(hi, cnt, q, v, pp)
@@ -269,21 +393,59 @@ def phase_single(dev, card, hi, cnt, qh, qv, hi64, p, reps):
     if not (torch.equal(ln_.int(), nh) and torch.equal(le_.int(), e0)):
         raise AssertionError("library searchsorted disagrees with seed_locate")
     kernel_ms = time_ms(lambda: seed_locate(hi, cnt, q, v, p), dev, reps)
+    dev_ms, dev_by = device_ms(lambda: seed_locate(hi, cnt, q, v, p), "locate_single", reps)
     plain_ms = time_ms(lambda: seed_locate_plain(hi, cnt, q, v, p), dev, max(1, reps // 10))
     library_ms = time_ms(library, dev, reps)
+    rn, re_, design = parity().locate_single_replay(hi, cnt, q, v, p)
+    if not (torch.equal(rn, nh) and torch.equal(re_, e0)):
+        raise AssertionError("the torch replay of the single-query search disagrees with the kernel")
     sector_bytes, probes = bisection_probe_bytes(hi64, cnt, qh, qv, p)
+    design_bytes = design.numel() * SECTOR
     io_bytes = q.numel() * 4 + v.numel() + cnt.numel() * 4 + 2 * nh.numel() * 4
-    bytes_ms = (sector_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * probes / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = locate_bound(sector_bytes, design_bytes, probes, io_bytes)
     res = {"Mb": hi.shape[0], "E": hi.shape[1], "B": 1, "p": p, "equal": True,
-           "max_abs_err": max_abs_err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "sector_bytes": sector_bytes, "probes": probes}
-    log(f"[kernel] seed_locate (B=1) p={p}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f} "
-        f"library_ms={library_ms:.4f} bound_ms={res['bound_ms']:.5f} "
-        f"(touched sectors {sector_bytes / 1e6:.2f} MB) [{card}]")
+           "max_abs_err": max_abs_err, "kernel_ms": kernel_ms, "device_ms": dev_ms,
+           "device_ms_by": dev_by, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "sector_bytes": sector_bytes,
+           "design_bytes": design_bytes, "io_bytes": io_bytes, "probes": probes}
+    log(f"[kernel] seed_locate (B=1) p={p}: kernel_ms={kernel_ms:.4f} (device {dev_ms} by "
+        f"{dev_by}) plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} (bisection's sectors {sector_bytes / 1e6:.2f} MB, the "
+        f"design's {design_bytes / 1e6:.2f} MB) [{card}]")
+    if parent is not None:
+        res["parent"] = in_turns(lambda: parent_raw(parent, hi, cnt, q, v, p),
+                                 lambda: seed_locate(hi, cnt, q, v, p),
+                                 "seed_locate_batch_kernel", "locate_single", reps)
+        log(f"[kernel] seed_locate device ms in turns, earlier tree's B = 1 launch vs this "
+            f"kernel: {json.dumps(res['parent'])} [{card}]")
     return res
+
+
+def check_locate_edges(dev):
+    """seed_locate_batch and seed_locate against their plain versions on
+    the edge shapes: E at 128, the regime threshold +- 128 and 16,384; B in
+    1, 7, 32, 33; p in 1, 11, 15, 16; the edge rows of
+    torch_parity.make_edge_case (counts 0, 1, S - 1, S, S + 1, E, long
+    runs, non-PAD words past cnt).  Returns the number of cases."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels import seed_locate as SL
+
+    tp = parity()
+    n = 0
+    for E in (128, SL.SMALL_MAX_E - 128, SL.SMALL_MAX_E + 128, 16384):
+        for B in (1, 7, 32, 33):
+            hi, cnt, qh, qv = tp.to_torch(*tp.make_edge_case(15, B, E, M=256, seed=B), device=dev)
+            for p in (1, 11, 15, 16):
+                got = SL.seed_locate_batch(hi, cnt, qh, qv, p)
+                want = SL.seed_locate_batch_plain(hi, cnt, qh, qv, p)
+                one = SL.seed_locate(hi, cnt, qh[0], qv[0], p)
+                if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                        and all(torch.equal(a, b[0]) for a, b in zip(one, want))):
+                    raise AssertionError(f"seed_locate kernels != plain at E={E} B={B} p={p}")
+                n += 1
+    log(f"[kernel] seed_locate_batch and seed_locate == plain on {n} edge shapes")
+    return n
 
 
 # --------------------------------------------------------------------------
@@ -1005,7 +1167,7 @@ def launch_counts():
                        pseudo_align.pseudo_chain)}
 
 
-def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
+def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=None):
     import numpy as np
     import torch
 
@@ -1201,7 +1363,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
 
     # the kernel vs its plain version at the shapes the main path gives it
     batch = np.stack([dev_idx._mask_query(seq_to_codes(s.upper()))[0] for s in seqs[:32]])
-    shapes = check_main_path_shapes(dev, card, dev_idx, batch)
+    shapes = check_main_path_shapes(dev, card, dev_idx, batch, parent)
 
     # single-query search with the device matcher: seed_locate (B2) per bucket
     reset_launches()  # the single-query path's run starts here
@@ -1241,14 +1403,19 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds):
             "many_hit": {"rows": mrows, "windows": mwin, "seconds": many_s}}
 
 
-def check_main_path_shapes(dev, card, idx, kmers):
-    """Each bucket of the e2e matcher, with the real queries' hi words."""
+def check_main_path_shapes(dev, card, idx, kmers, parent=None):
+    """Each bucket of the e2e matcher, with the real queries' hi words:
+    seed_locate_batch on the batch and seed_locate on its first query
+    against their plain versions, their times as called and on the device
+    (the kernels' profiler rows), the design's sectors, and the earlier
+    tree's kernel in turns."""
     import numpy as np
     import torch
 
     from lexicmap_tpu_torch.kernels.seed_locate import (
-        seed_locate_batch, seed_locate_batch_plain, split_kmers_hi_lo)
+        seed_locate, seed_locate_batch, seed_locate_batch_plain, split_kmers_hi_lo)
 
+    tp = parity()
     m = idx.device_matcher
     p = idx.opt.min_prefix
     sel = kmers != 0
@@ -1257,21 +1424,35 @@ def check_main_path_shapes(dev, card, idx, kmers):
     qh_d = torch.from_numpy(qh.view(np.int32)).to(dev)
     sel_d = torch.from_numpy(sel).to(dev)
     out = []
-    saved = seed_locate_batch.launches
+    saved = (seed_locate_batch.launches, seed_locate.launches)
     for bk in m.buckets:
         a = (bk.hi, bk.cnt, qh_d.index_select(1, bk.gids).contiguous(),
              sel_d.index_select(1, bk.gids).contiguous(), p)
+        one = (bk.hi, bk.cnt, a[2][0].contiguous(), a[3][0].contiguous(), p)
         nh, e0 = seed_locate_batch(*a)
         pn, pe = seed_locate_batch_plain(*a)
-        if not (torch.equal(nh, pn) and torch.equal(e0, pe)):
+        sn, se = seed_locate(*one)
+        if not (torch.equal(nh, pn) and torch.equal(e0, pe) and torch.equal(sn, pn[0])
+                and torch.equal(se, pe[0])):
             raise AssertionError(f"kernel != plain on the main-path bucket E={bk.E}")
-        kms = time_ms(lambda: seed_locate_batch(*a), dev, 20)
-        pms = time_ms(lambda: seed_locate_batch_plain(*a), dev, 3)
         r = {"Mb": int(bk.hi.shape[0]), "E": bk.E, "B": int(kmers.shape[0]), "equal": True,
-             "ms": kms, "plain_ms": pms}
+             "ms": time_ms(lambda: seed_locate_batch(*a), dev, 20),
+             "device_ms": device_ms(lambda: seed_locate_batch(*a), "locate_batch")[0],
+             "plain_ms": time_ms(lambda: seed_locate_batch_plain(*a), dev, 3),
+             "design_bytes": tp.locate_batch_replay(*a)[2].numel() * SECTOR,
+             "table_bytes": bk.hi.numel() * 4,
+             "single_ms": time_ms(lambda: seed_locate(*one), dev, 20),
+             "single_device_ms": device_ms(lambda: seed_locate(*one), "locate_single")[0]}
+        if parent is not None:
+            r["parent"] = in_turns(lambda: parent_raw(parent, *a), lambda: seed_locate_batch(*a),
+                                   "seed_locate_batch_kernel", "locate_batch")
+            r["parent_single"] = in_turns(
+                lambda: parent_raw(parent, *one), lambda: seed_locate(*one),
+                "seed_locate_batch_kernel", "locate_single")
         out.append(r)
-        log(f"[e2e] main-path bucket {r}: kernel == plain [{card}]")
-    seed_locate_batch.launches = saved  # comparison launches do not count
+        log(f"[e2e] main-path bucket {json.dumps(r)}: kernels == plain [{card}]")
+    # comparison launches do not count
+    seed_locate_batch.launches, seed_locate.launches = saved
     return out
 
 
@@ -1285,6 +1466,9 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=40)
     ap.add_argument("--rounds", type=int, default=5,
                     help="end-to-end timing rounds of (host, device, device, host) passes")
+    ap.add_argument("--compare-source", metavar="CU",
+                    help="an earlier tree's csrc/seed_locate.cu: build it too and time its "
+                         "kernel against this tree's, in turns, at the same shapes")
     args = ap.parse_args()
 
     import torch
@@ -1307,12 +1491,15 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, card: {card}")
 
     t0 = time.perf_counter()
+    started = parent_build(args.compare_source) if args.compare_source else None
     libs = build.build(["seed_locate", "seed_match", "pseudo_align"])
-    log(f"[build] {len(libs)} kernel sources built with nvcc in parallel in "
+    parent = parent_load(started) if started else None
+    log(f"[build] {len(libs) + bool(parent)} kernel sources built with nvcc in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    n_edges = check_locate_edges(dev)
     kres, sres = phase_kernel(dev, card, Mb=20_000, E=10_240, B=32, p=15, seed=args.seed,
-                              reps=20)
+                              reps=20, parent=parent)
     torch.cuda.empty_cache()
     bres = phase_seed_match(dev, card, Mb=20_000, E=10_240, p=15, seed=args.seed + 3, reps=20)
     torch.cuda.empty_cache()
@@ -1325,7 +1512,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
-                                args.rounds)
+                                args.rounds, parent)
 
     def seed_row(name, source, replaces, res, launches, extra=None):
         return {"name": name, "route": "cuda", "source": f"lexicmap_tpu_torch/csrc/{source}",
@@ -1346,13 +1533,17 @@ def main() -> int:
                 "shape": {"windows": res["windows"], "full_windows": res["full_windows"],
                           "full_ms": res["full_ms"]}}
 
+    def locate_extra(res, **more):
+        keys = ("device_ms", "device_ms_by", "design_bytes", "sector_bytes", "io_bytes", "parent")
+        return {**{k: res[k] for k in keys if k in res}, "edge_shapes": n_edges, **more}
+
     kernels = [
         seed_row("seed_locate_batch", "seed_locate.cu",
                  "lexicmap_tpu/parallel/pallas_kernels.py:119", kres,
-                 eres["launches"]["seed_locate_batch"], {"main_path_shapes": eres["shapes"]}),
+                 eres["launches"]["seed_locate_batch"],
+                 locate_extra(kres, main_path_shapes=eres["shapes"])),
         seed_row("seed_locate", "seed_locate.cu", "lexicmap_tpu/parallel/pallas_kernels.py:79",
-                 sres,
-                 eres["single_launches"]),
+                 sres, eres["single_launches"], locate_extra(sres)),
         seed_row("seed_match", "seed_match.cu", "lexicmap_tpu/parallel/pallas_kernels.py:205",
                  bres, 0),
         pseudo_row("pseudo_probe", "lexicmap_tpu/parallel/pseudo_device.py:196", pres),

@@ -1,20 +1,26 @@
 """Batched and single-query >=p-prefix seed locate: the hand-written CUDA
-kernel (`csrc/seed_locate.cu`) and its plain PyTorch twins.
+kernels (`csrc/seed_locate.cu`) and their plain PyTorch twins.
 
 `seed_locate_batch` is the counterpart of
 lexicmap_tpu/parallel/pallas_kernels.py::seed_locate_batch_pallas and
-`seed_locate` of ::seed_locate_pallas (the same function for one query); one
-`__global__` serves both, `seed_locate` launches it at B = 1.
+launches `locate_batch_staged` (rows of E <= SMALL_MAX_E, staged whole in
+shared memory) or `locate_batch_sampled` (larger rows: a sample of SAMPLE
+pivots, then each bound's interval bisected), a warp per row serving every
+query of the row.  `seed_locate` is the counterpart of ::seed_locate_pallas
+(the same function for one query) and launches its own `locate_single` (a
+thread per row: a bisection over every SINGLE_RUN-th entry whose first
+pivot comes with the query, then the SINGLE_RUN entries after the last one
+below each bound read whole).
 Table and query hi words are int32 tensors that hold the uint32 bits
-(PyTorch cannot compare uint32 tensors on the CPU); the kernel reads them as
+(PyTorch cannot compare uint32 tensors on the CPU); the kernels read them as
 uint32, the plain version widens them to int64 with `& 0xFFFFFFFF`.
 
     suf = 2^(32-2p) - 1,  lb = qhi & ~suf,  rb = qhi | suf
     n_hits[b,m] = #{e < cnt[m] : lb <= hi[m,e] <= rb}
     e0[b,m]     = #{e < cnt[m] : hi[m,e] < lb}
 
-both 0 where `query_valid` is false.  The kernel bisects the rows, so it
-needs each row sorted ascending over [0, cnt); the plain version is the dense
+both 0 where `query_valid` is false.  The kernels search the rows, so they
+need each row sorted ascending over [0, cnt); the plain version is the dense
 masked count and does not, so a row that is not sorted shows up as a
 mismatch between the two.
 """
@@ -28,6 +34,13 @@ import torch
 
 PAD_HI = np.uint32(0xFFFFFFFF)
 _U32 = 0xFFFFFFFF
+
+# the design's choices, compiled into csrc/seed_locate.cu (SMALL_MAX_E,
+# SAMPLE, RUN there) and named here for the tests' replays of its searches
+# (tests/torch_parity.py), which chip_smoke.py holds equal to the kernels
+SMALL_MAX_E = 1024
+SAMPLE = 32
+SINGLE_RUN = 16
 
 
 def split_kmers_hi_lo(kmers: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -52,9 +65,22 @@ def suffix_mask(p: int) -> int:
     return (1 << (32 - 2 * p)) - 1
 
 
-def _check(seed_hi, seed_cnt, query_hi, query_valid):
-    for name, t, dt in (("seed_hi", seed_hi, torch.int32), ("seed_cnt", seed_cnt, torch.int32),
-                        ("query_hi", query_hi, torch.int32),
+def _check_table(seed_hi, seed_cnt):
+    for name, t in (("seed_hi", seed_hi), ("seed_cnt", seed_cnt)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+    if seed_cnt.device != seed_hi.device:
+        raise ValueError(f"seed_cnt is on {seed_cnt.device}, seed_hi on {seed_hi.device}")
+    if seed_hi.dim() != 2:
+        raise ValueError(f"seed_hi must be [Mb, E], got {tuple(seed_hi.shape)}")
+    if tuple(seed_cnt.shape) != (seed_hi.shape[0],):
+        raise ValueError(f"seed_cnt must be [{seed_hi.shape[0]}], got {tuple(seed_cnt.shape)}")
+
+
+def _check_queries(seed_hi, query_hi, query_valid, shape):
+    for name, t, dt in (("query_hi", query_hi, torch.int32),
                         ("query_valid", query_valid, torch.bool)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -62,17 +88,19 @@ def _check(seed_hi, seed_cnt, query_hi, query_valid):
             raise TypeError(f"{name} must be {dt}, got {t.dtype}")
         if t.device != seed_hi.device:
             raise ValueError(f"{name} is on {t.device}, seed_hi on {seed_hi.device}")
-    if seed_hi.dim() != 2:
-        raise ValueError(f"seed_hi must be [Mb, E], got {tuple(seed_hi.shape)}")
-    Mb = seed_hi.shape[0]
-    if tuple(seed_cnt.shape) != (Mb,):
-        raise ValueError(f"seed_cnt must be [{Mb}], got {tuple(seed_cnt.shape)}")
-    if query_hi.dim() != 2 or query_hi.shape[1] != Mb:
-        raise ValueError(f"query_hi must be [B, {Mb}], got {tuple(query_hi.shape)}")
+    if tuple(query_hi.shape) != shape:
+        raise ValueError(f"query_hi must be {shape}, got {tuple(query_hi.shape)}")
     if query_valid.shape != query_hi.shape:
         raise ValueError(
             f"query_valid must be {tuple(query_hi.shape)}, got {tuple(query_valid.shape)}"
         )
+
+
+def _check(seed_hi, seed_cnt, query_hi, query_valid):
+    _check_table(seed_hi, seed_cnt)
+    if query_hi.dim() != 2:
+        raise ValueError(f"query_hi must be [B, {seed_hi.shape[0]}], got {tuple(query_hi.shape)}")
+    _check_queries(seed_hi, query_hi, query_valid, (query_hi.shape[0], seed_hi.shape[0]))
 
 
 def seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p: int,
@@ -105,39 +133,50 @@ def seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p: int,
     return nh, e0
 
 
-def _launch(seed_hi, seed_cnt, query_hi, query_valid, p, counter):
-    from .build import load
+_lib_handle = None
 
-    lib = load("seed_locate")
-    vp = ctypes.c_void_p
-    lib.seed_locate_batch.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, ctypes.c_uint, vp]
-    lib.seed_locate_batch.restype = ctypes.c_int
-    lib.seed_locate_error_string.argtypes = [ctypes.c_int]
-    lib.seed_locate_error_string.restype = ctypes.c_char_p
+
+def kernel_lib() -> ctypes.CDLL:
+    """The built `csrc/seed_locate.cu` with its C signatures bound (once)."""
+    global _lib_handle
+    if _lib_handle is None:
+        from .build import load
+
+        lib = load("seed_locate")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.seed_locate_batch.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint, vp]
+        lib.seed_locate_batch.restype = ci
+        lib.seed_locate.argtypes = [vp] * 6 + [ci, ci, ctypes.c_uint, vp]
+        lib.seed_locate.restype = ci
+        lib.seed_locate_error_string.argtypes = [ci]
+        lib.seed_locate_error_string.restype = ctypes.c_char_p
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _cuda_ptrs(seed_hi, seed_cnt, query_hi, query_valid):
+    """The kernels' pointer arguments; raises unless every tensor is
+    contiguous on a CUDA device."""
+    if seed_hi.device.type != "cuda":
+        raise ValueError(f"unsupported device {seed_hi.device}")
     for name, t in (("seed_hi", seed_hi), ("seed_cnt", seed_cnt), ("query_hi", query_hi),
                     ("query_valid", query_valid)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    Mb, E = seed_hi.shape
-    B = query_hi.shape[0]
-    nh = torch.empty((B, Mb), dtype=torch.int32, device=seed_hi.device)
-    e0 = torch.empty((B, Mb), dtype=torch.int32, device=seed_hi.device)
-    if B * Mb == 0:
-        return nh, e0
-    with torch.cuda.device(seed_hi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.seed_locate_batch(
-            seed_hi.data_ptr(), seed_cnt.data_ptr(), query_hi.data_ptr(),
-            query_valid.data_ptr(), nh.data_ptr(), e0.data_ptr(), B, Mb, E,
-            suffix_mask(p), stream,
-        )
+    return [seed_hi.data_ptr(), seed_cnt.data_ptr(), query_hi.data_ptr(), query_valid.data_ptr()]
+
+
+def _on_device(dev, call):
+    """call(stream) with `dev` current, switching devices only if it is not."""
+    if dev.index == torch.cuda.current_device():
+        return call(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        return call(torch.cuda.current_stream().cuda_stream)
+
+
+def _raise_on(err: int, lib, name: str):
     if err != 0:
-        raise RuntimeError(
-            f"seed_locate_batch launch failed: {lib.seed_locate_error_string(err).decode()}"
-        )
-    counter.launches += 1
-    return nh, e0
+        raise RuntimeError(f"{name} launch failed: {lib.seed_locate_error_string(err).decode()}")
 
 
 def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int):
@@ -150,12 +189,20 @@ def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int):
     CUDA tensors launch the kernel (`launches` counts the launches); CPU
     tensors run the plain version."""
     _check(seed_hi, seed_cnt, query_hi, query_valid)
-    suffix_mask(p)
+    suf = suffix_mask(p)
     if seed_hi.device.type == "cpu":
         return seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
-    if seed_hi.device.type != "cuda":
-        raise ValueError(f"unsupported device {seed_hi.device}")
-    return _launch(seed_hi, seed_cnt, query_hi, query_valid, p, seed_locate_batch)
+    ptrs = _cuda_ptrs(seed_hi, seed_cnt, query_hi, query_valid)
+    (Mb, E), B = seed_hi.shape, query_hi.shape[0]
+    out = torch.empty((2, B, Mb), dtype=torch.int32, device=seed_hi.device)
+    if B * Mb == 0:
+        return out[0], out[1]
+    lib = kernel_lib()
+    err = _on_device(seed_hi.device, lambda stream: lib.seed_locate_batch(
+        *ptrs, out[0].data_ptr(), out[1].data_ptr(), B, Mb, E, suf, stream))
+    _raise_on(err, lib, "seed_locate_batch")
+    seed_locate_batch.launches += 1
+    return out[0], out[1]
 
 
 seed_locate_batch.launches = 0
@@ -172,21 +219,24 @@ def seed_locate(seed_hi, seed_cnt, query_hi, query_valid, p: int):
     query: query_hi int32 [Mb], query_valid bool [Mb]; otherwise as
     `seed_locate_batch`.  Returns (n_hits, e0), both int32 [Mb].
 
-    CUDA tensors launch the kernel at B = 1 (`launches` counts them); CPU
-    tensors run the plain version."""
-    for name, t in (("query_hi", query_hi), ("query_valid", query_valid)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.dim() != 1:
-            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
-    _check(seed_hi, seed_cnt, query_hi[None], query_valid[None])
-    suffix_mask(p)
+    CUDA tensors launch the single-query kernel (`launches` counts them);
+    CPU tensors run the plain version."""
+    _check_table(seed_hi, seed_cnt)
+    _check_queries(seed_hi, query_hi, query_valid, (seed_hi.shape[0],))
+    suf = suffix_mask(p)
     if seed_hi.device.type == "cpu":
         return seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
-    if seed_hi.device.type != "cuda":
-        raise ValueError(f"unsupported device {seed_hi.device}")
-    nh, e0 = _launch(seed_hi, seed_cnt, query_hi[None], query_valid[None], p, seed_locate)
-    return nh[0], e0[0]
+    ptrs = _cuda_ptrs(seed_hi, seed_cnt, query_hi, query_valid)
+    Mb, E = seed_hi.shape
+    out = torch.empty((2, Mb), dtype=torch.int32, device=seed_hi.device)
+    if Mb == 0:
+        return out[0], out[1]
+    lib = kernel_lib()
+    err = _on_device(seed_hi.device, lambda stream: lib.seed_locate(
+        *ptrs, out[0].data_ptr(), out[1].data_ptr(), Mb, E, suf, stream))
+    _raise_on(err, lib, "seed_locate")
+    seed_locate.launches += 1
+    return out[0], out[1]
 
 
 seed_locate.launches = 0

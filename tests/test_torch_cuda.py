@@ -11,7 +11,7 @@ from torch_parity import (
     CHAIN_PARAMS,
     chain_stress_windows,
     chain_tensors,
-    make_case,
+    make_edge_case,
     phase4_tensors,
     seed_match_case,
     seed_match_torch,
@@ -30,28 +30,52 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# both regimes of seed_locate_batch around their threshold, the edge rows
+# of torch_parity.make_edge_case, B around the 32 lanes of a warp
+EDGE_E = (128, SL.SMALL_MAX_E - 128, SL.SMALL_MAX_E + 128, 16384)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [11, 15, 16])
-def test_cuda_kernel_equals_plain(cuda_device, p):
-    args = to_torch(*make_case(p, 8, M=512, E=384, seed=2), device=cuda_device)
-    before = SL.seed_locate_batch.launches
+@pytest.mark.parametrize("p", [1, 11, 15, 16])
+@pytest.mark.parametrize("B", [1, 7, 32, 33])
+@pytest.mark.parametrize("E", EDGE_E)
+def test_cuda_kernel_equals_plain(cuda_device, E, B, p):
+    args = to_torch(*make_edge_case(p, B, E, seed=2), device=cuda_device)
+    before = (SL.seed_locate_batch.launches, SL.seed_locate.launches)
     nh, e0 = SL.seed_locate_batch(*args, p)
     torch.cuda.synchronize()
-    assert SL.seed_locate_batch.launches == before + 1
+    assert (SL.seed_locate_batch.launches, SL.seed_locate.launches) == (before[0] + 1, before[1])
     pn, pe = SL.seed_locate_batch_plain(*args, p)
     assert torch.equal(nh, pn) and torch.equal(e0, pe)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [11, 15, 16])
-def test_cuda_single_query_kernel_equals_plain(cuda_device, p):
-    hi, cnt, qh, qv = to_torch(*make_case(p, 1, M=512, E=384, seed=4), device=cuda_device)
-    before = SL.seed_locate.launches
+@pytest.mark.parametrize("p", [1, 11, 15, 16])
+@pytest.mark.parametrize("E", EDGE_E)
+def test_cuda_single_query_kernel_equals_plain(cuda_device, E, p):
+    hi, cnt, qh, qv = to_torch(*make_edge_case(p, 1, E, seed=4), device=cuda_device)
+    before = (SL.seed_locate_batch.launches, SL.seed_locate.launches)
     nh, e0 = SL.seed_locate(hi, cnt, qh[0], qv[0], p)
     torch.cuda.synchronize()
-    assert SL.seed_locate.launches == before + 1
+    # its own kernel, once per call
+    assert (SL.seed_locate_batch.launches, SL.seed_locate.launches) == (before[0], before[1] + 1)
     pn, pe = SL.seed_locate_plain(hi, cnt, qh[0], qv[0], p)
     assert torch.equal(nh, pn) and torch.equal(e0, pe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [5, SL.SMALL_MAX_E - 2, SL.SMALL_MAX_E + 4, 16376])
+def test_cuda_locate_unaligned_widths_equal_plain(cuda_device, E):
+    """Widths off the 16-byte and run grid: B1 stages word by word below
+    the threshold, and B2 reads its last runs word by word (E = 5 puts its
+    top head on the first entry)."""
+    for p in (1, 15):
+        hi, cnt, qh, qv = to_torch(*make_edge_case(p, 33, E, seed=8), device=cuda_device)
+        pn, pe = SL.seed_locate_batch_plain(hi, cnt, qh, qv, p)
+        nh, e0 = SL.seed_locate_batch(hi, cnt, qh, qv, p)
+        assert torch.equal(nh, pn) and torch.equal(e0, pe), p
+        nh, e0 = SL.seed_locate(hi, cnt, qh[0], qv[0], p)
+        assert torch.equal(nh, pn[0]) and torch.equal(e0, pe[0]), p
 
 
 @pytest.mark.cuda

@@ -119,6 +119,164 @@ def to_torch(hi, cnt, qh, qv, device="cpu"):
             torch.from_numpy(qv.copy()).to(device))
 
 
+def make_edge_case(p, B, E, M=64, seed=0):
+    """make_case's rows with the seed-locate kernels' edge rows: counts 0,
+    1, SAMPLE - 1, SAMPLE, SAMPLE + 1 and E (rows 6-11, clamped to E), a
+    full row of long runs of equal words (row 12), queries drawn from those
+    rows (every other one with a mutated last base), and random non-PAD
+    words past cnt in every row.  Returns numpy (hi, cnt, qh, qv) as
+    make_case."""
+    hi, cnt, qh, qv = make_case(p, B, M=M, E=E, seed=seed)
+    rng = np.random.default_rng(seed * 7919 + E * 37 + B)
+    runs = np.repeat(np.sort(rng.integers(0, 1 << 32, size=-(-E // 100), dtype=np.uint64)), 100)
+    S = SL.SAMPLE
+    rows = [np.sort(rng.integers(0, 1 << 32, size=min(c, E), dtype=np.uint64))
+            for c in (0, 1, S - 1, S, S + 1, E)] + [runs[:E]]
+    for m, vals in enumerate(rows, start=6):
+        c = vals.shape[0]
+        hi[m, :c] = vals.astype(np.uint32)
+        cnt[m] = c
+        if c:
+            flip = rng.integers(0, 4, size=B, dtype=np.uint64) * (np.arange(B) % 2 == 1)
+            drawn = vals[rng.integers(0, c, size=B)] ^ flip.astype(np.uint64)
+            qh[:, m] = np.where(qv[:, m], drawn, 0).astype(np.uint32)
+    for m in range(M):
+        hi[m, cnt[m]:] = rng.integers(0, 0xFFFFFFFF, size=E - cnt[m], dtype=np.uint64)
+    return hi, cnt, qh, qv
+
+
+# --------------------------------------------------------------------------
+# torch replays of csrc/seed_locate.cu's searches: the same index arithmetic
+# on tensors, returning the outputs and the distinct 32-byte table sectors
+# each kernel reads (chip_smoke.py counts the design's bytes with them)
+
+_U32 = 0xFFFFFFFF
+
+
+def _bounds(qh, qv, p):
+    """The valid (b, m) pairs and their lb, rb as int64."""
+    suf = SL.suffix_mask(p)
+    b_idx, m_idx = qv.nonzero(as_tuple=True)
+    x = qh[b_idx, m_idx].to(torch.int64) & _U32
+    return b_idx, m_idx, x & (_U32 ^ suf), x | suf
+
+
+def _bisect(flat, base, lo, hi, x, le, touched=None, stride=1):
+    """Vectorized lower bound of x (le: of the first entry > x) over
+    flat[base + i * stride], i in [lo, hi); the sector ids of its probes go
+    to `touched`."""
+    while True:
+        act = lo < hi
+        if not bool(act.any()):
+            return lo
+        mid = (lo + hi) >> 1
+        at = base + torch.where(act, mid, 0) * stride
+        if touched is not None:
+            touched.append(at[act] // 8)
+        v = flat[at]
+        right = (v <= x) if le else (v < x)
+        lo = torch.where(act & right, mid + 1, lo)
+        hi = torch.where(act & ~right, mid, hi)
+
+
+def _outputs(B, Mb, b_idx, m_idx, e0, end, dev):
+    nh = torch.zeros((B, Mb), dtype=torch.int32, device=dev)
+    e0_out = torch.zeros((B, Mb), dtype=torch.int32, device=dev)
+    nh[b_idx, m_idx] = (end - e0).to(torch.int32)
+    e0_out[b_idx, m_idx] = e0.to(torch.int32)
+    return nh, e0_out
+
+
+def locate_batch_replay(hi, cnt, qh, qv, p):
+    """seed_locate_batch's search on int32-bit tensors (hi [Mb, E], cnt
+    [Mb], qh [B, Mb], qv [B, Mb]).  Rows of E <= SMALL_MAX_E: [0, cnt)
+    staged whole (16-byte loads when E % 4 == 0), the searches in it.
+    Larger rows: pivots row[j*s], s = ceil(cnt/SAMPLE) (1 if cnt <=
+    SAMPLE); c pivots on the left of a bound leave [(c-1)*s + 1, min(c*s,
+    cnt)) to bisect.  lb's and rb's bisections probe the same entry while
+    their intervals are one, so the union of their probes is what the kernel
+    reads.  Returns (n_hits, e0, sectors): the distinct table sector ids
+    read, for a 32-byte-aligned table."""
+    S = SL.SAMPLE
+    Mb, E = hi.shape
+    B, dev = qh.shape[0], hi.device
+    flat = hi.reshape(-1).to(torch.int64) & _U32
+    n = cnt.to(torch.int64).clamp(0, E)
+    b_idx, m_idx, lb, rb = _bounds(qh, qv, p)
+    base, nm = m_idx * E, n[m_idx]
+    rows = torch.arange(Mb, device=dev)
+    if E <= SL.SMALL_MAX_E:
+        words = (n + 3) // 4 * 4 if E % 4 == 0 else n
+        w = int(words.max()) if Mb else 0
+        i = torch.arange(w, device=dev)
+        sectors = ((rows[:, None] * E + i[None, :])[i[None, :] < words[:, None]]) // 8
+        e0 = _bisect(flat, base, torch.zeros_like(nm), nm, lb, False)
+        end = _bisect(flat, base, torch.zeros_like(nm), nm, rb, True)
+        return (*_outputs(B, Mb, b_idx, m_idx, e0, end, dev), torch.unique(sectors))
+    s = torch.where(n > S, (n + S - 1) // S, 1)
+    P = (n + s - 1) // s
+    j = torch.arange(S, device=dev)
+    real = j[None, :] < P[:, None]
+    pos = rows[:, None] * E + torch.where(real, j[None, :] * s[:, None], 0)
+    piv = torch.where(real, flat[pos], 1 << 32)  # sorted; past P above every bound
+    touched = [pos[real] // 8]
+
+    def finish(bound, le):
+        """Pivots on the left of the bound, then the bisection of the
+        interval they leave."""
+        full = torch.zeros((Mb, B), dtype=torch.int64, device=dev)
+        full[m_idx, b_idx] = bound
+        c = torch.searchsorted(piv, full, right=le)[m_idx, b_idx]
+        sm = s[m_idx]
+        lo = torch.where(c > 0, (c - 1) * sm + 1, 0)
+        hi_ = torch.where(c > 0, torch.minimum(c * sm, nm), 0)
+        return _bisect(flat, base, lo, hi_, bound, le, touched)
+
+    e0, end = finish(lb, False), finish(rb, True)
+    return (*_outputs(B, Mb, b_idx, m_idx, e0, end, dev), torch.unique(torch.cat(touched)))
+
+
+def locate_single_replay(hi, cnt, qh, qv, p):
+    """seed_locate's search (qh, qv [Mb]) over the heads row[j*RUN], RUN =
+    SINGLE_RUN, j < ceil(cnt/RUN).  Every row's top head, H//2 of H =
+    ceil(E/RUN), is read whatever its query and settles the top level (a
+    top head at or past cnt counts as above every bound); a bisection of
+    the heads left follows.  c heads on the left of a bound then leave the
+    run row[(c-1)*RUN, c*RUN), read whole (all RUN words when E % RUN == 0,
+    else those below cnt) and counted.  Returns (n_hits, e0, sectors) as
+    locate_batch_replay."""
+    run = SL.SINGLE_RUN
+    Mb, E = hi.shape
+    dev = hi.device
+    if E == 0:
+        zero = torch.zeros(Mb, dtype=torch.int32, device=dev)
+        return zero, zero.clone(), torch.zeros(0, dtype=torch.int64, device=dev)
+    flat = hi.reshape(-1).to(torch.int64) & _U32
+    b_idx, m_idx, lb, rb = _bounds(qh[None], qv[None], p)
+    base, nm = m_idx * E, cnt.to(torch.int64).clamp(0, E)[m_idx]
+    half, n = -(-E // run) // 2, (nm + run - 1) // run
+    touched = [(torch.arange(Mb, device=dev) * E + half * run) // 8]
+    top = flat[base + half * run]
+
+    def search(x, le):
+        left = ((top <= x) if le else (top < x)) & (half < n)
+        lo = torch.where(left, half + 1, 0)
+        lo = _bisect(flat, base, lo, torch.where(left, n, n.clamp(max=half)), x, le, touched,
+                     stride=run)
+        b = (lo - 1).clamp(min=0) * run
+        at = b[:, None] + torch.arange(run, device=dev)[None, :]
+        inside = at < nm[:, None]
+        read = (lo > 0)[:, None] & (inside | (E % run == 0))
+        touched.append((base[:, None] + at)[read] // 8)
+        v = flat[base[:, None] + torch.where(inside, at, 0)]
+        left = ((v <= x[:, None]) if le else (v < x[:, None])) & inside
+        return torch.where(lo > 0, b + left.sum(1), 0)
+
+    e0, end = search(lb, False), search(rb, True)
+    nh, e0_out = _outputs(1, Mb, b_idx, m_idx, e0, end, dev)
+    return nh[0], e0_out[0], torch.unique(torch.cat(touched))
+
+
 def seed_match_case(seed=1, M=256, E=128, dup=False):
     """The construction of tests/test_pallas.py:26-76 (rows of random sorted
     31-mers, 80% of queries drawn from their row).  dup=True gives every
