@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 7] [--genomes 200] [--queries 40] [--rounds 5]
                           [--compare-source OLD/seed_locate.cu]
+                          [--compare-source OLD/seed_match.cu]
 
 Phases, each of which raises on a wrong result (nothing falls back):
   1. environment: torch/CUDA versions and the card (nvidia-smi);
@@ -14,12 +15,15 @@ Phases, each of which raises on a wrong result (nothing falls back):
      at the shape of a 10k-genome index (20,000 rows x 10,240 entries) plus
      edge rows (poly-T, saturated rb, empty rows): seed_locate_batch (32
      queries), seed_locate (one query) and seed_match (hi and lo words, best
-     LCP); times as called and on the device (the kernel's own rows in
-     torch.profiler), plain and library-call times, the sectors two
-     bisections touch and those the kernel reads (tests/torch_parity.py's
-     replays, held equal to the kernels), the bound from the fewer of them;
-     with --compare-source, an earlier tree's seed-locate kernel against
-     this one in turns, at the same shapes and the main path's;
+     LCP, also on its edge shapes: E = 5-16,384, p = 1-16, counts around a
+     run, slices of several runs, words past cnt, an unaligned lo table);
+     times as called and on the device (the kernel's own rows in
+     torch.profiler), plain and library-call times, the sectors the earlier
+     bisections touch (two for B1 and B2, three for B3) and those the kernel
+     reads (tests/torch_parity.py's replays, held equal to the kernels), the
+     bound from the fewer of them; with --compare-source, an earlier tree's
+     seed-locate or seed-match kernel against this one in turns, at the same
+     shapes (and, for seed_locate, the main path's);
   4. DeviceSeedMatcher over a synthetic 20,000-mask x 10,240-entry seed
      table vs a numpy bisection oracle;
   5. phase 4 at real state size: a >= 1 GB resident genome blob (1,000
@@ -162,53 +166,94 @@ def seed_locate_case(dev, Mb, E, B, k, seed):
     return to_i32_bits(hi64).contiguous(), cnt, to_i32_bits(qh64).contiguous(), qv, hi64
 
 
-def parent_build(path):
-    """Start nvcc on an earlier tree's seed_locate.cu (same flags), beside
-    the kernel build; parent_load() waits for it."""
+def parent_build(paths):
+    """Start nvcc on each earlier tree's csrc/seed_locate.cu or seed_match.cu
+    (same flags; headers beside it), beside the kernel build;
+    parent_load() waits for them."""
     from lexicmap_tpu_torch.kernels import build
 
-    out = os.path.splitext(path)[0] + ".so"
-    proc = subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, path],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, out
+    started = {}
+    for path in paths:
+        name = os.path.splitext(os.path.basename(path))[0]
+        if name not in ("seed_locate", "seed_match") or name in started:
+            raise ValueError(f"--compare-source takes one seed_locate.cu and one seed_match.cu, "
+                             f"got {path}")
+        out = os.path.splitext(path)[0] + ".so"
+        started[name] = (out, subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    return started
 
 
 def parent_load(started):
-    """The earlier tree's library, its seed_locate_batch(..., B, Mb, E, suf,
-    stream) bound."""
+    """{"seed_locate": lib, "seed_match": lib} of the earlier sources, their
+    C entries bound (seed_locate only where the source has it)."""
     import ctypes
 
-    proc, out = started
-    log_, _ = proc.communicate(timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the earlier source:\n{log_.decode(errors='replace')}")
-    lib = ctypes.CDLL(out)
+    libs = {}
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.seed_locate_batch.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint, vp]
-    lib.seed_locate_batch.restype = ci
-    return lib
+    for name, (out, proc) in started.items():
+        log_, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the earlier {name}.cu:\n"
+                               f"{log_.decode(errors='replace')}")
+        lib = libs[name] = ctypes.CDLL(out)
+        if name == "seed_match":
+            lib.seed_match.argtypes = [vp] * 9 + [ci, ci, ctypes.c_uint, ci, vp]
+            lib.seed_match.restype = ci
+            continue
+        lib.seed_locate_batch.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint, vp]
+        lib.seed_locate_batch.restype = ci
+        if hasattr(lib, "seed_locate"):
+            lib.seed_locate.argtypes = [vp] * 6 + [ci, ci, ctypes.c_uint, vp]
+            lib.seed_locate.restype = ci
+    return libs
 
 
 def parent_raw(lib, hi, cnt, qh, qv, p):
-    """The earlier tree's kernel (one thread per (b, m), two bisections);
-    for one query, its B = 1 launch."""
+    """The earlier tree's seed-locate kernel; for one query its own
+    seed_locate where the source has one, else its B = 1 launch."""
     import torch
 
     from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
 
+    Mb, E = hi.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if qh.dim() == 1 and hasattr(lib, "seed_locate"):
+        out = torch.empty((2, Mb), dtype=torch.int32, device=hi.device)
+        err = lib.seed_locate(*[t.data_ptr() for t in (hi, cnt, qh, qv, out[0], out[1])],
+                              Mb, E, suffix_mask(p), stream)
+        if err:
+            raise RuntimeError(f"the earlier kernel failed to launch ({err})")
+        return out[0], out[1]
     q2, v2 = (qh, qv) if qh.dim() == 2 else (qh[None], qv[None])
     out = torch.empty((2, *q2.shape), dtype=torch.int32, device=hi.device)
     err = lib.seed_locate_batch(*[t.data_ptr() for t in (hi, cnt, q2, v2, out[0], out[1])],
-                                q2.shape[0], hi.shape[0], hi.shape[1], suffix_mask(p),
-                                torch.cuda.current_stream().cuda_stream)
+                                q2.shape[0], Mb, E, suffix_mask(p), stream)
     if err:
         raise RuntimeError(f"the earlier kernel failed to launch ({err})")
     return (out[0], out[1]) if qh.dim() == 2 else (out[0][0], out[1][0])
 
 
+def lib_match(lib, hi, lo, cnt, qh, ql, qv, p, k):
+    """seed_match of the library built from --compare-source's seed_match.cu."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
+
+    Mb, E = hi.shape
+    out = torch.empty((3, Mb), dtype=torch.int32, device=hi.device)
+    err = lib.seed_match(*[t.data_ptr() for t in (hi, lo, cnt, qh, ql, qv, *out)], Mb, E,
+                         suffix_mask(p), k, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"seed_match of {lib._name} failed to launch ({err})")
+    return out[0], out[1], out[2]
+
+
 def in_turns(parent_fn, new_fn, parent_name, new_name, reps=20):
     """Device ms of the earlier kernel and this one in turns (parent, new,
-    new, parent).  Returns {"parent": [a, b], "new": [a, b], "by": ...}."""
+    new, parent); each name is a substring of the one kernel its function
+    launches.  Returns {"parent": [a, b], "new": [a, b], "by": ...}."""
     order = [("parent", parent_fn, parent_name), ("new", new_fn, new_name),
              ("new", new_fn, new_name), ("parent", parent_fn, parent_name)]
     out = {"parent": [], "new": [], "by": []}
@@ -346,7 +391,7 @@ def phase_kernel(dev, card, Mb, E, B, p, seed, reps, parent=None):
     if parent is not None:
         res["parent"] = in_turns(lambda: parent_raw(parent, hi, cnt, qh, qv, p),
                                  lambda: seed_locate_batch(hi, cnt, qh, qv, p),
-                                 "seed_locate_batch_kernel", "locate_batch", reps)
+                                 "locate", "locate_batch", reps)
         if not all(torch.equal(a, b) for a, b in zip(parent_raw(parent, hi, cnt, qh, qv, p),
                                                       (nh, e0))):
             raise AssertionError("the earlier kernel disagrees with this one")
@@ -415,9 +460,9 @@ def phase_single(dev, card, hi, cnt, qh, qv, hi64, p, reps, parent=None):
     if parent is not None:
         res["parent"] = in_turns(lambda: parent_raw(parent, hi, cnt, q, v, p),
                                  lambda: seed_locate(hi, cnt, q, v, p),
-                                 "seed_locate_batch_kernel", "locate_single", reps)
-        log(f"[kernel] seed_locate device ms in turns, earlier tree's B = 1 launch vs this "
-            f"kernel: {json.dumps(res['parent'])} [{card}]")
+                                 "locate", "locate_single", reps)
+        log(f"[kernel] seed_locate device ms in turns, earlier tree's kernel vs this one: "
+            f"{json.dumps(res['parent'])} [{card}]")
     return res
 
 
@@ -547,13 +592,51 @@ def match_replay_bytes(kmers, cnt, q, qv, p):
     return sectors * SECTOR, probes
 
 
-def phase_seed_match(dev, card, Mb, E, p, seed, reps):
+def check_match_edges(dev):
+    """seed_match against its plain version and the replay of its search
+    on the edge shapes of torch_parity.make_match_edge_case: E in 5, 100,
+    128, 16,384; p in 1, 11, 15, 16; distinct and duplicate hi words (counts
+    around a run, slices of several runs, queries below and above every
+    entry, random words past cnt); then E = 128 with the lo table 4 bytes
+    off the 16-byte grid.  Returns the number of cases."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels import seed_match as SM
+
+    tp = parity()
+
+    def check(args, p, what):
+        got = SM.seed_match(*args, p)
+        want = SM.seed_match_plain(*args, p)
+        rep = tp.seed_match_replay(*args, p)[:3]
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, want, rep)):
+            raise AssertionError(f"seed_match != plain or replay at {what} p={p}")
+
+    n = 0
+    for E in (5, 100, 128, 16384):
+        for dup in (False, True):
+            for p in (1, 11, 15, 16):
+                case = tp.make_match_edge_case(p, E, dup=dup, seed=E + p)
+                check(tp.seed_match_torch(*case, device=dev), p, f"E={E} dup={dup}")
+                n += 1
+    args = list(tp.seed_match_torch(*tp.make_match_edge_case(11, 128, seed=9), device=dev))
+    buf = torch.empty(args[1].numel() + 1, dtype=torch.int32, device=dev)
+    args[1] = buf[1:].view(args[0].shape).copy_(args[1])
+    for p in (1, 11):
+        check(args, p, "E=128, lo 4 bytes off the grid,")
+        n += 1
+    log(f"[kernel] seed_match == plain and the replay on {n} edge shapes")
+    return n
+
+
+def phase_seed_match(dev, card, Mb, E, p, seed, reps, parent=None):
     import torch
 
     from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
     from lexicmap_tpu_torch.kernels.seed_match import bit_length, seed_match, seed_match_plain
 
     k = 31
+    tp = parity()
     hi, lo, cnt, qh, ql, qv, kmers, q = seed_match_case(dev, Mb, E, k, seed)
     log(f"[kernel] seed_match: Mb={Mb} E={E}, hi + lo {2 * hi.numel() * 4 / 1e6:.1f} MB")
     max_abs_err = 0
@@ -566,8 +649,14 @@ def phase_seed_match(dev, card, Mb, E, p, seed, reps):
             raise AssertionError(f"seed_match != plain at p={pp}: {bad} cells differ")
         if got[0][0] != 3 or got[0][1] != 2 or (got[0][2:6] != 0).any():
             raise AssertionError(f"seed_match edge rows wrong at p={pp}")
+        replay = tp.seed_match_replay(hi, lo, cnt, qh, ql, qv, pp, k)
+        if not all(torch.equal(a, b) for a, b in zip(got, replay[:3])):
+            raise AssertionError(f"the torch replay of the design disagrees with seed_match at "
+                                 f"p={pp}")
+        if pp == p:
+            hi_sec, lo_sec = replay[3:]
         max_abs_err = max([max_abs_err] + [int((a - b).abs().max()) for a, b in zip(got, want)])
-        log(f"[kernel] seed_match p={pp}: kernel == plain on all {Mb} rows "
+        log(f"[kernel] seed_match p={pp}: kernel == plain == replay on all {Mb} rows "
             f"({int((got[0] > 0).sum())} with hits, {int((got[2] == k).sum())} with LCP k)")
     got = seed_match(hi, lo, cnt, qh, ql, qv, p, k)
 
@@ -594,23 +683,34 @@ def phase_seed_match(dev, card, Mb, E, p, seed, reps):
     lib = library()
     if not all(torch.equal(a.int(), b) for a, b in zip(lib, got)):
         raise AssertionError("library searchsorted yardstick disagrees with seed_match")
-    kernel_ms = time_ms(lambda: seed_match(hi, lo, cnt, qh, ql, qv, p, k), dev, reps)
+    call = lambda: seed_match(hi, lo, cnt, qh, ql, qv, p, k)  # noqa: E731
+    kernel_ms = time_ms(call, dev, reps)
+    dev_ms, dev_by = device_ms(call, "match_single", reps)
     plain_ms = time_ms(lambda: seed_match_plain(hi, lo, cnt, qh, ql, qv, p, k), dev,
                        max(1, reps // 10))
     library_ms = time_ms(library, dev, reps)
     sector_bytes, probes = match_replay_bytes(kmers, cnt, q, qv, p)
+    design_bytes = (hi_sec.numel() + lo_sec.numel()) * SECTOR
     io_bytes = 2 * Mb * 4 + Mb + Mb * 4 + 3 * Mb * 4
-    bytes_ms = (sector_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * probes / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = locate_bound(sector_bytes, design_bytes, probes, io_bytes)
     res = {"Mb": Mb, "E": E, "B": 1, "p": p, "equal": True, "max_abs_err": max_abs_err,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "sector_bytes": sector_bytes, "probes": probes}
-    log(f"[kernel] seed_match p={p}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f} "
-        f"library_ms={library_ms:.4f} bound_ms={res['bound_ms']:.5f} "
-        f"(touched sectors {sector_bytes / 1e6:.2f} MB of {2 * hi.numel() * 4 / 1e6:.1f} MB) "
-        f"[{card}]")
+           "kernel_ms": kernel_ms, "device_ms": dev_ms, "device_ms_by": dev_by,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "sector_bytes": sector_bytes, "design_bytes": design_bytes,
+           "design_lo_bytes": lo_sec.numel() * SECTOR, "io_bytes": io_bytes, "probes": probes}
+    log(f"[kernel] seed_match p={p}: kernel_ms={kernel_ms:.4f} (device {dev_ms} by {dev_by}) "
+        f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
+        f"(three bisections' sectors {sector_bytes / 1e6:.2f} MB, the design's "
+        f"{design_bytes / 1e6:.2f} MB of which lo {lo_sec.numel() * SECTOR / 1e6:.2f} MB, of "
+        f"{2 * hi.numel() * 4 / 1e6:.1f} MB) [{card}]")
+    if parent is not None:
+        if not all(torch.equal(a, b) for a, b in zip(
+                lib_match(parent, hi, lo, cnt, qh, ql, qv, p, k), got)):
+            raise AssertionError("the earlier seed_match disagrees with this one")
+        res["parent"] = in_turns(lambda: lib_match(parent, hi, lo, cnt, qh, ql, qv, p, k),
+                                 call, "match", "match_single", reps)
+        log(f"[kernel] seed_match device ms in turns, earlier tree's kernel vs this one: "
+            f"{json.dumps(res['parent'])} [{card}]")
     return res
 
 
@@ -1445,10 +1545,10 @@ def check_main_path_shapes(dev, card, idx, kmers, parent=None):
              "single_device_ms": device_ms(lambda: seed_locate(*one), "locate_single")[0]}
         if parent is not None:
             r["parent"] = in_turns(lambda: parent_raw(parent, *a), lambda: seed_locate_batch(*a),
-                                   "seed_locate_batch_kernel", "locate_batch")
+                                   "locate", "locate_batch")
             r["parent_single"] = in_turns(
                 lambda: parent_raw(parent, *one), lambda: seed_locate(*one),
-                "seed_locate_batch_kernel", "locate_single")
+                "locate", "locate_single")
         out.append(r)
         log(f"[e2e] main-path bucket {json.dumps(r)}: kernels == plain [{card}]")
     # comparison launches do not count
@@ -1466,9 +1566,10 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=40)
     ap.add_argument("--rounds", type=int, default=5,
                     help="end-to-end timing rounds of (host, device, device, host) passes")
-    ap.add_argument("--compare-source", metavar="CU",
-                    help="an earlier tree's csrc/seed_locate.cu: build it too and time its "
-                         "kernel against this tree's, in turns, at the same shapes")
+    ap.add_argument("--compare-source", metavar="CU", action="append", default=[],
+                    help="an earlier tree's csrc/seed_locate.cu or csrc/seed_match.cu (given "
+                         "once each; any header it includes beside it): build it too and time "
+                         "its kernels against this tree's, in turns, at the same shapes")
     args = ap.parse_args()
 
     import torch
@@ -1491,17 +1592,20 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, card: {card}")
 
     t0 = time.perf_counter()
-    started = parent_build(args.compare_source) if args.compare_source else None
+    started = parent_build(args.compare_source)
     libs = build.build(["seed_locate", "seed_match", "pseudo_align"])
-    parent = parent_load(started) if started else None
-    log(f"[build] {len(libs) + bool(parent)} kernel sources built with nvcc in parallel in "
+    parents = parent_load(started)
+    parent = parents.get("seed_locate")
+    log(f"[build] {len(libs) + len(parents)} kernel sources built with nvcc in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
 
     n_edges = check_locate_edges(dev)
+    n_match_edges = check_match_edges(dev)
     kres, sres = phase_kernel(dev, card, Mb=20_000, E=10_240, B=32, p=15, seed=args.seed,
                               reps=20, parent=parent)
     torch.cuda.empty_cache()
-    bres = phase_seed_match(dev, card, Mb=20_000, E=10_240, p=15, seed=args.seed + 3, reps=20)
+    bres = phase_seed_match(dev, card, Mb=20_000, E=10_240, p=15, seed=args.seed + 3, reps=20,
+                            parent=parents.get("seed_match"))
     torch.cuda.empty_cache()
     mres = phase_matcher(dev, card, M=20_000, E=10_240, B=32, p=15, seed=args.seed, reps=5)
     torch.cuda.empty_cache()
@@ -1533,9 +1637,10 @@ def main() -> int:
                 "shape": {"windows": res["windows"], "full_windows": res["full_windows"],
                           "full_ms": res["full_ms"]}}
 
-    def locate_extra(res, **more):
-        keys = ("device_ms", "device_ms_by", "design_bytes", "sector_bytes", "io_bytes", "parent")
-        return {**{k: res[k] for k in keys if k in res}, "edge_shapes": n_edges, **more}
+    def locate_extra(res, edges=n_edges, **more):
+        keys = ("device_ms", "device_ms_by", "design_bytes", "design_lo_bytes", "sector_bytes",
+                "io_bytes", "parent")
+        return {**{k: res[k] for k in keys if k in res}, "edge_shapes": edges, **more}
 
     kernels = [
         seed_row("seed_locate_batch", "seed_locate.cu",
@@ -1545,7 +1650,7 @@ def main() -> int:
         seed_row("seed_locate", "seed_locate.cu", "lexicmap_tpu/parallel/pallas_kernels.py:79",
                  sres, eres["single_launches"], locate_extra(sres)),
         seed_row("seed_match", "seed_match.cu", "lexicmap_tpu/parallel/pallas_kernels.py:205",
-                 bres, 0),
+                 bres, 0, locate_extra(bres, n_match_edges)),
         pseudo_row("pseudo_probe", "lexicmap_tpu/parallel/pseudo_device.py:196", pres),
         pseudo_row("pseudo_chain", "lexicmap_tpu/parallel/pseudo_device.py:464", cres),
     ]

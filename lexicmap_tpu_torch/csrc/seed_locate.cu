@@ -67,46 +67,16 @@
 //
 // Row offsets are int64 (Mb * E passes 2^31 at ~131,000 rows of 16,384).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "seed_search.cuh"
 
 namespace {
+
+using namespace seed_search;
 
 constexpr int ROWS = 8;            // rows (a warp each) per block, at most
 constexpr int SMALL_MAX_E = 1024;  // B1: rows of E <= this are staged whole
 constexpr int SAMPLE = 32;         // B1: pivots in a larger row's sample
 constexpr int RUN = 16;            // B2: entries a head stands for, read whole at the end
-
-// s[i * STRIDE], through the read-only path from global memory.
-template <bool GLOBAL, int STRIDE>
-__device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ s, int i) {
-  return GLOBAL ? __ldg(s + (int64_t)i * STRIDE) : s[i * STRIDE];
-}
-
-// Over sorted s[i * STRIDE]: lo0 becomes the first index of [lo0, hi0) with
-// s[i * STRIDE] >= lb (hi0 if none), lo1 the first of [lo1, hi1) with one
-// > rb.  One bisection step of each per round; while the two intervals are
-// one, so is the probe, and after they part both probes are issued before
-// either compare.
-template <bool GLOBAL, int STRIDE = 1>
-__device__ __forceinline__ void search_pair(const uint32_t* __restrict__ s, uint32_t lb,
-                                            uint32_t rb, int& lo0, int hi0, int& lo1, int hi1) {
-  while (lo0 < hi0 || lo1 < hi1) {
-    const bool a0 = lo0 < hi0, a1 = lo1 < hi1;
-    const int m0 = (lo0 + hi0) >> 1, m1 = (lo1 + hi1) >> 1;
-    const bool own1 = a1 && !(a0 && m0 == m1);
-    uint32_t v0 = 0, v1 = 0;
-    if (a0) v0 = word<GLOBAL, STRIDE>(s, m0);
-    if (own1) v1 = word<GLOBAL, STRIDE>(s, m1);
-    if (!own1) v1 = v0;
-    if (a0) {
-      if (v0 < lb) lo0 = m0 + 1; else hi0 = m0;
-    }
-    if (a1) {
-      if (v1 <= rb) lo1 = m1 + 1; else hi1 = m1;
-    }
-  }
-}
 
 // The block's rows m0 .. m0 + R - 1 (R <= ROWS, a warp each) and 32 queries
 // b0 .. b0 + 31 at a time: the query words and validity come in, and the
@@ -253,36 +223,6 @@ locate_batch_sampled(const uint32_t* __restrict__ seed_hi, const int32_t* __rest
   }
 }
 
-// The run row[b .. b + RUN) whole: 16-byte loads where `vec` (the row
-// 16-byte aligned and the run inside it), else the words below cnt alone.
-// Every load is issued before any word is used.
-__device__ __forceinline__ void run_load(const uint32_t* __restrict__ row, int b, int cnt,
-                                         bool vec, uint32_t (&v)[RUN]) {
-  if (vec) {
-    const uint4* r4 = reinterpret_cast<const uint4*>(row + b);
-#pragma unroll
-    for (int i = 0; i < RUN / 4; ++i) {
-      const uint4 w = __ldg(r4 + i);
-      v[4 * i] = w.x;
-      v[4 * i + 1] = w.y;
-      v[4 * i + 2] = w.z;
-      v[4 * i + 3] = w.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < RUN; ++i) v[i] = b + i < cnt ? __ldg(row + b + i) : 0u;
-  }
-}
-
-// Entries of the run at b below cnt on the left of x (le: <= x, else < x).
-__device__ __forceinline__ int run_count(const uint32_t (&v)[RUN], int b, int cnt, uint32_t x,
-                                         bool le) {
-  int c = 0;
-#pragma unroll
-  for (int i = 0; i < RUN; ++i) c += (b + i < cnt) & (le ? v[i] <= x : v[i] < x);
-  return c;
-}
-
 constexpr int SINGLE_THREADS = 64;  // small blocks: 20,000 rows reach every SM
 
 // B2: a thread per row, see the note.
@@ -291,7 +231,6 @@ locate_single(const uint32_t* __restrict__ seed_hi, const int32_t* __restrict__ 
               const uint32_t* __restrict__ query_hi, const uint8_t* __restrict__ query_valid,
               int32_t* __restrict__ n_hits, int32_t* __restrict__ e0_out, int Mb, int E,
               uint32_t suf, bool vec) {
-  static_assert(RUN % 4 == 0, "runs are read in 16-byte loads");
   const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= Mb) return;
   const uint32_t* row = seed_hi + m * E;
@@ -299,27 +238,12 @@ locate_single(const uint32_t* __restrict__ seed_hi, const int32_t* __restrict__ 
   const int half = ((E + RUN - 1) / RUN) >> 1;
   const uint32_t top = E > 0 ? __ldg(row + (int64_t)half * RUN) : 0u;
   const bool ok = query_valid[m];
-  const uint32_t qhi = query_hi[m], lb = qhi & ~suf, rb = qhi | suf;
+  const uint32_t qhi = query_hi[m];
   const int cnt = ok ? min(max(seed_cnt[m], 0), E) : 0;
-  const int n = (cnt + RUN - 1) / RUN;  // heads below cnt
-  // the top level (a top head at or past cnt is above every bound)
-  const bool l0 = half < n && top < lb, l1 = half < n && top <= rb;
-  int lo0 = l0 ? half + 1 : 0, lo1 = l1 ? half + 1 : 0;
-  search_pair<true, RUN>(row, lb, rb, lo0, l0 ? n : min(half, n), lo1, l1 ? n : min(half, n));
-  // lo0 heads lie below lb: e0 is in the run of head lo0 - 1 (0 if none)
-  const int b0 = (lo0 - 1) * RUN, b1 = (lo1 - 1) * RUN;
-  const bool own1 = lo1 > 0 && lo1 != lo0;
-  uint32_t v0[RUN], v1[RUN];
-  if (lo0 > 0) run_load(row, b0, cnt, vec, v0);
-  if (own1) run_load(row, b1, cnt, vec, v1);
-  if (!own1) {
-#pragma unroll
-    for (int i = 0; i < RUN; ++i) v1[i] = v0[i];
-  }
-  const int e0 = lo0 > 0 ? b0 + run_count(v0, b0, cnt, lb, false) : 0;
-  const int end = lo1 > 0 ? b1 + run_count(v1, b1, cnt, rb, true) : 0;
-  n_hits[m] = end - e0;
-  e0_out[m] = e0;
+  RowRuns<RUN> r;
+  locate_runs(row, top, half, cnt, qhi & ~suf, qhi | suf, vec, r);
+  n_hits[m] = r.end - r.e0;
+  e0_out[m] = r.e0;
 }
 
 constexpr int DEFAULT_SMEM = 48 * 1024;  // a block's shared memory without opting in

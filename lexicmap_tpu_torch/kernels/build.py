@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` for sm_90a into a shared library
 with a plain C interface, loaded with ctypes.  Libraries land in
-`kernels/_build/` (listed in .gitignore), named by a hash of the source and
-the flags, so an edited source never loads a stale library.  Every source
+`kernels/_build/` (listed in .gitignore), named by a hash of the source, the
+local headers it includes (`#include "x.cuh"`, from `csrc/`) and the flags,
+so an edited source or header never loads a stale library.  Every source
 gets its own `nvcc`, all started together.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -36,10 +38,18 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        h = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}.{h}.so")
+        src = fh.read()
+    h = hashlib.sha1(src)
+    for header in _LOCAL_INCLUDE.findall(src):
+        with open(os.path.join(CSRC, header.decode()), "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}.{h.hexdigest()[:16]}.so")
 
 
 def build(names: list[str]) -> dict[str, str]:

@@ -154,16 +154,17 @@ def kernel_lib() -> ctypes.CDLL:
     return _lib_handle
 
 
-def _cuda_ptrs(seed_hi, seed_cnt, query_hi, query_valid):
-    """The kernels' pointer arguments; raises unless every tensor is
-    contiguous on a CUDA device."""
-    if seed_hi.device.type != "cuda":
-        raise ValueError(f"unsupported device {seed_hi.device}")
-    for name, t in (("seed_hi", seed_hi), ("seed_cnt", seed_cnt), ("query_hi", query_hi),
-                    ("query_valid", query_valid)):
+def _cuda_ptrs(**tensors):
+    """The kernels' pointer arguments, in the order given; raises unless
+    every tensor is contiguous on a CUDA device (the caller has checked that
+    they share one)."""
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return [seed_hi.data_ptr(), seed_cnt.data_ptr(), query_hi.data_ptr(), query_valid.data_ptr()]
+    return [t.data_ptr() for t in tensors.values()]
 
 
 def _on_device(dev, call):
@@ -192,7 +193,8 @@ def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int):
     suf = suffix_mask(p)
     if seed_hi.device.type == "cpu":
         return seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
-    ptrs = _cuda_ptrs(seed_hi, seed_cnt, query_hi, query_valid)
+    ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
+                      query_valid=query_valid)
     (Mb, E), B = seed_hi.shape, query_hi.shape[0]
     out = torch.empty((2, B, Mb), dtype=torch.int32, device=seed_hi.device)
     if B * Mb == 0:
@@ -226,7 +228,8 @@ def seed_locate(seed_hi, seed_cnt, query_hi, query_valid, p: int):
     suf = suffix_mask(p)
     if seed_hi.device.type == "cpu":
         return seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
-    ptrs = _cuda_ptrs(seed_hi, seed_cnt, query_hi, query_valid)
+    ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
+                      query_valid=query_valid)
     Mb, E = seed_hi.shape
     out = torch.empty((2, Mb), dtype=torch.int32, device=seed_hi.device)
     if Mb == 0:

@@ -10,9 +10,11 @@ uint32 bits.  With suf = 2^(32-2p) - 1, lb = qhi & ~suf, rb = qhi | suf:
     best_lcp[m] = max over the in-range e of min(clz64((hi,lo) ^ (qhi,qlo)) / 2, k)
 
 all 0 where `query_valid` is false, best_lcp 0 where nothing is in range.
-The kernel bisects, so it needs each row sorted ascending by the full
-(hi, lo) word over [0, cnt); the plain version is the dense definition, so
-an unsorted row shows up as a mismatch between the two.  No search path
+The kernel (`match_single`: seed_locate's single-query search over the hi
+words, then the lo words only where the slice of in-range entries is not
+empty) searches, so it needs each row sorted ascending by the full (hi, lo)
+word over [0, cnt); the plain version is the dense definition, so an
+unsorted row shows up as a mismatch between the two.  No search path
 calls it: the JAX package calls seed_match_pallas from tests only.
 """
 
@@ -22,7 +24,12 @@ import ctypes
 
 import torch
 
-from .seed_locate import _U32, suffix_mask
+from .seed_locate import _U32, _cuda_ptrs, _on_device, suffix_mask
+
+# entries a head stands for in the kernel's search (RUN in
+# csrc/seed_match.cu, which kernel_lib() holds this to), named here for the
+# tests' replay of it (tests/torch_parity.py)
+MATCH_RUN = 8
 
 
 def _check(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid):
@@ -89,33 +96,29 @@ def seed_match_plain(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid
     return nh, e0, lcp
 
 
-def _launch(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid, p, k):
-    from .build import load
+_lib_handle = None
 
-    lib = load("seed_match")
-    vp = ctypes.c_void_p
-    lib.seed_match.argtypes = [vp] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                                          ctypes.c_int, vp]
-    lib.seed_match.restype = ctypes.c_int
-    lib.seed_match_error_string.argtypes = [ctypes.c_int]
-    lib.seed_match_error_string.restype = ctypes.c_char_p
-    args = (seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid)
-    for name, t in zip(("seed_hi", "seed_lo", "seed_cnt", "query_hi", "query_lo",
-                        "query_valid"), args):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    Mb, E = seed_hi.shape
-    out = [torch.empty(Mb, dtype=torch.int32, device=seed_hi.device) for _ in range(3)]
-    if Mb == 0:
-        return tuple(out)
-    with torch.cuda.device(seed_hi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.seed_match(*(t.data_ptr() for t in args), *(t.data_ptr() for t in out),
-                             Mb, E, suffix_mask(p), k, stream)
-    if err != 0:
-        raise RuntimeError(f"seed_match launch failed: {lib.seed_match_error_string(err).decode()}")
-    seed_match.launches += 1
-    return tuple(out)
+
+def kernel_lib() -> ctypes.CDLL:
+    """The built `csrc/seed_match.cu` with its C signatures bound (once);
+    raises if its run length is not MATCH_RUN."""
+    global _lib_handle
+    if _lib_handle is None:
+        from .build import load
+
+        lib = load("seed_match")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.seed_match.argtypes = [vp] * 9 + [ci, ci, ctypes.c_uint, ci, vp]
+        lib.seed_match.restype = ci
+        lib.seed_match_error_string.argtypes = [ci]
+        lib.seed_match_error_string.restype = ctypes.c_char_p
+        lib.seed_match_run.argtypes = []
+        lib.seed_match_run.restype = ci
+        if lib.seed_match_run() != MATCH_RUN:
+            raise RuntimeError(f"csrc/seed_match.cu runs {lib.seed_match_run()} entries a head, "
+                               f"MATCH_RUN says {MATCH_RUN}")
+        _lib_handle = lib
+    return _lib_handle
 
 
 def seed_match(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid, p: int, k: int = 31):
@@ -127,15 +130,25 @@ def seed_match(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid, p: i
     e0, best_lcp), all int32 [Mb].  CUDA tensors launch the kernel
     (`launches` counts them); CPU tensors run the plain version."""
     _check(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid)
-    suffix_mask(p)
+    suf = suffix_mask(p)
     if not 16 < k <= 32:
         raise ValueError(f"k must be in (16, 32], got {k}")
     if seed_hi.device.type == "cpu":
         return seed_match_plain(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid,
                                 p, k)
-    if seed_hi.device.type != "cuda":
-        raise ValueError(f"unsupported device {seed_hi.device}")
-    return _launch(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid, p, k)
+    ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_lo=seed_lo, seed_cnt=seed_cnt, query_hi=query_hi,
+                      query_lo=query_lo, query_valid=query_valid)
+    Mb, E = seed_hi.shape
+    out = torch.empty((3, Mb), dtype=torch.int32, device=seed_hi.device)
+    if Mb == 0:
+        return out[0], out[1], out[2]
+    lib = kernel_lib()
+    err = _on_device(seed_hi.device, lambda stream: lib.seed_match(
+        *ptrs, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), Mb, E, suf, k, stream))
+    if err != 0:
+        raise RuntimeError(f"seed_match launch failed: {lib.seed_match_error_string(err).decode()}")
+    seed_match.launches += 1
+    return out[0], out[1], out[2]
 
 
 seed_match.launches = 0

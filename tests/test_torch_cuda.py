@@ -12,8 +12,10 @@ from torch_parity import (
     chain_stress_windows,
     chain_tensors,
     make_edge_case,
+    make_match_edge_case,
     phase4_tensors,
     seed_match_case,
+    seed_match_replay,
     seed_match_torch,
     to_torch,
 )
@@ -78,17 +80,55 @@ def test_cuda_locate_unaligned_widths_equal_plain(cuda_device, E):
         assert torch.equal(nh, pn[0]) and torch.equal(e0, pe[0]), p
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("p", [11, 15, 16])
-@pytest.mark.parametrize("dup", [False, True])
-def test_cuda_seed_match_equals_plain(cuda_device, p, dup):
-    args = seed_match_torch(*seed_match_case(seed=p, dup=dup), device=cuda_device)
+# seed_match's edge widths: below one run, off the run grid, on it, many runs
+MATCH_E = (5, 100, 128, 16384)
+
+
+def check_match_on_card(case, p, device):
+    """The kernel, launched once, against the plain version and the replay
+    of its search."""
+    args = seed_match_torch(*case, device=device)
     before = SM.seed_match.launches
     got = SM.seed_match(*args, p)
     torch.cuda.synchronize()
     assert SM.seed_match.launches == before + 1
     want = SM.seed_match_plain(*args, p)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, r) for g, r in zip(got, seed_match_replay(*args, p)[:3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 11, 15, 16])
+@pytest.mark.parametrize("dup", [False, True])
+def test_cuda_seed_match_equals_plain(cuda_device, p, dup):
+    check_match_on_card(seed_match_case(seed=p, dup=dup), p, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 11, 15, 16])
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("E", MATCH_E)
+def test_cuda_seed_match_edges_equal_plain(cuda_device, p, dup, E):
+    """The edge rows of make_match_edge_case: counts around a run, a slice
+    of several runs, queries below and above every entry, words past cnt."""
+    check_match_on_card(make_match_edge_case(p, E, dup=dup, seed=5), p, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["seed_hi", "seed_lo"])
+def test_cuda_seed_match_unaligned_table_equals_plain(cuda_device, which):
+    """A table 4 bytes off the 16-byte grid: the kernel reads its runs word
+    by word."""
+    args = list(seed_match_torch(*make_match_edge_case(11, 128, seed=6), device=cuda_device))
+    i = 0 if which == "seed_hi" else 1
+    buf = torch.empty(args[i].numel() + 1, dtype=torch.int32, device=cuda_device)
+    off = buf[1:].view(args[i].shape)
+    off.copy_(args[i])
+    assert off.data_ptr() % 16 != 0
+    for p in (1, 11):
+        want = SM.seed_match_plain(*args, p)
+        args_off = args[:i] + [off] + args[i + 1:]
+        assert all(torch.equal(g, w) for g, w in zip(SM.seed_match(*args_off, p), want)), p
 
 
 @pytest.mark.cuda

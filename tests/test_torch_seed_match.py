@@ -1,6 +1,7 @@
-"""The port's seed-match wrapper and plain twin (B3) vs the JAX package's
-Pallas kernel seed_match_pallas in interpret mode on the CPU.  All outputs
-are integer counts, so every comparison is exact."""
+"""The port's seed-match wrapper and plain twin (B3), and the torch replay
+of its kernel's search, vs the JAX package's Pallas kernel
+seed_match_pallas in interpret mode on the CPU.  All outputs are integer
+counts, so every comparison is exact."""
 
 import numpy as np
 import pytest
@@ -8,7 +9,8 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from torch_parity import K, seed_match_case, seed_match_torch
+from torch_parity import (K, make_match_edge_case, seed_match_case, seed_match_replay,
+                          seed_match_torch)
 
 from lexicmap_tpu.parallel.pallas_kernels import seed_match_pallas
 from lexicmap_tpu_torch.kernels import seed_match as SM
@@ -80,3 +82,53 @@ def test_wrapper_rejects(which):
         k = 16
     with pytest.raises((TypeError, ValueError)):
         SM.seed_match(hi, lo, cnt, qh, ql, has, 15, k)
+
+
+EDGE_E = (5, 100, 128, 2048)  # below one run, off the run grid, on it, many runs
+
+
+@pytest.mark.parametrize("E", EDGE_E)
+@pytest.mark.parametrize("dup", [False, True], ids=["distinct_hi", "duplicate_hi"])
+@pytest.mark.parametrize("p", [1, 11, 15, 16])
+def test_replay_equals_plain_and_pallas(p, dup, E):
+    """The kernel's search (tests/torch_parity.py's replay), the plain
+    version and the Pallas kernel on the edge rows of make_match_edge_case:
+    counts around both run lengths, poly-T and saturated rb, a slice of
+    several runs with its best entry in a middle one, queries below and
+    above every entry, random words past cnt in hi and lo."""
+    case = make_match_edge_case(p, E, dup=dup, seed=3)
+    want = seed_match_pallas(*case, p=p, k=K, tile_m=case[0].shape[0], interpret=True)
+    args = seed_match_torch(*case)
+    plain = SM.seed_match_plain(*args, p, K)
+    replay = seed_match_replay(*args, p, K)
+    for w, a, b in zip(want, plain, replay[:3]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(w))
+    nh, lcp = plain[0].numpy(), plain[2].numpy()
+    assert nh[0] == min(3, E) and lcp[0] > 0  # poly-T
+    if E >= 3 * 2 * SM.MATCH_RUN:  # the long-run rows span more than two runs
+        assert (nh[12:15] > 2 * SM.MATCH_RUN).all() and (lcp[12:15] > 16).all()
+    if E >= 2:  # rows 15 and 16 reach their slice's first and last entry
+        assert (nh[15:17] > 0).all() and (lcp[15:17] > 16).all()
+    assert replay[4].numel() > 0  # lo words were read
+
+
+@pytest.mark.parametrize("E", [128, 2048])
+@pytest.mark.parametrize("dup", [False, True], ids=["distinct_hi", "duplicate_hi"])
+@pytest.mark.parametrize("p", [11, 15, 16])
+def test_replay_reads_fewer_sectors_than_three_bisections(p, dup, E):
+    """The kernel's search reads fewer hi and lo sectors than three
+    bisections and two neighbour reads (chip_smoke.match_replay_bytes) on
+    seed_match_case, and no lo word of a row without hits."""
+    from chip_smoke import SECTOR, match_replay_bytes
+
+    hi, lo, cnt, qh, ql, has = seed_match_case(seed=p, E=E, dup=dup)
+    args = seed_match_torch(hi, lo, cnt, qh, ql, has)
+    nh, _, _, hi_sec, lo_sec = seed_match_replay(*args, p, K)
+    kmers = torch.from_numpy((hi.astype(np.int64) << 30) | (lo.astype(np.int64) >> 2))
+    q = torch.from_numpy((qh.astype(np.int64) << 30) | (ql.astype(np.int64) >> 2))
+    three, _ = match_replay_bytes(kmers, torch.from_numpy(cnt), q, torch.from_numpy(has), p)
+    design = (hi_sec.numel() + lo_sec.numel()) * SECTOR
+    assert design < three
+    rows = torch.unique(lo_sec * 8 // E)  # the rows whose lo words were read
+    assert bool((nh[rows] > 0).all())

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from lexicmap_tpu_torch.kernels import seed_locate as SL
+from lexicmap_tpu_torch.kernels.seed_match import MATCH_RUN, bit_length
 
 
 def write_genomes(d, n=3, length=50000, seed=13):
@@ -146,9 +147,10 @@ def make_edge_case(p, B, E, M=64, seed=0):
 
 
 # --------------------------------------------------------------------------
-# torch replays of csrc/seed_locate.cu's searches: the same index arithmetic
-# on tensors, returning the outputs and the distinct 32-byte table sectors
-# each kernel reads (chip_smoke.py counts the design's bytes with them)
+# torch replays of csrc/seed_locate.cu's and seed_match.cu's searches: the
+# same index arithmetic on tensors, returning the outputs and the distinct
+# 32-byte table sectors each kernel reads (chip_smoke.py counts the design's
+# bytes with them)
 
 _U32 = 0xFFFFFFFF
 
@@ -236,45 +238,141 @@ def locate_batch_replay(hi, cnt, qh, qv, p):
     return (*_outputs(B, Mb, b_idx, m_idx, e0, end, dev), torch.unique(torch.cat(touched)))
 
 
-def locate_single_replay(hi, cnt, qh, qv, p):
-    """seed_locate's search (qh, qv [Mb]) over the heads row[j*RUN], RUN =
-    SINGLE_RUN, j < ceil(cnt/RUN).  Every row's top head, H//2 of H =
+def _single_runs(hi, cnt, qh, qv, p, touched, run):
+    """seed_locate's single-query search (seed_search.cuh `locate_runs`)
+    over the heads row[j*RUN], RUN = `run`, j < ceil(cnt/RUN), of the
+    rows of valid queries (qh, qv [Mb]).  Every row's top head, H//2 of H =
     ceil(E/RUN), is read whatever its query and settles the top level (a
     top head at or past cnt counts as above every bound); a bisection of
     the heads left follows.  c heads on the left of a bound then leave the
     run row[(c-1)*RUN, c*RUN), read whole (all RUN words when E % RUN == 0,
-    else those below cnt) and counted.  Returns (n_hits, e0, sectors) as
-    locate_batch_replay."""
-    run = SL.SINGLE_RUN
+    else those below cnt) and counted.  The table sector ids read go to
+    `touched`.  Returns per valid row (rows, base, cnt, c0, e0, c1, end) as
+    int64 [V], E > 0."""
+    Mb, E = hi.shape
+    dev = hi.device
+    flat = hi.reshape(-1).to(torch.int64) & _U32
+    _, m_idx, lb, rb = _bounds(qh[None], qv[None], p)
+    base, nm = m_idx * E, cnt.to(torch.int64).clamp(0, E)[m_idx]
+    half, n = -(-E // run) // 2, (nm + run - 1) // run
+    touched.append((torch.arange(Mb, device=dev) * E + half * run) // 8)
+    top = flat[base + half * run]
+
+    def search(x, le):
+        left = ((top <= x) if le else (top < x)) & (half < n)
+        c = torch.where(left, half + 1, 0)
+        c = _bisect(flat, base, c, torch.where(left, n, n.clamp(max=half)), x, le, touched,
+                    stride=run)
+        b = (c - 1).clamp(min=0) * run
+        at = b[:, None] + torch.arange(run, device=dev)[None, :]
+        inside = at < nm[:, None]
+        read = (c > 0)[:, None] & (inside | (E % run == 0))
+        touched.append((base[:, None] + at)[read] // 8)
+        v = flat[base[:, None] + torch.where(inside, at, 0)]
+        left = ((v <= x[:, None]) if le else (v < x[:, None])) & inside
+        return c, torch.where(c > 0, b + left.sum(1), 0)
+
+    (c0, e0), (c1, end) = search(lb, False), search(rb, True)
+    return m_idx, base, nm, c0, e0, c1, end
+
+
+def locate_single_replay(hi, cnt, qh, qv, p):
+    """seed_locate's search (qh, qv [Mb]; `_single_runs` with RUN =
+    SINGLE_RUN).  Returns (n_hits, e0, sectors) as locate_batch_replay."""
     Mb, E = hi.shape
     dev = hi.device
     if E == 0:
         zero = torch.zeros(Mb, dtype=torch.int32, device=dev)
         return zero, zero.clone(), torch.zeros(0, dtype=torch.int64, device=dev)
-    flat = hi.reshape(-1).to(torch.int64) & _U32
-    b_idx, m_idx, lb, rb = _bounds(qh[None], qv[None], p)
-    base, nm = m_idx * E, cnt.to(torch.int64).clamp(0, E)[m_idx]
-    half, n = -(-E // run) // 2, (nm + run - 1) // run
-    touched = [(torch.arange(Mb, device=dev) * E + half * run) // 8]
-    top = flat[base + half * run]
-
-    def search(x, le):
-        left = ((top <= x) if le else (top < x)) & (half < n)
-        lo = torch.where(left, half + 1, 0)
-        lo = _bisect(flat, base, lo, torch.where(left, n, n.clamp(max=half)), x, le, touched,
-                     stride=run)
-        b = (lo - 1).clamp(min=0) * run
-        at = b[:, None] + torch.arange(run, device=dev)[None, :]
-        inside = at < nm[:, None]
-        read = (lo > 0)[:, None] & (inside | (E % run == 0))
-        touched.append((base[:, None] + at)[read] // 8)
-        v = flat[base[:, None] + torch.where(inside, at, 0)]
-        left = ((v <= x[:, None]) if le else (v < x[:, None])) & inside
-        return torch.where(lo > 0, b + left.sum(1), 0)
-
-    e0, end = search(lb, False), search(rb, True)
-    nh, e0_out = _outputs(1, Mb, b_idx, m_idx, e0, end, dev)
+    touched = []
+    m_idx, _, _, _, e0, _, end = _single_runs(hi, cnt, qh, qv, p, touched, SL.SINGLE_RUN)
+    nh, e0_out = _outputs(1, Mb, torch.zeros_like(m_idx), m_idx, e0, end, dev)
     return nh[0], e0_out[0], torch.unique(torch.cat(touched))
+
+
+def seed_match_replay(hi, lo, cnt, qh, ql, qv, p, k=K):
+    """seed_match's search (csrc/seed_match.cu) on int32-bit tensors (hi, lo
+    [Mb, E], cnt, qh, ql, qv [Mb]): `_single_runs` with RUN = MATCH_RUN
+    over the hi words gives the slice [e0, end) of in-range entries and c0,
+    c1 heads below lb and at or below rb.  Rows with an empty slice read no
+    lo word.  Where c1 - c0 <= 1 the slice lies in the runs of heads c0 - 1
+    and c1 - 1, whose
+    hi words are held: those runs' lo words are read where the slice meets
+    them (a run as the hi runs are read: whole when E % RUN == 0, else its
+    words below cnt), and every in-range entry's LCP taken.  Longer slices
+    bisect heads [c0, c1) on the full (hi, lo) key (each probe reads both
+    words); the first head a with a key >= q gives the run of head a - 1,
+    read in hi (unless it is one of the two held) and in lo where it meets
+    the slice; the best LCP is over its in-range entries and head a's key.
+    Assumes 32-byte-aligned tables.
+    Returns (n_hits, e0, best_lcp, hi_sectors, lo_sectors)."""
+    run = MATCH_RUN
+    Mb, E = hi.shape
+    dev = hi.device
+    zero = torch.zeros(Mb, dtype=torch.int32, device=dev)
+    if E == 0:
+        none = torch.zeros(0, dtype=torch.int64, device=dev)
+        return zero, zero.clone(), zero.clone(), none, none
+    hi_touched, lo_touched = [], []
+    m_idx, base, nm, c0, e0, c1, end = _single_runs(hi, cnt, qh, qv, p, hi_touched, run)
+    fh = hi.reshape(-1).to(torch.int64) & _U32
+    fl = lo.reshape(-1).to(torch.int64) & _U32
+    qhi = (qh[m_idx].to(torch.int64) & _U32)[:, None]
+    qlo = (ql[m_idx].to(torch.int64) & _U32)[:, None]
+    lane = torch.arange(run, device=dev)[None, :]
+
+    def lcp(pos):  # LCP of the entries at flat positions pos [V, w] with the queries
+        xh, xl = fh[pos] ^ qhi, fl[pos] ^ qlo
+        bits = torch.where(xh != 0, 32 - bit_length(xh), 64 - bit_length(xl))
+        return torch.clamp(bits >> 1, max=k)
+
+    def read_run(touched, b, use):  # run_load of the run at b, rows where `use`
+        at = b[:, None] + lane
+        touched.append((base[:, None] + at)[use[:, None] & ((at < nm[:, None]) | vec)] // 8)
+
+    def run_best(b, use):
+        """The lo words of the run at b read where it meets the slice (rows
+        where `use`); the best LCP over its in-range entries."""
+        use = use & (b + run > e0)
+        read_run(lo_touched, b, use)
+        at = b[:, None] + lane
+        inr = use[:, None] & (at >= e0[:, None]) & (at < end[:, None])
+        pos = base[:, None] + torch.where(inr, at, 0)
+        return torch.where(inr, lcp(pos), 0).max(1).values
+
+    vec = E % run == 0
+    hit = end > e0
+    short = hit & (c1 - c0 <= 1)
+    best = torch.maximum(run_best((c0 - 1) * run, short & (c0 > 0)),
+                         run_best((c1 - 1) * run, short & (c1 != c0)))
+    long_ = hit & (c1 - c0 > 1)
+    a, b = torch.where(long_, c0, 0), torch.where(long_, c1, 0)
+    while True:
+        act = a < b
+        if not bool(act.any()):
+            break
+        mid = (a + b) >> 1
+        pos = base + torch.where(act, mid, 0) * run
+        hi_touched.append(pos[act] // 8)
+        lo_touched.append(pos[act] // 8)
+        less = (fh[pos] < qhi[:, 0]) | ((fh[pos] == qhi[:, 0]) & (fl[pos] < qlo[:, 0]))
+        a = torch.where(act & less, mid + 1, a)
+        b = torch.where(act & ~less, mid, b)
+    head = long_ & (a < c1)
+    best = torch.maximum(best, torch.where(
+        head, lcp((base + torch.where(head, a, 0) * run)[:, None])[:, 0], 0))
+    R = (a - 1) * run
+    use = long_ & (R + run > e0)
+    read_run(hi_touched, R, use & (a != c0) & (a != c1))
+    best = torch.maximum(best, run_best(R, use))
+    nh = zero.clone()
+    nh[m_idx] = (end - e0).to(torch.int32)
+    e0_out = zero.clone()
+    e0_out[m_idx] = e0.to(torch.int32)
+    lcp_out = zero.clone()
+    lcp_out[m_idx] = best.to(torch.int32)
+    return (nh, e0_out, lcp_out, torch.unique(torch.cat(hi_touched)),
+            torch.unique(torch.cat(lo_touched)))
 
 
 def seed_match_case(seed=1, M=256, E=128, dup=False):
@@ -307,6 +405,73 @@ def seed_match_case(seed=1, M=256, E=128, dup=False):
     qh = np.where(has, qh2, 0).astype(np.uint32)
     ql = np.where(has, ql2, 0).astype(np.uint32)
     return hi, lo, cnt, qh, ql, has
+
+
+def make_match_edge_case(p, E, M=64, seed=0, dup=False):
+    """seed_match's edge rows over sorted 31-mer rows: random rows (dup:
+    hi words shared by runs of 4 entries) with queries drawn from them
+    (exact, last bases mutated, or a low hi bit flipped) or random; the
+    poly-T and saturated-rb rows (0, 1); counts 0, 1, R - 1, R, R + 1 and
+    2 R + 1 for R = MATCH_RUN and SINGLE_RUN, and E (rows 2-11, clamped to
+    E); a row of three long runs of equal hi words queried near the middle
+    of the second (row 12: a slice of several runs, the best entry in a
+    middle one), below and above every entry sharing that hi word (rows 13,
+    14), and queries below and above every entry of their row (rows 15,
+    16).  Random hi and lo words past cnt in every row.  Returns numpy (hi
+    u32 [M, E], lo u32 [M, E], cnt i32 [M], qh u32 [M], ql u32 [M], qv bool
+    [M])."""
+    rng = np.random.default_rng(seed * 7919 + E * 37 + p * 3 + dup)
+    top = np.uint64(1 << 62)
+    cnt = rng.integers(0, E + 1, size=M)
+    edges = sorted({0, 1, E} | {c for r in (MATCH_RUN, SL.SINGLE_RUN)
+                                for c in (r - 1, r, r + 1, 2 * r + 1)})
+    cnt[2:12] = np.minimum(edges, E)
+    cnt[12:17] = E
+    table = np.zeros((M, E), dtype=np.uint64)
+    for m in range(M):
+        c = int(cnt[m])
+        if dup:
+            his = np.repeat(rng.integers(0, 1 << 32, size=-(-c // 4), dtype=np.uint64), 4)[:c]
+            row = (his << np.uint64(30)) | rng.integers(0, 1 << 30, size=c, dtype=np.uint64)
+        else:
+            row = rng.integers(0, top, size=c, dtype=np.uint64)
+        table[m, :c] = np.sort(row)
+    queries = rng.integers(0, top, size=M, dtype=np.uint64)
+    for m in np.nonzero(cnt)[0]:
+        if rng.random() < 0.6:
+            e = table[m, rng.integers(0, cnt[m])]
+            kind = rng.integers(0, 3)
+            flip = (np.uint64(0), rng.integers(1, 1 << 12, dtype=np.uint64),
+                    np.uint64(1) << np.uint64(30 + 2 * (16 - p) + 1) if p < 16 else np.uint64(1))
+            queries[m] = e ^ flip[kind]
+    # three runs of equal hi words (E // 3 entries each)
+    his = np.sort(rng.choice(1 << 32, size=3, replace=False).astype(np.uint64))
+    row = np.sort((np.repeat(his, -(-E // 3))[:E] << np.uint64(30))
+                  | rng.integers(1, (1 << 30) - 1, size=E, dtype=np.uint64))
+    table[12:15, :] = row
+    mid = E // 3 + E // 6 if E >= 3 else 0
+    queries[12] = row[mid] ^ rng.integers(1, 1 << 10, dtype=np.uint64)
+    queries[13] = row[mid] >> np.uint64(30) << np.uint64(30)
+    queries[14] = queries[13] | np.uint64((1 << 30) - 1)
+    queries[15] = table[15, 0] - np.uint64(1) if table[15, 0] else np.uint64(0)
+    queries[16] = min(table[16, E - 1] + np.uint64(1), top - np.uint64(1)) if E else np.uint64(0)
+    # row 0: poly-T query, 3 real entries sharing its prefix; row 1: 15 T's
+    # (rb saturates at p = 15), 2 real entries
+    table[0, :3] = np.sort([POLY_T16 | np.uint64(1), POLY_T16 | np.uint64(0x100), POLY_T16])
+    table[1, :2] = [POLY_T15 | np.uint64(3), POLY_T15 | np.uint64(9)]
+    cnt[0], cnt[1] = min(3, E), min(2, E)
+    queries[0], queries[1] = POLY_T16 | np.uint64(0x123), POLY_T15 | np.uint64(7)
+    qv = rng.random(M) < 0.85
+    qv[:2] = True
+    qv[12:17] = True
+    hi = rng.integers(0, 1 << 32, size=(M, E), dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 1 << 32, size=(M, E), dtype=np.uint64).astype(np.uint32)
+    for m in range(M):
+        c = int(cnt[m])
+        hi[m, :c], lo[m, :c] = SL.split_kmers_hi_lo(table[m, :c], K)
+    qh, ql = SL.split_kmers_hi_lo(queries, K)
+    return (hi, lo, cnt.astype(np.int32), np.where(qv, qh, 0).astype(np.uint32),
+            np.where(qv, ql, 0).astype(np.uint32), qv)
 
 
 def seed_match_torch(hi, lo, cnt, qh, ql, has, device="cpu"):
