@@ -37,8 +37,18 @@ Phases, each of which raises on a wrong result (nothing falls back):
      16 genomes each) searched with the device engine (phases 2a and 4 on
      the card) and with the host engine: rows equal, every q_from_gNNN
      top-hits gNNN, every batch launched each kernel the expected number of
-     times, >= 90% of the windows answered on the card; then single-query
-     `search` with the device matcher.
+     times, >= 90% of the windows answered on the card; in turns with it,
+     the device engine with `--chain device --wfa device` (chain1 once per
+     batch, the WFA at least once): rows equal, >= 90% of the genomes
+     chained and of the WFA spans aligned on the card, both kernels equal
+     to their plain versions on the main path's first launches; then
+     single-query `search` with the device matcher, and the CLI both ways;
+  7. (run before 6) chain1 (B9) and the WFA (B8) vs their plain versions
+     and the native DP / WFA, exact: 4,096 anchor sets of 2-700 anchors,
+     16 dense ones of 1,500 and 4 of 20,000; 4,096 pairs of 1.5 kb at 2-8%
+     substitutions and 0.5-1% indels, 64 of 8 kb, 8 of 25 kb (those against
+     the native WFA only), identical, pure-indel and one overflowing pair;
+     times as called, on the device and plain, bounds from the run's data.
 Then one `kernels` JSON line, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.  Exits non-zero without a result
 when there is no CUDA device or the package is not beside this script.
@@ -91,11 +101,13 @@ def time_ms(fn, dev, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, name: str, reps: int = 20) -> tuple[float, str]:
-    """Mean device ms of the kernel launches whose name holds `name`, over
-    `reps` calls of fn after a warm one, from torch.profiler's CUDA rows.
-    Returns (ms, "profiler"), or (None, "not measured") where the profiler
-    shows no such row or there is no CUDA device."""
+def device_ms(fn, name, reps: int = 20) -> tuple[float, str]:
+    """Mean device ms of the kernel launches whose name holds `name` (or,
+    for a tuple of names, the sum of each name's mean: the kernels one call
+    launches), over `reps` calls of fn after a warm one, from
+    torch.profiler's CUDA rows.  Returns (ms, "profiler"), or (None, "not
+    measured") where the profiler shows no such row or there is no CUDA
+    device."""
     import torch
     from torch.autograd import DeviceType
 
@@ -107,11 +119,14 @@ def device_ms(fn, name: str, reps: int = 20) -> tuple[float, str]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    if us:
-        return sum(us) / len(us) / 1e3, "profiler"
-    return None, "not measured"
+    total = 0.0
+    for nm in (name,) if isinstance(name, str) else name:
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and nm in e.name]
+        if not us:
+            return None, "not measured"
+        total += sum(us) / len(us) / 1e3
+    return total, "profiler"
 
 
 def sync(dev):
@@ -1203,6 +1218,236 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
 
 
 # --------------------------------------------------------------------------
+# phase 7: the chain1 forward DP (B9) and the WFA (B8) vs their plain
+# versions and the native oracles
+
+CHAIN1_OPS_PER_VISIT = 20  # int and float operations of one predecessor visit
+WFA_OPS_PER_CELL = 20  # reads, maxima, validity and reduction share of a cell
+WFA_OPS_PER_COMPARE = 10  # one 32-base compare of the extension
+
+
+def chain1_case(seed, n_sets=4096, n_dense=16, n_big=4, big=20_000):
+    """Anchor sets (qb, tb, ln int32, sorted by qb) drawn like
+    tests/test_device_search.py:214-225: n_sets with n from 2 to 700 along
+    a jittered diagonal of 2,500 bp, plus 16 dense sets of 1,500 anchors in
+    900 bp and 4 sets of 20,000 anchors (past the JAX package's largest
+    bucket of 8,192)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def one(n, span, jitter):
+        qb = np.sort(rng.integers(0, span, n)).astype(np.int32)
+        tb = (qb + rng.integers(-jitter, jitter, n)).astype(np.int32)
+        return qb, tb, rng.integers(15, 32, n).astype(np.int32)
+
+    sets = [one(int(n), 2500, 40) for n in rng.integers(2, 701, n_sets)]
+    sets += [one(1500, 900, 30) for _ in range(n_dense)]
+    sets += [one(big, 10 * big, 60) for _ in range(n_big)]
+    return sets
+
+
+def chain1_visits(sets, max_dist):
+    """The predecessors the native scan reads (down to and including the
+    first one past max_dist) over sorted anchor sets."""
+    import numpy as np
+
+    total = 0
+    for qb, _, _ in sets:
+        lo = np.searchsorted(qb, qb.astype(np.int64) - max_dist, side="left")
+        i = np.arange(qb.shape[0])
+        total += int((i - lo).sum() + (lo > 0).sum())
+    return total
+
+
+def wfa_case(seed, n_main=4096, n8=64, n25=8):
+    """Gene-query HSP windows: 4,096 pairs of 1.5 kb at 2-8% substitutions
+    and 0.5-1% indels; 64 pairs of 8 kb and 8 of 25 kb at the same rates;
+    identical pairs, pure-indel pairs and one pair of unrelated sequences
+    that must overflow (the host's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def mutate(n):
+        q = rng.integers(0, 4, n).astype(np.uint8)
+        sub, ind = rng.uniform(0.02, 0.08), rng.uniform(0.005, 0.01)
+        r = rng.random(n)
+        t0 = np.where((r >= ind) & (r < ind + sub), (q + rng.integers(1, 4, n)) % 4, q)
+        pieces, at = [], 0
+        for i in np.nonzero(r < ind)[0]:
+            if i < at:
+                continue
+            pieces.append(t0[at:i])
+            k = int(rng.integers(1, 9))
+            if rng.random() < 0.5:  # k bases inserted before base i
+                pieces.append(rng.integers(0, 4, k))
+                at = i
+            else:  # k bases deleted from base i
+                at = i + k
+        pieces.append(t0[at:])
+        return q, np.concatenate(pieces).astype(np.uint8)
+
+    main = [mutate(1500) for _ in range(n_main)]
+    long8 = [mutate(8000) for _ in range(n8)]
+    long25 = [mutate(25_000) for _ in range(n25)]
+    q = rng.integers(0, 4, 1500).astype(np.uint8)
+    edges = [(q, q.copy()), (q[:700], q[:700].copy()), (q, np.concatenate([q[:600], q[640:]])),
+             (q, np.concatenate([q[:900], rng.integers(0, 4, 30).astype(np.uint8), q[900:]])),
+             (q, q[25:].copy()), (q, rng.integers(0, 4, 1500).astype(np.uint8))]
+    return main, long8, long25, edges
+
+
+def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
+    """B9 and B8 on the card against their plain versions (there) and the
+    native DP / WFA, exact; times as called, on the device (profiler),
+    plain, and their bounds from this run's data.  chain_sizes and
+    wfa_sizes cut the cases (chain1_case's and wfa_case's size arguments)
+    for a rehearsal on the CPU."""
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch.kernels import chain1 as C1
+    from lexicmap_tpu_torch.kernels import wfa as WK
+    from lexicmap_tpu_torch.native import chain1_forward_native
+    from lexicmap_tpu_torch.ops.wfa import wfa_align
+    from lexicmap_tpu_torch.parallel.chain_device import DeviceChainer, gap_score_table
+    from lexicmap_tpu_torch.parallel.wfa_device import BUCKETS, DeviceWFA
+
+    saved = (C1.chain1_forward.launches, WK.wfa_batch.launches)
+    mg, msc, md = 50.0, 40.0, 1000  # tests/test_device_search.py's chainer
+    t0 = time.perf_counter()
+    sets = chain1_case(seed, *chain_sizes)
+    cols, off = C1.pack_sets(sets)
+    cols = torch.from_numpy(cols).to(dev)
+    off_d = torch.from_numpy(off).to(dev)
+    gtab = torch.from_numpy(gap_score_table(mg)).to(dev)
+    args = (*cols, off_d, gtab, mg, msc, md)
+    got = C1.chain1_forward(*args)
+    sync(dev)
+    t1 = time.perf_counter()
+    want = C1.chain1_forward_plain(*args)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    err = float((got[0] - want[0]).abs().max())
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))):
+        raise AssertionError(f"chain1 kernel != plain (max abs err {err})")
+    ms, prev, dirs, flags = (t.cpu().numpy() for t in got)
+    for g, st in enumerate(sets):
+        a, b = off[g], off[g + 1]
+        w = chain1_forward_native(*st, mg, msc, md)
+        if flags[g] or not (np.array_equal(ms[a:b].view(np.uint32),
+                                           w[0].astype(np.float32).view(np.uint32))
+                            and np.array_equal(prev[a:b], w[1]) and np.array_equal(dirs[a:b], w[2])):
+            raise AssertionError(f"chain1 kernel != native DP on set {g} (n={b - a})")
+    n_anchors = int(off[-1])
+    visits = chain1_visits(sets, md)
+    c_ms = time_ms(lambda: C1.chain1_forward(*args), dev, reps)
+    c_dev, c_by = device_ms(lambda: C1.chain1_forward(*args), "chain1_kernel", reps)
+    c_bytes = n_anchors * (12 + 9) + gtab.numel() * 4 + off.nbytes + 8 * len(sets)
+    cb = (c_bytes / HBM_BYTES_PER_S * 1e3, visits * CHAIN1_OPS_PER_VISIT / FP32_OPS_PER_S * 1e3)
+    dc = DeviceChainer(mg, msc, md, device=dev)
+    t1 = time.perf_counter()
+    res = dc.chain_batch(sets)
+    batch_s = time.perf_counter() - t1
+    if any(k != "ok" for k, _ in res):
+        raise AssertionError(f"DeviceChainer sent genomes to the host: {dc.stats}")
+    chain_res = {"sets": len(sets), "anchors": n_anchors, "visits": visits, "ms": c_ms,
+                 "device_ms": c_dev, "device_ms_by": c_by, "plain_ms": plain_ms,
+                 "bound_ms": max(cb), "bound_by": "bytes" if cb[0] >= cb[1] else "operations",
+                 "max_abs_err": err, "chain_batch_s": batch_s, "launches_per_batch": dc.launches,
+                 "device_share": 1 - dc.stats["host_genomes"] / dc.stats["genomes"]}
+    log(f"[phase7] chain1 == plain == native DP (float32 bits, indices) on {len(sets)} sets, "
+        f"{n_anchors} anchors ({visits} predecessor visits; sets of 2-700 anchors, dense ones of "
+        f"1,500, the largest {int((off[1:] - off[:-1]).max())}): kernel {c_ms:.4f} ms as called, device {c_dev} ms, plain "
+        f"{plain_ms:.1f} ms, bound {max(cb):.5f} ms by {chain_res['bound_by']}; "
+        f"DeviceChainer.chain_batch {batch_s * 1e3:.1f} ms in {dc.launches} launch, {dc.stats} "
+        f"(made and checked in {t1 - t0:.1f} s) [{card}]")
+    del got, want, cols
+
+    # B8
+    t0 = time.perf_counter()
+    main, long8, long25, edges = wfa_case(seed + 1, *wfa_sizes)
+    made_s = time.perf_counter() - t0  # the pairs' generation alone
+    L, S, W = BUCKETS[1]
+    wargs = [torch.from_numpy(a).to(dev) for a in WK.pack_pairs(main)]
+    got = WK.wfa_batch(*wargs, S, W, S + 8)
+    sync(dev)
+    work = {}
+    t1 = time.perf_counter()
+    want = WK.wfa_plain(*wargs, S, W, S + 8, work=work)
+    sync(dev)
+    w_plain_ms = (time.perf_counter() - t1) * 1e3
+    got_ops = WK.decode_ops(*(t.cpu().numpy() for t in got))
+    if got_ops != WK.decode_ops(*(t.cpu().numpy() for t in want)):
+        raise AssertionError("wfa kernel != plain on the 1.5 kb pairs")
+    answered = sum(o is not None for o in got_ops)
+    for (q, t), o in zip(main, got_ops):
+        if o is not None and o != wfa_align(q, t).ops:
+            raise AssertionError("wfa kernel != wfa_align on a 1.5 kb pair")
+    for name, pairs, plain in (("8 kb", long8, True), ("25 kb", long25, False),
+                               ("edge", edges, True)):
+        if not pairs:
+            continue
+        b = next(bk for bk in BUCKETS if max(max(p[0].shape[0], p[1].shape[0]) for p in pairs)
+                 <= bk[0])
+        a = [torch.from_numpy(x).to(dev) for x in WK.pack_pairs(pairs)]
+        k = WK.decode_ops(*(x.cpu().numpy() for x in WK.wfa_batch(*a, b[1], b[2], b[1] + 8)))
+        if plain and k != WK.decode_ops(*(x.cpu().numpy()
+                                          for x in WK.wfa_plain(*a, b[1], b[2], b[1] + 8))):
+            raise AssertionError(f"wfa kernel != plain on the {name} pairs")
+        for (q, t), o in zip(pairs, k):
+            if o is not None and o != wfa_align(q, t).ops:
+                raise AssertionError(f"wfa kernel != wfa_align on a {name} pair")
+        if name == "edge" and (k[-1] is not None or any(o is None for o in k[:-1])):
+            raise AssertionError("the edge pairs: only the unrelated pair may overflow")
+        log(f"[phase7] wfa == {'plain == ' if plain else ''}wfa_align on the {name} pairs: "
+            f"{sum(o is not None for o in k)} of {len(pairs)} answered on the card "
+            f"(bucket L={b[0]}, S={b[1]}, W={b[2]})")
+    w_ms = time_ms(lambda: WK.wfa_batch(*wargs, S, W, S + 8), dev, reps)
+    w_dev, w_by = device_ms(lambda: WK.wfa_batch(*wargs, S, W, S + 8),
+                            ("wfa_forward", "wfa_traceback"), reps)
+    nops = got[2].cpu().numpy()
+    compares = work["extended"] + work["ext_bases"] // 32
+    # the function's own bytes: packed sequences and each pair's offsets and
+    # lengths in, its op runs (5 bytes) and run count out
+    w_bytes = wargs[0].numel() * 8 + 24 * len(main) + int(nops.clip(0).sum()) * 5 + 4 * len(main)
+    wb = (w_bytes / HBM_BYTES_PER_S * 1e3,
+          (work["cells"] * WFA_OPS_PER_CELL + compares * WFA_OPS_PER_COMPARE)
+          / FP32_OPS_PER_S * 1e3)
+    # what this design moves besides: each score's int16 history row, W
+    # cells of 6 bytes and its start (4), written once, and the cells and
+    # row starts the traceback's path reads back
+    hist_bytes = (w_bytes + work["rows"] * (W * 6 + 4) + work["tb_cells"] * 2
+                  + work["tb_rows"] * 4)
+    dw = DeviceWFA(device=dev)
+    t1 = time.perf_counter()
+    res = dw.align_batch(main)
+    batch_s = time.perf_counter() - t1
+    if res != [wfa_align(q, t).ops for q, t in main]:
+        raise AssertionError("DeviceWFA.align_batch != wfa_align on the 1.5 kb pairs")
+    wfa_res = {"pairs": len(main), "bucket": [L, S, W], "answered": answered,
+               "cells": work["cells"], "ext_bases": work["ext_bases"], "ms": w_ms,
+               "device_ms": w_dev, "device_ms_by": w_by, "plain_ms": w_plain_ms,
+               "bound_ms": max(wb), "bound_by": "bytes" if wb[0] >= wb[1] else "operations",
+               "bytes": w_bytes, "history_bytes": hist_bytes,
+               "history_bound_ms": hist_bytes / HBM_BYTES_PER_S * 1e3,
+               "max_abs_err": 0, "align_batch_s": batch_s, "launches_per_batch": dw.launches,
+               "device_share": dw.stats["device_pairs"] / dw.stats["pairs"]}
+    log(f"[phase7] wfa == plain == wfa_align on {len(main)} pairs of 1.5 kb ({answered} answered "
+        f"on the card, {work['cells']} wavefront cells, {work['ext_bases']} bases extended): "
+        f"kernel {w_ms:.4f} ms as called (one launch of all), device {w_dev} ms, plain "
+        f"{w_plain_ms:.1f} ms, bound {max(wb):.5f} ms by {wfa_res['bound_by']} (with this "
+        f"design's history traffic {wfa_res['history_bound_ms']:.5f} ms); "
+        f"DeviceWFA.align_batch {batch_s * 1e3:.1f} ms in {dw.launches} launches, "
+        f"{dw.stats} (made in {made_s:.1f} s) [{card}]")
+    # comparison launches do not count
+    C1.chain1_forward.launches, WK.wfa_batch.launches = saved
+    return chain_res, wfa_res
+
+
+# --------------------------------------------------------------------------
 # phase 6: end to end
 
 
@@ -1250,21 +1495,21 @@ def write_genomes(root, n_genomes, n_queries, seed, n_many=32, many_in=16):
     return qrecs, qpath, [(f"many{qi:02d}", many[qi].tobytes()) for qi in range(n_many)]
 
 
-def reset_launches():
-    from lexicmap_tpu_torch.kernels import pseudo_align, seed_locate, seed_match
+def kernel_fns():
+    from lexicmap_tpu_torch.kernels import chain1, pseudo_align, seed_locate, seed_match, wfa
 
-    for fn in (seed_locate.seed_locate_batch, seed_locate.seed_locate, seed_match.seed_match,
-               pseudo_align.pseudo_probe, pseudo_align.pseudo_chain):
+    return (seed_locate.seed_locate_batch, seed_locate.seed_locate, seed_match.seed_match,
+            pseudo_align.pseudo_probe, pseudo_align.pseudo_chain, chain1.chain1_forward,
+            wfa.wfa_batch)
+
+
+def reset_launches():
+    for fn in kernel_fns():
         fn.launches = 0
 
 
 def launch_counts():
-    from lexicmap_tpu_torch.kernels import pseudo_align, seed_locate, seed_match
-
-    return {fn.__name__: fn.launches
-            for fn in (seed_locate.seed_locate_batch, seed_locate.seed_locate,
-                       seed_match.seed_match, pseudo_align.pseudo_probe,
-                       pseudo_align.pseudo_chain)}
+    return {fn.__name__: fn.launches for fn in kernel_fns()}
 
 
 def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=None):
@@ -1297,19 +1542,27 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
     host = IndexSearcher(db, SearchOptions(engine="host"))
     t0 = time.perf_counter()
     dev_idx = IndexSearcher(db, SearchOptions(engine="device", device=str(dev)))
+    # the device engine with phase 3's chain1 DP and phase 5's WFA on the
+    # card too (--chain device --wfa device)
+    stage_idx = IndexSearcher(db, SearchOptions(engine="device", device=str(dev),
+                                                chain_engine="device", wfa_engine="device"))
     host_rows = rows(host.search_many(seqs), ids, seqs)  # warm: mmap pages, native library
     dev_idx.search_many(seqs)  # warm: kernel libraries, resident blob
+    stage_idx.search_many(seqs)
     init_s = time.perf_counter() - t0
     eng = dev_idx._device_engine
+    seng = stage_idx._device_engine
     if eng.blob is None:
         raise AssertionError("the 200-genome store must be resident on the card")
     log(f"[e2e] {dev_idx.device_matcher.describe()}; resident genome blob "
         f"{eng.blob.hbm_bytes / 1e6:.1f} MB; init + warm pass {init_s:.1f} s")
-    for times in (eng.times, eng.pseudo.times):  # the timed passes only, as the stats
+    for times in (eng.times, eng.pseudo.times, seng.times):  # the timed passes only
         for key in times:
             times[key] = 0.0
-    for key in eng.pseudo.stats:
-        eng.pseudo.stats[key] = 0
+    for st in (eng.pseudo.stats, seng.pseudo.stats, stage_idx.device_chainer.stats,
+               stage_idx.device_wfa.stats):
+        for key in st:
+            st[key] = 0
 
     def timed(idx, qs):
         t0 = time.perf_counter()
@@ -1320,31 +1573,49 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
 
     # the inputs of the main path's first phase-4 launch and of the many-hit
     # batch's, kept to hold the kernels against their plain versions there
+    from lexicmap_tpu_torch.parallel import chain_device as CD
     from lexicmap_tpu_torch.parallel import pseudo_device as PD
+    from lexicmap_tpu_torch.parallel import wfa_device as WD
 
     recorded, keep, real_probe = [], ["main path, first batch"], PD.pseudo_probe
+    first_stage = {}  # the first chain1 and WFA launches of the main path
+    real_chain1, real_wfa = CD.chain1_forward, WD.wfa_batch
 
     def recording_probe(*a, **kw):
         if len(recorded) < len(keep):
             recorded.append((keep[len(recorded)], a))
         return real_probe(*a, **kw)
 
+    def recording(name, fn):
+        def call(*a, **kw):
+            first_stage.setdefault(name, (a, kw))
+            return fn(*a, **kw)
+        return call
+
     PD.pseudo_probe = recording_probe
+    CD.chain1_forward = recording("chain1", real_chain1)
+    WD.wfa_batch = recording("wfa", real_wfa)
     try:
-        # `rounds` rounds of (host, device, device, host) passes, so drift
-        # of the host clock hits both engines alike; the host engine
-        # launches no kernel, so the counts cover exactly the device
-        # engine's passes
-        host_s, dev_s = [], []
+        # `rounds` rounds of (host, device, device with the two stages,
+        # the same, device, host) passes, so drift of the host clock hits
+        # the engines alike; the host engine launches no kernel, so the
+        # counts cover exactly the device engines' passes
+        host_s, dev_s, stage_s = [], [], []
         reset_launches()  # the main path's run starts here
         for _ in range(rounds):
             host_s.append(timed(host, seqs)[1])
             dev_results, s1 = timed(dev_idx, seqs)
+            stage_results, t1 = timed(stage_idx, seqs)
+            _, t2 = timed(stage_idx, seqs)
             _, s2 = timed(dev_idx, seqs)
             dev_s += [s1, s2]
+            stage_s += [t1, t2]
             host_s.append(timed(host, seqs)[1])
         launches = launch_counts()  # ... and ends here
         stats, times, ptimes = dict(eng.pseudo.stats), dict(eng.times), dict(eng.pseudo.times)
+        stage_times = dict(seng.times)
+        cstats = dict(stage_idx.device_chainer.stats)
+        wstats = dict(stage_idx.device_wfa.stats)
 
         # the many-hit set: each query planted in 16 genomes, hundreds of
         # windows in one batch
@@ -1354,20 +1625,23 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         w0, l0 = eng.pseudo.stats["windows"], launch_counts()
         mdev, md_s = timed(dev_idx, mseqs)
         ml = launch_counts()
+        mstage, ms_s = timed(stage_idx, mseqs)
+        mls = launch_counts()
     finally:
         PD.pseudo_probe = real_probe
+        CD.chain1_forward, WD.wfa_batch = real_chain1, real_wfa
     mwin = eng.pseudo.stats["windows"] - w0
     dev_rows = rows(dev_results, ids, seqs)
 
     # the many-hit set again, in turns: host engine, device engine, and the
     # device engine with its phase 5 run per genome instead of in the one
     # threaded native call (LEXICMAP_TPU_NO_BATCH)
-    many_s = {"host": [mh_s], "device": [md_s], "device_per_genome": []}
-    for name in ("device_per_genome", "device_per_genome", "device", "host"):
+    many_s = {"host": [mh_s], "device": [md_s], "device_stages": [ms_s], "device_per_genome": []}
+    for name in ("device_per_genome", "device_per_genome", "device_stages", "device", "host"):
         if name == "device_per_genome":
             os.environ["LEXICMAP_TPU_NO_BATCH"] = "1"
         try:
-            got, s = timed(host if name == "host" else dev_idx, mseqs)
+            got, s = timed({"host": host, "device_stages": stage_idx}.get(name, dev_idx), mseqs)
         finally:
             os.environ.pop("LEXICMAP_TPU_NO_BATCH", None)
         if rows(got, mids, mseqs) != rows(mhost, mids, mseqs):
@@ -1379,7 +1653,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
     p = eng.pseudo
     chain_args = (p.band_base, p.band_count, p.max_gap, p.min_score, p.min_align_len,
                   PD.HEURISTIC_PIDENT)
-    main_err = {"pseudo_probe": 0, "pseudo_chain": 0}
+    main_err = {"pseudo_probe": 0, "pseudo_chain": 0, "chain1": 0.0, "wfa": 0.0}
     if len(recorded) != len(keep):
         raise AssertionError(f"recorded {len(recorded)} phase-4 launches, expected {len(keep)}")
     for label, (blob_w, win, *tables) in recorded:
@@ -1393,13 +1667,86 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             f"windows ({int((probe[3] > 0).sum())} with anchors, {int(chain[1].sum())} "
             f"chain rows)")
     del recorded
+    # chain1 and the WFA against their plain versions on the main path's
+    # first launches of each, and their times there
+    main_shape = {}
+    for name, (a, kw) in sorted(first_stage.items()):
+        from lexicmap_tpu_torch.kernels import chain1 as C1
+        from lexicmap_tpu_torch.kernels import wfa as WK
+
+        saved = launch_counts()
+        fn = real_chain1 if name == "chain1" else real_wfa
+        main_shape[name] = {
+            "ms": time_ms(lambda: fn(*a, **kw), dev, 20),
+            "device_ms": device_ms(lambda: fn(*a, **kw), "chain1_kernel" if name == "chain1"
+                                   else ("wfa_forward", "wfa_traceback"))[0]}
+        if name == "chain1":
+            got = real_chain1(*a, **kw)
+            want = C1.chain1_forward_plain(*a[:8])
+            err = float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+            ok = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)) and all(
+                torch.equal(x, y) for x, y in zip(got[1:], want[1:]))
+            what = f"{a[3].shape[0] - 1} genomes, {a[0].shape[0]} anchors"
+            main_shape[name].update(genomes=a[3].shape[0] - 1, anchors=a[0].shape[0])
+        else:
+            got = real_wfa(*a, **kw)
+            want = WK.wfa_plain(*a)
+            ok = WK.decode_ops(*(x.cpu().numpy() for x in got)) == WK.decode_ops(
+                *(x.cpu().numpy() for x in want))
+            err = 0.0 if ok else float("inf")
+            what = f"{a[3].shape[0]} pairs (S={a[5]}, W={a[6]})"
+            main_shape[name].update(pairs=a[3].shape[0], S=a[5], W=a[6])
+        C1.chain1_forward.launches, WK.wfa_batch.launches = (
+            saved["chain1_forward"], saved["wfa_batch"])  # comparisons do not count
+        if not ok:
+            raise AssertionError(f"main path: {name} kernel != plain (max abs err {err})")
+        main_err[name] = err
+        log(f"[e2e] main path, first {name} launch: kernel == plain on its {what}; "
+            f"{json.dumps(main_shape[name])} [{card}]")
+    if set(first_stage) != {"chain1", "wfa"}:
+        raise AssertionError(f"the stages engine did not launch both kernels: {first_stage.keys()}")
+
+    stage_rows = rows(stage_results, ids, seqs)
+    if stage_rows != host_rows:
+        bad = [ids[i] for i in range(len(ids)) if stage_rows[i] != host_rows[i]]
+        raise AssertionError(f"--chain device --wfa device rows differ from host rows for {bad}")
+    if rows(mstage, mids, mseqs) != rows(mhost, mids, mseqs):
+        raise AssertionError("many-hit set: --chain device --wfa device rows differ from host")
+    per_pass = -(-len(seqs) // 32)
+    stage_batches = len(stage_s) * per_pass
+    chain_share = 1 - cstats["host_genomes"] / max(cstats["genomes"], 1)
+    wfa_share = wstats["device_pairs"] / max(wstats["pairs"], 1)
+    if dev.type == "cuda":
+        if launches["chain1_forward"] != stage_batches:
+            raise AssertionError(f"chain1 launched {launches['chain1_forward']} times, expected "
+                                 f"{stage_batches} (one per batch)")
+        if launches["wfa_batch"] < stage_batches:
+            raise AssertionError(f"wfa launched {launches['wfa_batch']} times over "
+                                 f"{stage_batches} batches with spans")
+        if mls["chain1_forward"] - ml["chain1_forward"] != 1 or mls["wfa_batch"] == ml["wfa_batch"]:
+            raise AssertionError("many-hit set: expected one chain1 launch and a WFA launch")
+    if chain_share < 0.9 or wfa_share < 0.9 or not cstats["genomes"] or not wstats["pairs"]:
+        raise AssertionError(f"on the card: {chain_share:.1%} of the genomes, {wfa_share:.1%} "
+                             f"of the WFA spans ({cstats}, {wstats})")
+    stage_qpm = [len(seqs) / t * 60 for t in stage_s]
+    log(f"[e2e] --chain device --wfa device: rows == host rows, also on the many-hit set; "
+        f"chain1 {launches['chain1_forward']} launches and wfa {launches['wfa_batch']} in "
+        f"{stage_batches} batches; genomes chained on the card {chain_share:.4f} {cstats}, "
+        f"spans aligned there {wfa_share:.4f} {wstats}")
+    log(f"[e2e] q/min per pass, in turns: device {[round(len(seqs) / t * 60, 1) for t in dev_s]}, "
+        f"device with the two stages {[round(q, 1) for q in stage_qpm]} [{card}]")
+    log(f"[e2e] engine times over {len(dev_s)} passes each (s): device {json.dumps(times)}; "
+        f"device with the two stages {json.dumps(stage_times)}")
 
     if dev_rows != host_rows:
         bad = [ids[i] for i in range(len(ids)) if dev_rows[i] != host_rows[i]]
         raise AssertionError(f"device rows differ from host rows for {bad}")
     n_buckets = len(dev_idx.device_matcher.buckets)
-    batches = len(dev_s) * -(-len(seqs) // 32)  # batches of 32 queries
-    per_batch = stats["windows"] / batches
+    # batches of 32 queries: the device engine's, and both device engines'
+    # (phases 2a and 4 launch in each)
+    dev_batches = len(dev_s) * -(-len(seqs) // 32)
+    batches = dev_batches + stage_batches
+    per_batch = stats["windows"] / dev_batches
     if dev.type == "cuda":
         if launches["seed_locate_batch"] != batches * n_buckets:
             raise AssertionError(f"the main path launched seed_locate_batch "
@@ -1420,9 +1767,9 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
     dev_qpm = [n / t * 60 for t in dev_s]
     host_qpm = [n / t * 60 for t in host_s]
     log(f"[e2e] device rows == host rows ({sum(map(len, dev_rows))} rows), all {n} "
-        f"queries top-hit their genome; launches {json.dumps(launches)} in {len(dev_s)} passes "
-        f"({batches} batches)")
-    ptimes_batch = {k: v * 1e3 / batches for k, v in ptimes.items()}
+        f"queries top-hit their genome; launches {json.dumps(launches)} in "
+        f"{len(dev_s) + len(stage_s)} passes of the two device engines ({batches} batches)")
+    ptimes_batch = {k: v * 1e3 / dev_batches for k, v in ptimes.items()}
     log(f"[e2e] phase 4 on the card: {stats['device_windows']} of {stats['windows']} windows "
         f"answered there ({device_share:.4f}), {per_batch:.1f} windows per batch; stats "
         f"{json.dumps(stats)}; aligner host times per batch (ms; the host waits for the card "
@@ -1494,13 +1841,28 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         raise AssertionError(f"cli search launched {cli_launches}")
     log(f"[e2e] cli search --engine device: TSV == host rows ({len(tsv)} rows); "
         f"launches {json.dumps(cli_launches)}")
+    reset_launches()
+    rc = cli.main(["--quiet", "search", "-d", db, qpath, "-o", out, "--engine", "device",
+                   "--device", str(dev), "--chain", "device", "--wfa", "device"])
+    with open(out) as fh:
+        tsv = fh.read().splitlines()[1:]
+    if rc != 0 or tsv != [r for rr in host_rows for r in rr]:
+        raise AssertionError("cli search --chain device --wfa device TSV differs from the host rows")
+    cli_launches = launch_counts()
+    if dev.type == "cuda" and not (cli_launches["chain1_forward"] and cli_launches["wfa_batch"]):
+        raise AssertionError(f"cli search --chain device --wfa device launched {cli_launches}")
+    log(f"[e2e] cli search --engine device --chain device --wfa device: TSV == host rows; "
+        f"launches {json.dumps(cli_launches)}")
     return {"launches": launches, "single_launches": single_launches, "dev_qpm": dev_qpm,
             "host_qpm": host_qpm, "times": times, "pseudo_ms_per_batch": ptimes_batch,
             "rows": sum(map(len, dev_rows)),
             "shapes": shapes, "hbm_bytes": dev_idx.device_matcher.hbm_bytes,
             "main_path_err": main_err,
             "device_share": device_share, "windows_per_batch": per_batch,
-            "many_hit": {"rows": mrows, "windows": mwin, "seconds": many_s}}
+            "many_hit": {"rows": mrows, "windows": mwin, "seconds": many_s},
+            "stage_qpm": stage_qpm, "stage_times": stage_times, "chain_share": chain_share,
+            "wfa_share": wfa_share, "chainer_stats": cstats, "wfa_stats": wstats,
+            "stage_main_shapes": main_shape}
 
 
 def check_main_path_shapes(dev, card, idx, kmers, parent=None):
@@ -1593,7 +1955,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     started = parent_build(args.compare_source)
-    libs = build.build(["seed_locate", "seed_match", "pseudo_align"])
+    libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa"])
     parents = parent_load(started)
     parent = parents.get("seed_locate")
     log(f"[build] {len(libs) + len(parents)} kernel sources built with nvcc in parallel in "
@@ -1613,6 +1975,8 @@ def main() -> int:
                                   n_sites=2048, n_sample=256, seed=args.seed + 5, reps=5)
     if p4["blob_bytes"] < 1e9:
         raise AssertionError("the phase-4 blob must hold at least 1 GB")
+    torch.cuda.empty_cache()
+    cres7, wres7 = phase_chain_wfa(dev, card, seed=args.seed + 9, reps=10)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
@@ -1637,6 +2001,19 @@ def main() -> int:
                 "shape": {"windows": res["windows"], "full_windows": res["full_windows"],
                           "full_ms": res["full_ms"]}}
 
+    def stage_row(name, source, replaces, res, shape, share):
+        err = max(res["max_abs_err"], eres["main_path_err"][name])
+        return {"name": name, "route": "cuda", "source": f"lexicmap_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": eres["launches"][
+                    "chain1_forward" if name == "chain1" else "wfa_batch"],
+                "equal": err == 0, "max_abs_err": err, "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": None,
+                "library": "none: no PyTorch call computes this DP",
+                "device_ms": res["device_ms"], "device_ms_by": res["device_ms_by"],
+                "shape": shape, "phase7_device_share": res["device_share"],
+                "main_path_device_share": share, "main_path_shape": eres["stage_main_shapes"][name]}
+
     def locate_extra(res, edges=n_edges, **more):
         keys = ("device_ms", "device_ms_by", "design_bytes", "design_lo_bytes", "sector_bytes",
                 "io_bytes", "parent")
@@ -1653,12 +2030,22 @@ def main() -> int:
                  bres, 0, locate_extra(bres, n_match_edges)),
         pseudo_row("pseudo_probe", "lexicmap_tpu/parallel/pseudo_device.py:196", pres),
         pseudo_row("pseudo_chain", "lexicmap_tpu/parallel/pseudo_device.py:464", cres),
+        stage_row("chain1", "chain1.cu", "lexicmap_tpu/parallel/chain_device.py:55", cres7,
+                  {"sets": cres7["sets"], "anchors": cres7["anchors"], "visits": cres7["visits"]},
+                  eres["chain_share"]),
+        stage_row("wfa", "wfa.cu", "lexicmap_tpu/parallel/wfa_device.py:49", wres7,
+                  {"pairs": wres7["pairs"], "bucket": wres7["bucket"], "cells": wres7["cells"],
+                   "answered": wres7["answered"]}, eres["wfa_share"]),
     ]
     log(f"[summary] matcher {json.dumps(mres)}")
     log(f"[summary] phase4 {json.dumps(p4)}")
-    log(f"[summary] e2e q/min device {eres['dev_qpm']} host {eres['host_qpm']}; many-hit "
+    log(f"[summary] phase7 chain1 {json.dumps(cres7)}")
+    log(f"[summary] phase7 wfa {json.dumps(wres7)}")
+    log(f"[summary] e2e q/min device {eres['dev_qpm']} device with chain1 + wfa "
+        f"{eres['stage_qpm']} host {eres['host_qpm']}; many-hit "
         f"{json.dumps(eres['many_hit'])}; total {time.perf_counter() - t_all:.1f} s")
-    on_path = ("seed_locate_batch", "pseudo_probe", "pseudo_chain")
+    on_path = ("seed_locate_batch", "pseudo_probe", "pseudo_chain", "chain1_forward",
+               "wfa_batch")
     if not all(eres["launches"][n] for n in on_path) or not eres["single_launches"]:
         raise AssertionError(f"a kernel of the path was not launched: {eres['launches']}")
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,13 @@
 
 `search --engine device` (the default) matches seeds (phase 2a) and
 pseudo-aligns candidate windows (phase 4) on the GPU through the CUDA
-kernels; `--device cpu` runs the kernels' plain PyTorch twins instead, and
-`--engine host` the host engine.  The TSV is byte-compatible
-with the reference's 20/24-column search output (ref: search.go:427-519).
+kernels; `--chain device` adds the chain1 forward DP of phase 3 and `--wfa
+device` the base-level WFA of phase 5.  `--device cpu` runs the kernels'
+plain PyTorch twins instead, `--engine host` the host engine, and `--engine
+auto` the device engine when a CUDA device is present, else the host one.
+The TSV is byte-compatible with the reference's 20/24-column search output
+(ref: search.go:427-519).  Root flags: `--quiet`, `--log FILE` (stderr is
+also written to FILE).
 """
 
 from __future__ import annotations
@@ -153,18 +157,31 @@ def cmd_search(args) -> int:
     if not os.path.exists(os.path.join(args.index, "info.json")):
         print(f"error: index not found: {args.index}", file=sys.stderr)
         return 1
-    if args.engine == "device":
+    auto = args.engine == "auto"
+    if auto:  # resolved once, here: the card when there is one
+        import torch
+
+        args.engine = "device" if torch.cuda.is_available() else "host"
+    if "device" in (args.engine, args.chain, args.wfa):
         import torch
 
         if args.device == "cuda" and not torch.cuda.is_available():
             print("error: no CUDA device is available; pass --device cpu to run "
-                  "the device engine on the CPU, or --engine host", file=sys.stderr)
+                  "the device stages on the CPU, or --engine host (and --chain / --wfa "
+                  "host)", file=sys.stderr)
             return 1
         if args.max_query_conc > 1:
             # the -J pool forks, and CUDA does not survive a fork after init
-            print("error: --engine device runs one process; use -J 1 "
-                  "(or --engine host for the forked query pool)", file=sys.stderr)
+            print("error: the device stages run in one process; use -J 1 "
+                  "(or host engines for the forked query pool)", file=sys.stderr)
             return 1
+
+    if args.engine == "host" and args.chain == "device":
+        print("warning: --chain device chains only the device engine's batches; "
+              "with --engine host phase 3 runs on the host", file=sys.stderr)
+    if args.engine == "host" and args.wfa == "device" and not args.all:
+        print("warning: with --engine host, --wfa device aligns only for -a; "
+              "phase 5 runs on the host", file=sys.stderr)
 
     from .utils.taxonomy import parse_taxid_args
 
@@ -189,6 +206,8 @@ def cmd_search(args) -> int:
         output_seq=args.all,
         engine=args.engine,
         device=args.device,
+        wfa_engine=args.wfa,
+        chain_engine=args.chain,
         debug=args.debug,
         taxdump_dir=args.taxdump or None,
         genome2taxid_file=args.genome2taxid or None,
@@ -209,6 +228,8 @@ def cmd_search(args) -> int:
             f"top-n genomes {opt.top_n or 'all'}, top-n chains {opt.top_n_chains or 'all'}\n"
             f"  engine: {opt.engine}"
             + (f" ({opt.device})" if opt.engine == "device" else "")
+            + (" [auto]" if auto else "")
+            + f", chain: {opt.chain_engine}, wfa: {opt.wfa_engine}"
             + (", in-memory seeds" if opt.in_memory else ""),
             file=sys.stderr,
         )
@@ -303,9 +324,15 @@ def cmd_search(args) -> int:
     if own:
         out.close()
     if args.debug:
+        # how much of each device stage ran on the device this session
         eng = getattr(idx, "_device_engine", None)
         if eng is not None:
             print(f"  [debug] device engine phase times (s): {eng.times}", file=sys.stderr)
+            print(f"  [debug] device pseudo-align: {eng.pseudo.stats}", file=sys.stderr)
+        if idx.device_chainer is not None:
+            print(f"  [debug] device chainer: {idx.device_chainer.stats}", file=sys.stderr)
+        if idx.device_wfa is not None:
+            print(f"  [debug] device WFA: {idx.device_wfa.stats}", file=sys.stderr)
     if not args.quiet:
         el = time.time() - t1
         print(
@@ -326,6 +353,11 @@ def build_parser() -> argparse.ArgumentParser:
         prog="lexicmap-tpu-torch",
         description="LexicMap-class sequence alignment engine on PyTorch/CUDA",
     )
+    # root --quiet has its own dest: a subcommand's --quiet default would
+    # otherwise overwrite it
+    p.add_argument("--quiet", dest="root_quiet", action="store_true")
+    p.add_argument("--log", default="", metavar="FILE",
+                   help="also write log messages (stderr) to FILE (ref: root.go:60-73)")
     p.add_argument("--version", action="version", version=f"lexicmap-tpu-torch {__version__}")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -342,6 +374,10 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("-M", "--mask-file", default="")
     pi.add_argument("-b", "--batch-size", type=int, default=IndexDefaults.BATCH_SIZE)
     pi.add_argument("-c", "--chunks", type=int, default=IndexDefaults.CHUNKS)
+    pi.add_argument("--max-open-files", type=int, default=1024,
+                    help="accepted for reference compatibility; this "
+                         "implementation keeps at most #chunks files open "
+                         "(ref: index.go:137)")
     pi.add_argument("--partitions", type=int, default=IndexDefaults.PARTITIONS)
     pi.add_argument("-g", "--max-genome", type=int, default=IndexDefaults.MAX_GENOME_SIZE)
     pi.add_argument("-l", "--min-seq-len", type=int, default=IndexDefaults.MIN_SEQ_LEN)
@@ -372,9 +408,21 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("-a", "--all", action="store_true")
     ps.add_argument("--show-sseq-idx", action="store_true")
     ps.add_argument(
-        "--engine", choices=["host", "device"], default="device",
+        "--engine", choices=["host", "device", "auto"], default="device",
         help="seed matching and pseudo-alignment: the CUDA kernels (device, "
-        "the default) or the host engine",
+        "the default), the host engine, or auto (device when a CUDA device "
+        "is present, else host)",
+    )
+    ps.add_argument(
+        "--wfa", choices=["host", "device"], default="host",
+        help="base-level aligner of phase 5: host wavefronts or the batched "
+        "CUDA WFA (bit-exact; with --engine device, one call per batch)",
+    )
+    ps.add_argument(
+        "--chain", choices=["host", "device"], default="host",
+        help="phase-3 chainer: host DP or the CUDA chain1 forward DP "
+        "(bit-exact, host backtrack; with --engine device, one launch per "
+        "batch)",
     )
     ps.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -424,9 +472,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+class _TeeStream:
+    """Duplicate writes to a second stream (for --log FILE)."""
+
+    def __init__(self, primary, secondary):
+        self._a = primary
+        self._b = secondary
+
+    def write(self, s):
+        self._a.write(s)
+        self._b.write(s)
+        return len(s)
+
+    def flush(self):
+        self._a.flush()
+        self._b.flush()
+
+    def __getattr__(self, name):
+        return getattr(self._a, name)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.func(args)
+    args.quiet = args.quiet or args.root_quiet
+    if not args.log:
+        return args.func(args)
+    saved = sys.stderr
+    with open(args.log, "a") as fh:
+        sys.stderr = _TeeStream(saved, fh)
+        try:
+            return args.func(args)
+        finally:
+            sys.stderr = saved
 
 
 if __name__ == "__main__":

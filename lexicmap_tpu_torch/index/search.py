@@ -89,8 +89,8 @@ class SearchOptions:
     output_seq: bool = False  # -a/--all
     engine: str = "host"  # "host" | "device" (CUDA seed-locate kernel)
     device: str | None = None  # "cuda" (the default) | "cpu" (the kernel's plain twin)
-    wfa_engine: str = "host"  # "host" only: the device WFA is not ported yet
-    chain_engine: str = "host"  # "host" only: the device chainer is not ported yet
+    wfa_engine: str = "host"  # "host" | "device" (CUDA WFA of phase 5, on `device`)
+    chain_engine: str = "host"  # "host" | "device" (CUDA chain1 DP of phase 3, on `device`)
     debug: bool = False  # per-phase timings to stderr (ref: --debug logs)
 
     # TaxId filtering (ref: lib-index-search.go:93-98, search.go:232-239)
@@ -218,15 +218,26 @@ class IndexSearcher:
 
         self._ccc, self._ggg, self._ttt = homopolymer_codes(self.k)[1:]
 
-        # the device WFA and the device chainer are not ported to the GPU yet
-        for what, eng in (("--wfa", self.opt.wfa_engine), ("--chain", self.opt.chain_engine)):
-            if eng == "device":
-                raise NotImplementedError(
-                    f"{what} device is not ported to the GPU yet "
-                    "(see ROADMAP.md, queue A); use host"
-                )
+        # optional batched device WFA (bit-exact with the host aligner;
+        # ref: the per-HSP wfa.Align at lib-index-search.go:2218)
         self.device_wfa = None
+        if self.opt.wfa_engine == "device":
+            from ..parallel.wfa_device import DeviceWFA
+
+            self.device_wfa = DeviceWFA(device=self.opt.device)
+
+        # optional batched device chainer (bit-exact forward DP with host
+        # backtracking; ref: Chainer.Chain, lib-chaining.go:122-633); only
+        # the device engine's batches chain through it
         self.device_chainer = None
+        if self.opt.chain_engine == "device" and self.opt.engine == "device":
+            from ..parallel.chain_device import DeviceChainer
+
+            copt = self.opt.chaining_options()
+            self.device_chainer = DeviceChainer(
+                max_gap=copt.max_gap, min_score=copt.min_score,
+                max_dist=int(copt.max_distance), device=self.opt.device,
+            )
 
         # optional device seed matcher (device-resident packed index)
         self.device_matcher = None
@@ -693,11 +704,11 @@ class IndexSearcher:
 
     def _chain_genomes_many(self, per_genome_list: list[dict]):
         """Batched phase 3: the chain1 forward DP of every genome of every
-        query runs as a few vmapped device dispatches (chain_engine=device;
+        query runs as one kernel launch (chain_engine=device;
         parallel/chain_device.py), with host backtracking — bit-identical
-        to _chain_genomes.  Genomes the device flags (window truncation /
-        oversize anchor sets) fall back to the host chainer.  Returns one
-        hits list per input per_genome dict."""
+        to _chain_genomes.  Genomes the device flags (and those with fewer
+        than two anchors) take the host chainer.  Returns one hits list per
+        input per_genome dict."""
         from ..ops.chaining import _chain_backtrack, chain, clear_substr_pairs
 
         copt = self.opt.chaining_options()
@@ -1466,6 +1477,17 @@ class IndexSearcher:
 
         return self._phase4_assemble(qcodes, hits, debug=debug, t0=t0)
 
+    def phase4_pool(self):
+        """The threads that align a query's genomes (phases 5-6), shared by
+        the per-query path and the device engine's batch-wide flow; they
+        persist across queries (thread spawn costs per query add up)."""
+        ex = getattr(self, "_phase4_pool", None)
+        if ex is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            ex = self._phase4_pool = ThreadPoolExecutor(max_workers=min(4, os.cpu_count() or 1))
+        return ex
+
     def _phase4_assemble(self, qcodes, hits, pseudo_map=None, debug=False, t0=0.0,
                          cpr=None, wins_map=None):
         """Phase 4 (per-genome alignment) + final result assembly.
@@ -1510,14 +1532,8 @@ class IndexSearcher:
         if len(hits) > 1 and (os.cpu_count() or 1) > 1 and not in_pool_worker:
             # per-genome alignment fans out over threads: the native WFA /
             # chaining calls release the GIL (the reference's per-genome
-            # goroutines, ref: lib-index-search.go:2722-2727).  The executor
-            # persists across queries (thread spawn costs per query add up).
-            ex = getattr(self, "_phase4_pool", None)
-            if ex is None:
-                from concurrent.futures import ThreadPoolExecutor
-
-                ex = ThreadPoolExecutor(max_workers=min(4, os.cpu_count() or 1))
-                self._phase4_pool = ex
+            # goroutines, ref: lib-index-search.go:2722-2727).
+            ex = self.phase4_pool()
             futs = [
                 ex.submit(
                     self._align_genome, qcodes, hit, anchors, paths, cpr,

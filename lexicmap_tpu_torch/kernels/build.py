@@ -16,6 +16,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -26,6 +27,8 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: set[str] = set()
+_load_lock = threading.Lock()  # one build, load and binding per library, whatever the threads
 
 
 def nvcc_path() -> str:
@@ -82,5 +85,22 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of `csrc/<name>.cu`, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(build([name])[name])
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = _loaded[name] = ctypes.CDLL(build([name])[name])
+    return lib
+
+
+def bind(name: str, signatures: dict) -> ctypes.CDLL:
+    """`load(name)` with its C signatures set once: `signatures` maps a
+    function's name to (argtypes, restype)."""
+    lib = load(name)
+    if name not in _bound:
+        with _load_lock:
+            if name not in _bound:
+                for fn, (args, res) in signatures.items():
+                    getattr(lib, fn).argtypes = args
+                    getattr(lib, fn).restype = res
+                _bound.add(name)
     return lib

@@ -42,6 +42,7 @@ import torch
 
 from ..constants import SearchDefaults
 from ..parallel.resident import extract_packed_plain, unpack_codes
+from .seed_locate import _on_device
 from .seed_match import bit_length
 
 K = SearchDefaults.CMP_K  # SeqComparator k
@@ -361,20 +362,22 @@ def pseudo_chain_plain(qb, tb, ln, counts, flags, band_base, band_count, max_gap
 # wrappers
 
 
-def _lib():
-    from .build import load
+_lib_handle = None
 
-    lib = load("pseudo_align")
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.pseudo_probe.argtypes = [vp, i64, vp, i32, i32, vp, vp, vp, vp, i32, i32,
-                                 vp, vp, vp, vp, vp, vp]
-    lib.pseudo_probe.restype = i32
-    lib.pseudo_chain.argtypes = [vp] * 5 + [i32, i32, i32, i32, i32, ctypes.c_double, i32,
-                                            ctypes.c_double] + [vp] * 5 + [i32, vp]
-    lib.pseudo_chain.restype = i32
-    lib.pseudo_align_error_string.argtypes = [i32]
-    lib.pseudo_align_error_string.restype = ctypes.c_char_p
-    return lib
+
+def kernel_lib() -> ctypes.CDLL:
+    """The built `csrc/pseudo_align.cu` with its C signatures bound (once)."""
+    global _lib_handle
+    if _lib_handle is None:
+        from .build import bind
+
+        vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+        _lib_handle = bind("pseudo_align", {
+            "pseudo_probe": ([vp, i64, vp, i32, i32, vp, vp, vp, vp, i32, i32] + [vp] * 6, i32),
+            "pseudo_chain": ([vp] * 5 + [i32] * 5 + [f64, i32, f64] + [vp] * 5 + [i32, vp],
+                             i32),
+            "pseudo_align_error_string": ([i32], ctypes.c_char_p)})
+    return _lib_handle
 
 
 def _require(name, t, dtype, dev, shape=None):
@@ -442,7 +445,7 @@ def pseudo_probe(blob, win, qk, qv, qoff, qtab, checked=False):
         return pseudo_probe_plain(blob, win, qk, qv, qoff, qtab)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = _lib()
+    lib = kernel_lib()
     out = [torch.empty((W, A_CAP), dtype=torch.int32, device=dev) for _ in range(3)]
     counts = torch.empty(W, dtype=torch.int32, device=dev)
     flags = torch.empty(W, dtype=torch.int32, device=dev)
@@ -450,12 +453,10 @@ def pseudo_probe(blob, win, qk, qv, qoff, qtab, checked=False):
         return (*out, counts, flags)
     if not checked:  # the host waits here: everything else is ready to launch
         check_windows(win, NQ)
-    with torch.cuda.device(dev):
-        err = lib.pseudo_probe(
-            blob.data_ptr(), blob.shape[0], win.data_ptr(), W, WORDS_OUT, qk.data_ptr(),
-            qv.data_ptr(), qoff.data_ptr(), qtab.data_ptr(), A_CAP, L_CAP,
-            *(o.data_ptr() for o in out), counts.data_ptr(), flags.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    err = _on_device(dev, lambda stream: lib.pseudo_probe(
+        blob.data_ptr(), blob.shape[0], win.data_ptr(), W, WORDS_OUT, qk.data_ptr(),
+        qv.data_ptr(), qoff.data_ptr(), qtab.data_ptr(), A_CAP, L_CAP,
+        *(o.data_ptr() for o in out), counts.data_ptr(), flags.data_ptr(), stream))
     _raise_if(err, lib, "pseudo_probe")
     pseudo_probe.launches += 1
     return (*out, counts, flags)
@@ -488,18 +489,17 @@ def pseudo_chain(qb, tb, ln, counts, flags, band_base=100, band_count=50, max_ga
         return pseudo_chain_plain(qb, tb, ln, counts, flags, *args)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = _lib()
+    lib = kernel_lib()
     rows = torch.empty((W, C_CAP, 8), dtype=torch.int64, device=dev)
     ccnt = torch.empty(W, dtype=torch.int32, device=dev)
     cflg = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return rows, ccnt, cflg
     scratch = torch.empty((2, W, A_CAP), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pseudo_chain(
-            qb.data_ptr(), tb.data_ptr(), ln.data_ptr(), counts.data_ptr(), flags.data_ptr(),
-            W, A_CAP, *args, scratch[0].data_ptr(), scratch[1].data_ptr(), rows.data_ptr(),
-            ccnt.data_ptr(), cflg.data_ptr(), C_CAP, torch.cuda.current_stream().cuda_stream)
+    err = _on_device(dev, lambda stream: lib.pseudo_chain(
+        qb.data_ptr(), tb.data_ptr(), ln.data_ptr(), counts.data_ptr(), flags.data_ptr(),
+        W, A_CAP, *args, scratch[0].data_ptr(), scratch[1].data_ptr(), rows.data_ptr(),
+        ccnt.data_ptr(), cflg.data_ptr(), C_CAP, stream))
     _raise_if(err, lib, "pseudo_chain")
     pseudo_chain.launches += 1
     return rows, ccnt, cflg

@@ -5,14 +5,20 @@ Per batch of up to 32 queries:
   1. host: query masking (capture + reversed k-mers)
   2a. device: prefix seed matching for ALL queries x all masks, one launch
       of the CUDA seed-locate kernel per bucket (device_search.py)
-  2b-3. host: posting gather + anchor chaining
+  2b. host: posting gather
+  3. host: anchor chaining; with --chain device, the chain1 forward DP of
+     every genome of every query in one launch of the CUDA chain1 kernel
+     (chain_device.py), the backtrack on the host
   4. host: window extraction (the windows phase 5 extends and aligns);
      device: pseudo-alignment of every candidate window of every query,
      one launch each of the pseudo_probe and pseudo_chain kernels
      (pseudo_device.py)
   5-6. host: extension, WFA, scoring and result assembly with the device
      chain rows injected (`_phase4_assemble` with `pseudo_map`), threaded
-     per genome or in one threaded native call for a many-hit query
+     per genome or in one threaded native call for a many-hit query; with
+     --wfa device, the WFA spans of every genome of every query go to the
+     card in one DeviceWFA call (wfa_device.py) between two threaded host
+     stages
 
 Device memory: the seed table is sized first (IndexSearcher builds the
 matcher), then the genome store is made resident (resident.py) when it fits
@@ -27,7 +33,9 @@ through `search_many`'s finish pool.
 
 Output is identical to the host engine: the device matcher returns exactly
 the host bisection's triples, the device pseudo-aligner exactly the host's
-chain rows, and everything downstream is the identical host code
+chain rows, the device chainer exactly the host's forward DP and the device
+WFA exactly the host's op streams (or flags the item for the host), and
+everything downstream is the identical host code
 (ref: lib-index-search.go:1154-2897 for the phase structure).
 """
 
@@ -69,9 +77,10 @@ class DeviceSearchEngine:
             self.blob = DeviceGenomeBlob(idx.genome_stores, device=self.pseudo.device)
         self.pseudo.blob = self.blob
         #: cumulative wall per engine phase (seconds): mask (1), match (2a),
-        #: anchors (2b), chain (3), winprep and pseudo (4), align (5-6, host)
+        #: anchors (2b), chain (3), winprep and pseudo (4), align (5-6), and
+        #: wfa, the part of align in the device WFA (--wfa device)
         self.times = {"mask": 0.0, "match": 0.0, "anchors": 0.0, "chain": 0.0,
-                      "winprep": 0.0, "pseudo": 0.0, "align": 0.0}
+                      "winprep": 0.0, "pseudo": 0.0, "align": 0.0, "wfa": 0.0}
 
     # two-stage API so that search_many can overlap host phases 5-6 of
     # batch N with phases 1-4 of batch N+1
@@ -108,7 +117,12 @@ class DeviceSearchEngine:
         }
         self.times["anchors"] += time.perf_counter() - t0
         t0 = time.perf_counter()
-        hits_of = {i: (idx._chain_genomes(pg_of[i]) if pg_of[i] else []) for i in valid}
+        if idx.device_chainer is not None:
+            # --chain device: the chain1 DP of every genome of every query
+            # in one kernel launch (chain_device.py)
+            hits_of = dict(zip(valid, idx._chain_genomes_many([pg_of[i] or {} for i in valid])))
+        else:
+            hits_of = {i: (idx._chain_genomes(pg_of[i]) if pg_of[i] else []) for i in valid}
         self.times["chain"] += time.perf_counter() - t0
         t0 = time.perf_counter()
 
@@ -152,16 +166,74 @@ class DeviceSearchEngine:
         return (codes, valid, hits_of, pseudo_maps, cpr_of, wins_of)
 
     def finish_batch(self, prepared):
-        """Phases 5-6 (host): extension, alignment and assembly, with the
-        device chain rows of phase 4."""
+        """Phases 5-6: extension, alignment and assembly, with the device
+        chain rows of phase 4.
+
+        With --wfa device (and no -a) the WFA spans of EVERY genome of
+        EVERY query in the batch are aligned in one DeviceWFA.align_batch
+        call, between a threaded stage that collects them and a threaded
+        stage that scores and assembles with the op streams injected
+        (ref: the JAX engine's batch-wide flow)."""
         codes, valid, hits_of, pseudo_maps, cpr_of, wins_of = prepared
         idx = self.idx
         out = [[] for _ in codes]
         t0 = time.perf_counter()
+        if idx.device_wfa is None or idx.opt.output_seq:
+            for i in valid:
+                if hits_of[i]:
+                    out[i] = idx._phase4_assemble(codes[i], hits_of[i],
+                                                  pseudo_map=pseudo_maps.get(i),
+                                                  cpr=cpr_of[i], wins_map=wins_of.get(i))
+            self.times["align"] += time.perf_counter() - t0
+            return out
+
+        jobs = []
         for i in valid:
-            if hits_of[i]:
-                out[i] = idx._phase4_assemble(codes[i], hits_of[i],
-                                              pseudo_map=pseudo_maps.get(i),
-                                              cpr=cpr_of[i], wins_map=wins_of.get(i))
+            for hi, (hit, anchors, paths) in enumerate(hits_of[i]):
+                jobs.append({
+                    "i": i, "hi": hi, "hit": hit, "anchors": anchors,
+                    "paths": sorted(paths, key=lambda p: int(anchors.tbegin[p[0]])),
+                    "pseudo": pseudo_maps.get(i, {}).get(hi),
+                    "wins": wins_of.get(i, {}).get(hi)})
+        pool = idx.phase4_pool()
+
+        # stage A (threaded; the native span collection releases the GIL):
+        # each genome's align_paths arguments and its WFA spans
+        def prep(job):
+            i = job["i"]
+            ctx = idx._align_prepare_native(codes[i], job["hit"], job["anchors"], job["paths"],
+                                            cpr_of[i], job["pseudo"], job["wins"])
+            job["ctx"] = ctx
+            job["pairs"] = idx._align_spans_native(codes[i], ctx) if isinstance(ctx, dict) else []
+
+        list(pool.map(prep, jobs))
+        # stage B: one device alignment over every span of the batch
+        tw = time.perf_counter()
+        all_pairs = [p for job in jobs for p in job["pairs"]]
+        all_ops = idx.device_wfa.align_batch(all_pairs) if all_pairs else []
+        self.times["wfa"] += time.perf_counter() - tw
+        o = 0
+        for job in jobs:
+            k = len(job["pairs"])
+            job["ops"] = all_ops[o: o + k] if k else None
+            o += k
+
+        # stage C (threaded): align_paths with the op streams injected,
+        # then the per-genome details
+        def fin(job):
+            i, ctx = job["i"], job["ctx"]
+            r = None
+            if ctx is not None and ctx is not NotImplemented:
+                r = idx._align_finish_native(codes[i], job["hit"], ctx, job["ops"])
+            if ctx is NotImplemented or r is NotImplemented:
+                r = idx._align_genome(codes[i], job["hit"], job["anchors"], job["paths"],
+                                      cpr_of[i], pseudo=job["pseudo"], wins=job["wins"])
+            job["result"] = r
+
+        list(pool.map(fin, jobs))
+        # stage D: per query, the chunk merge, qcovGnm and output order
+        for i in valid:
+            got = [job["result"] for job in jobs if job["i"] == i and job["result"] is not None]
+            out[i] = idx._assemble_results(codes[i], got)
         self.times["align"] += time.perf_counter() - t0
         return out

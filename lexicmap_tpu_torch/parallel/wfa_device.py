@@ -1,0 +1,132 @@
+"""Batched gap-affine WFA on the GPU (phase 5's base-level aligner),
+returning op lists equal to ops/wfa.py::wfa_align's.
+
+The reference calls WFA once per HSP extension window (ref:
+lib-index-search.go:2218; shenwei356/wfa with DefaultPenalties and
+AdaptiveReduction).  Here every window of a whole query batch goes to the
+card in a few launches of the WFA kernels (kernels/wfa.py): pairs are
+grouped by length into buckets of (longest sequence L, scores S, window W),
+and each bucket is cut into launches whose wavefront history stays under
+HIST_BYTES.
+
+Twin of lexicmap_tpu/parallel/wfa_device.py::DeviceWFA.  Sequences go to
+the card packed 32 bases to a 64-bit word (the dense upload and its in-jit
+expansion were for the TPU's transport), and batches are not padded to
+powers of two (no compile shapes).  A pair with an empty side, one longer
+than the last bucket, or one the kernels flag (a live span wider than W, no
+end within S scores) is aligned by the host's wfa_align: exact in every
+case.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from ..kernels.wfa import check_pairs, decode_ops, history_bytes, pack_pairs, wfa_batch
+from ..ops.wfa import wfa_align
+from . import count_d2h, count_h2d, resolve_device
+
+#: (longest sequence, scores, window of diagonals): S covers a cost of
+#: about half the length (~10% substitutions and 1% indels), W the live
+#: spans adaptive reduction leaves
+BUCKETS = (
+    (512, 384, 128),
+    (2048, 1024, 128),
+    (8192, 4096, 192),
+    (30000, 12288, 256),
+)
+#: device bytes of one launch's wavefront history (the JAX package keeps
+#: ~512 MB of it per dispatch)
+HIST_BYTES = 512 << 20
+
+
+def bucket_for(n: int, m: int):
+    for b in BUCKETS:
+        if n <= b[0] and m <= b[0]:
+            return b
+    return None
+
+
+class DeviceWFA:
+    """Aligns batches of HSP windows on the device, returning op lists
+    identical to ops/wfa.py:wfa_align's.
+
+    align_batch is safe to call from several threads (the phase-5 pools):
+    the kernel library is built and loaded once under a lock
+    (kernels/build.py), each call launches on its thread's current stream,
+    and the counters are updated under a lock.  stats: pairs asked for,
+    answered on the device, sent to the host without a launch (an empty
+    side, or longer than the last bucket), and flagged by the kernels;
+    `launches`: kernel launches."""
+
+    def __init__(self, mismatch=4, gap_open=6, gap_ext=2, min_wf_len=10, max_dist_diff=50,
+                 device=None):
+        self.device = resolve_device(device)
+        self.x, self.o, self.e = mismatch, gap_open, gap_ext
+        self.min_wf_len = min_wf_len
+        self.max_dist_diff = max_dist_diff
+        self.stats = {"pairs": 0, "device_pairs": 0, "host_pairs": 0, "flagged_pairs": 0}
+        self.launches = 0
+        self._lock = threading.Lock()
+
+    def _host(self, q, t):
+        r = wfa_align(q, t, self.x, self.o, self.e, min_wf_len=self.min_wf_len,
+                      max_dist_diff=self.max_dist_diff)
+        return r.ops if r is not None else None
+
+    def align_batch(self, pairs):
+        """pairs: list of (qcodes uint8[n], tcodes uint8[m]).
+        Returns list of ops-lists ([(op, count), ...], same as wfa_align)."""
+        results = [None] * len(pairs)
+        groups: dict[tuple, list[int]] = {}
+        host = []
+        for i, (q, t) in enumerate(pairs):
+            b = bucket_for(q.shape[0], t.shape[0]) if q.shape[0] and t.shape[0] else None
+            if b is None:
+                host.append(i)
+            else:
+                groups.setdefault(b, []).append(i)
+        launches = flagged = 0
+        for b, idxs in groups.items():
+            L, S, W = b
+            per = max(1, HIST_BYTES // history_bytes(1, S, W))
+            for c0 in range(0, len(idxs), per):
+                chunk = idxs[c0: c0 + per]
+                for i, ops in zip(chunk, self._align_chunk(b, [pairs[i] for i in chunk])):
+                    if ops is None:
+                        flagged += 1
+                        host.append(i)
+                    else:
+                        results[i] = ops
+                launches += self.device.type == "cuda"
+        for i in host:
+            results[i] = self._host(*pairs[i])
+        with self._lock:
+            st = self.stats
+            st["pairs"] += len(pairs)
+            st["device_pairs"] += len(pairs) - len(host)
+            st["host_pairs"] += len(host) - flagged
+            st["flagged_pairs"] += flagged
+            self.launches += launches
+        return results
+
+    def _align_chunk(self, bucket, pairs):
+        """One launch over `pairs` (all within `bucket`, at most its
+        HIST_BYTES share): op lists, None where the kernels flagged."""
+        L, S, W = bucket
+        arrs = pack_pairs(pairs)
+        check_pairs(arrs[0].shape[0], *arrs[1:])
+        count_h2d("device WFA", *arrs)
+        dev = self.device
+        ops, cnts, nops = wfa_batch(
+            *(torch.from_numpy(a).to(dev) for a in arrs),
+            S, W, S + 8, self.x, self.o, self.e, self.min_wf_len, self.max_dist_diff,
+            checked=True)
+        nops = nops.cpu().numpy()
+        width = max(int(nops.max()), 1)
+        ops = ops[:, :width].cpu().numpy()
+        cnts = cnts[:, :width].cpu().numpy()
+        count_d2h("device WFA", nops, ops, cnts)
+        return decode_ops(ops, cnts, nops)

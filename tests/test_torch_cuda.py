@@ -8,7 +8,10 @@ import torch
 
 from chip_smoke import native_rows, same_prefix
 from torch_parity import (
+    CHAIN1_PARAMS,
     CHAIN_PARAMS,
+    chain1_csr,
+    chain1_sets,
     chain_stress_windows,
     chain_tensors,
     make_edge_case,
@@ -18,9 +21,13 @@ from torch_parity import (
     seed_match_replay,
     seed_match_torch,
     to_torch,
+    wfa_pairs,
+    wfa_tensors,
 )
 
+from lexicmap_tpu_torch.kernels import chain1 as C1
 from lexicmap_tpu_torch.kernels import pseudo_align as PA
+from lexicmap_tpu_torch.kernels import wfa as WK
 from lexicmap_tpu_torch.kernels import seed_locate as SL
 from lexicmap_tpu_torch.kernels import seed_match as SM
 
@@ -192,3 +199,118 @@ def test_cuda_query_bucket_table_equals_cpu(cuda_device):
     _blob, _win, tables, _windows, _cprs = phase4_tensors(cuda_device)
     qk, _qv, qoff, qtab = tables
     assert torch.equal(qtab.cpu(), query_bucket_table(qk.cpu(), qoff.cpu()))
+
+
+def _chain1_on_card(sets, dev, lead=0):
+    """chain1_forward on the card (inputs `lead` elements into their
+    buffers) against its plain version there and the native DP."""
+    from lexicmap_tpu_torch.native import chain1_forward_native
+    from lexicmap_tpu_torch.parallel.chain_device import gap_score_table
+
+    mg, msc, md = CHAIN1_PARAMS
+    gtab = torch.from_numpy(gap_score_table(mg)).to(dev)
+    qb, tb, ln, off = chain1_csr(sets, dev)
+    qb, tb, ln = (torch.cat([torch.zeros(lead, dtype=torch.int32, device=dev), a])[lead:]
+                  for a in (qb, tb, ln))
+    before = C1.chain1_forward.launches
+    got = C1.chain1_forward(qb, tb, ln, off, gtab, mg, msc, md)
+    torch.cuda.synchronize()
+    assert C1.chain1_forward.launches == before + (len(sets) > 0)
+    want = C1.chain1_forward_plain(qb, tb, ln, off, gtab, mg, msc, md)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    ms, prev, dirs, flags = (t.cpu().numpy() for t in got)
+    o = off.tolist()
+    for g, s in enumerate(sets):
+        if s[0].shape[0] < 2:
+            continue
+        w_ms, w_prev, w_dirs = chain1_forward_native(*s, mg, msc, md)
+        a, b = o[g], o[g + 1]
+        assert flags[g] == 0
+        assert np.array_equal(ms[a:b].view(np.uint32), w_ms.astype(np.float32).view(np.uint32))
+        assert np.array_equal(prev[a:b], w_prev) and np.array_equal(dirs[a:b], w_dirs)
+
+
+@pytest.mark.cuda
+def test_cuda_chain1_equals_plain_and_native(cuda_device):
+    """B9 on the sets of tests/test_device_search.py's differential (the
+    dense one past the JAX package's 512-anchor window), a reverse-strand
+    set, one of 9,000 anchors, and a second draw without the big set."""
+    _chain1_on_card(chain1_sets() + chain1_sets(seed=6, big=0), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned", "empty", "short"])
+def test_cuda_chain1_edges(cuda_device, case):
+    sets = chain1_sets(seed=7, big=0)
+    if case == "unaligned":  # anchors that start one int32 into their buffers
+        _chain1_on_card(sets, cuda_device, lead=1)
+    elif case == "empty":
+        _chain1_on_card([], cuda_device)
+    else:  # genomes of 0 and 1 anchors beside real ones
+        one = tuple(a[:1] for a in sets[2])
+        none = tuple(a[:0] for a in sets[2])
+        _chain1_on_card([none, sets[1], one, none, sets[3]], cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_wfa_equals_plain_and_host(cuda_device):
+    """B8 == its plain version == ops/wfa.py::wfa_align op for op, the last
+    pair (unrelated sequences) flagged for the host."""
+    from lexicmap_tpu_torch.ops.wfa import wfa_align
+
+    pairs = wfa_pairs()
+    args = wfa_tensors(pairs, cuda_device)
+    S, W = 1024, 128
+    before = WK.wfa_batch.launches
+    got = WK.wfa_batch(*args, S, W, S + 8)
+    torch.cuda.synchronize()
+    assert WK.wfa_batch.launches == before + 1
+    want = WK.wfa_plain(*args, S, W, S + 8)
+    assert torch.equal(got[2], want[2])
+    ops = WK.decode_ops(*(t.cpu().numpy() for t in got))
+    assert ops == WK.decode_ops(*(t.cpu().numpy() for t in want))
+    assert ops[-1] is None
+    for (q, t), o in zip(pairs[:-1], ops[:-1]):
+        assert o == wfa_align(q, t).ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30, 2000, 8000])
+def test_cuda_device_wfa_buckets_equal_host(cuda_device, n):
+    """DeviceWFA on the card across its buckets: op lists == wfa_align's."""
+    from lexicmap_tpu_torch.ops.wfa import wfa_align
+    from lexicmap_tpu_torch.parallel.wfa_device import DeviceWFA
+    from torch_parity import mutate_pair
+
+    rng = np.random.default_rng(n)
+    pairs = [mutate_pair(rng, n, 0.03, 0.005) for _ in range(6)]
+    dw = DeviceWFA(device=cuda_device)
+    got = dw.align_batch(pairs)
+    assert dw.launches >= 1 and dw.stats["device_pairs"] == len(pairs), dw.stats
+    assert got == [wfa_align(q, t).ops for q, t in pairs]
+
+
+@pytest.mark.cuda
+def test_cuda_search_many_device_stages_equal_host(cuda_device, tmp_path):
+    """search_many with phases 2a, 3 (chain1), 4 and 5 (WFA) on the card ==
+    the host engine's rows, every kernel of the path launched."""
+    from lexicmap_tpu_torch.index.build import BuildOptions, build_index
+    from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
+    from torch_parity import mutated_queries, rows_of, write_genomes
+
+    files, seqs = write_genomes(tmp_path)
+    db = str(tmp_path / "d.lmt")
+    build_index(db, files, BuildOptions(k=31, n_masks=512, chunks=2, verbose=False))
+    qs = mutated_queries(seqs, ["D0", "D1", "D2"], 20000, 2000, 20, 3)
+    qs += mutated_queries(seqs, ["D2", "D0"], 5000, 1500, 40, 4)
+    host = IndexSearcher(db, SearchOptions(engine="host"))
+    dev = IndexSearcher(db, SearchOptions(engine="device", device="cuda",
+                                          chain_engine="device", wfa_engine="device"))
+    before = (C1.chain1_forward.launches, WK.wfa_batch.launches)
+    got = [rows_of(r) for r in dev.search_many(qs)]
+    assert got == [rows_of(host.search_bytes(q)) for q in qs]
+    assert C1.chain1_forward.launches == before[0] + 1
+    assert WK.wfa_batch.launches > before[1]
+    assert dev.device_chainer.stats["host_genomes"] == 0
+    assert dev.device_wfa.stats["device_pairs"] == dev.device_wfa.stats["pairs"] > 0

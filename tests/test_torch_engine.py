@@ -9,6 +9,7 @@ import pytest
 jax = pytest.importorskip("jax")
 
 from torch_parity import mutated_queries, rows_of, write_genomes
+from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 from lexicmap_tpu.index.build import BuildOptions, build_index
 from lexicmap_tpu.index.search import IndexSearcher as JaxSearcher
@@ -201,10 +202,89 @@ def test_device_failure_propagates_from_search_many(db, monkeypatch):
         port.search_many(qs)
 
 
-@pytest.mark.parametrize("opt", [{"wfa_engine": "device"}, {"chain_engine": "device"}])
-def test_unported_device_options_raise(db, opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexSearcher(db[0], SearchOptions(engine="device", device="cpu", **opt))
+DEVICE_STAGES = [{"chain_engine": "device"}, {"wfa_engine": "device"},
+                 {"chain_engine": "device", "wfa_engine": "device"}]
+
+
+@pytest.mark.parametrize("opt", DEVICE_STAGES, ids=["chain", "wfa", "both"])
+def test_device_stages_match_host_and_jax(db, jax_host, opt):
+    """--chain device (chain1 DP) and --wfa device (WFA) through their
+    kernels' plain twins: rows == the host engine's and the JAX device
+    engine's with the same stages; every genome and span on the device
+    path."""
+    _, seqs, _ = db
+    qs = queries8(seqs)
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu", **opt))
+    got = all_rows(port.search_many(qs))
+    assert got == all_rows([jax_host.search_bytes(q) for q in qs])
+    assert got == all_rows(JaxSearcher(db[0], JaxOptions(engine="device", **opt)).search_many(qs))
+    assert (port.device_chainer is None) == ("chain_engine" not in opt)
+    assert (port.device_wfa is None) == ("wfa_engine" not in opt)
+    if port.device_chainer is not None:
+        st = port.device_chainer.stats
+        assert st["genomes"] >= 6 and st["host_genomes"] == 0, st
+    if port.device_wfa is not None:
+        st = port.device_wfa.stats
+        assert st["pairs"] >= 6 and st["device_pairs"] == st["pairs"], st
+        assert port._device_engine.times["wfa"] > 0
+
+
+def test_device_stages_across_batch_boundary(db, jax_host):
+    """33 queries, two engine batches: one chain1 batch and one WFA batch
+    per engine batch."""
+    from lexicmap_tpu_torch.parallel import wfa_device as WD
+
+    _, seqs, _ = db
+    qs = []
+    for s in range(11):
+        qs += mutated_queries(seqs, ["D0", "D1", "D2"], 2000 + 4000 * s, 1000, 10, 100 + s)
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu",
+                                              chain_engine="device", wfa_engine="device"))
+    calls = {"chain": 0, "wfa": 0}
+    chain_batch, align_batch = port.device_chainer.chain_batch, port.device_wfa.align_batch
+
+    def count(key, fn):
+        def wrapped(*a):
+            calls[key] += 1
+            return fn(*a)
+        return wrapped
+
+    port.device_chainer.chain_batch = count("chain", chain_batch)
+    port.device_wfa.align_batch = count("wfa", align_batch)
+    got = all_rows(port.search_many(qs))
+    assert got == all_rows([jax_host.search_bytes(q) for q in qs])
+    assert calls == {"chain": 2, "wfa": 2}
+    assert isinstance(port.device_wfa, WD.DeviceWFA)
+
+
+def test_output_seq_with_device_wfa_byte_identical(db, tmp_path, monkeypatch):
+    """-a (24 columns) with --wfa device: the group's WFA runs through the
+    device aligner and the cigar/qseq/sseq/align text is byte-identical to
+    the host engine's and to the JAX package's host rows."""
+    from lexicmap_tpu.cli import format_hit_rows as jax_rows
+    from lexicmap_tpu_torch.parallel.wfa_device import DeviceWFA
+
+    _, seqs, _ = db
+    qs = queries8(seqs)
+    q = tmp_path / "q.fasta"
+    q.write_bytes(b"".join(f">q{i}\n".encode() + s + b"\n" for i, s in enumerate(qs)))
+    calls = []
+    real = DeviceWFA.align_batch
+    monkeypatch.setattr(DeviceWFA, "align_batch", lambda self, p: calls.append(1) or real(self, p))
+    outs = {}
+    for name, argv in (("device", ["--engine", "device", "--device", "cpu", "--wfa", "device"]),
+                       ("host", ["--engine", "host"])):
+        o = tmp_path / f"{name}.tsv"
+        assert tcli.main(["--quiet", "search", "-a", "-d", db[0], str(q), "-o", str(o), *argv]) == 0
+        outs[name] = o.read_bytes()
+    assert calls, "-a never reached the device WFA"
+    assert outs["device"] == outs["host"]
+    lines = outs["device"].decode().splitlines()
+    assert len(lines) > 6 and all(line.count("\t") == 23 for line in lines)
+    js = JaxSearcher(db[0], JaxOptions(engine="host", output_seq=True))
+    want = [r for i, s in enumerate(qs) if len(s) >= 31
+            for r in jax_rows(f"q{i}", len(s), js.search_bytes(s), True)]
+    assert lines[1:] == want
 
 
 def test_cli_search_device_cpu_equals_host(db, tmp_path):
@@ -227,7 +307,9 @@ def test_cli_search_device_cpu_equals_host(db, tmp_path):
 @pytest.mark.parametrize("argv, msg", [
     (["--engine", "device"], "no CUDA device"),
     (["--engine", "device", "--device", "cpu", "-J", "2"], "-J 1"),
-], ids=["no_cuda", "fork_pool"])
+    (["--engine", "host", "--wfa", "device"], "no CUDA device"),
+    (["--engine", "host", "--chain", "device", "--device", "cpu", "-J", "2"], "-J 1"),
+], ids=["no_cuda", "fork_pool", "host_wfa_no_cuda", "host_chain_fork_pool"])
 def test_cli_refuses(db, tmp_path, monkeypatch, capsys, argv, msg):
     import torch
 

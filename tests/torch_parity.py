@@ -8,10 +8,23 @@ package and the port alike; nothing here imports JAX, so the card's tests
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from lexicmap_tpu_torch.kernels import seed_locate as SL
 from lexicmap_tpu_torch.kernels.seed_match import MATCH_RUN, bit_length
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Import into a test module to run it with one PyTorch intra-op
+    thread: the test workers share the machine's cores, and the many small
+    ops of the plain versions' loops otherwise keep every worker's thread
+    pool spinning on all of them.  Restores the count afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def write_genomes(d, n=3, length=50000, seed=13):
@@ -601,3 +614,179 @@ def chain_tensors(windows, device="cpu", flagged=()):
     flags = torch.zeros(W, dtype=torch.int32)
     flags[list(flagged)] = F_ANCHOR_OVERFLOW
     return [t.to(device) for t in (*cols, counts, flags)]
+
+
+# ---------------------------------------------------------------------------
+# chain1 forward DP (B9)
+
+#: (max_gap, min_score, max_dist) of tests/test_device_search.py's chainer
+#: differential
+CHAIN1_PARAMS = (50.0, 40.0, 1000)
+
+
+def _diag_set(rng, n, span, jitter, rc=False):
+    qb = np.sort(rng.integers(0, span, n)).astype(np.int32)
+    tb = (qb + rng.integers(-jitter, jitter, n)).astype(np.int32)
+    if rc:  # reverse strand: tb falls as qb rises (the direction -1 gap)
+        tb = (200_000 - tb).astype(np.int32)
+    return qb, tb, rng.integers(15, 32, n).astype(np.int32)
+
+
+def chain1_sets(seed=5, big=9000):
+    """Anchor sets (qb, tb, ln int32, sorted by qb) drawn like
+    tests/test_device_search.py:207-249: n = 2-700 along a jittered
+    diagonal, a dense repeat-like set of 1,500 anchors in 900 bp (whose
+    predecessors pass the JAX package's 512-anchor window), a reverse-strand
+    set, and one of `big` anchors (past its largest bucket of 8,192; none
+    when 0)."""
+    rng = np.random.default_rng(seed)
+    sets = [_diag_set(rng, n, 2500, 40) for n in (2, 7, 40, 127, 128, 300, 700)]
+    sets.append(_diag_set(rng, 1500, 900, 30))
+    sets.append(_diag_set(rng, 400, 3000, 40, rc=True))
+    if big:
+        sets.append(_diag_set(rng, big, 10 * big, 60))
+    return sets
+
+
+def chain1_csr(sets, device="cpu"):
+    """chain1_forward's ragged inputs (qb, tb, ln int32 [N], off int64
+    [G+1]) for anchor sets."""
+    from lexicmap_tpu_torch.kernels.chain1 import pack_sets
+
+    cols, off = pack_sets(sets)
+    return [torch.from_numpy(a).to(device) for a in (*cols, off)]
+
+
+def chain1_replay(qb, tb, ln, gtab, max_gap, min_score, max_dist):
+    """The chain1 kernel's warp scan of one genome in numpy: 32 lanes take
+    j = i-1-lane, i-33-lane, ...; a chunk's ballot of qd > max_dist keeps
+    the lanes before the first breaking one; each lane keeps its best by
+    strict improvement, then the xor-shuffle reduction takes the larger j
+    on equal scores.  Returns (ms f32, prev i64, dirs i8, flag, visits,
+    chunks): visits are the predecessors the scan reads up to its break
+    (the native loop's), chunks the warp's 32-lane steps."""
+    f32 = np.float32
+    n = qb.shape[0]
+    q, t, l = (a.astype(np.int64) for a in (qb, tb, ln))
+
+    def sw(x):
+        return (f32(0.1) * x.astype(f32)) * x.astype(f32)
+
+    ms = np.zeros(n, f32)
+    prev = np.zeros(n, np.int64)
+    dirs = np.zeros(n, np.int8)
+    if n:
+        ms[0] = sw(l[:1])[0]
+    lanes = np.arange(32)
+    flag = visits = chunks = 0
+    for i in range(1, n):
+        aq, at, al = q[i], t[i], l[i]
+        m0 = sw(l[i: i + 1])[0]
+        best = np.full(32, -np.inf, f32)
+        bj = np.full(32, -1, np.int64)
+        bd = np.zeros(32, np.int64)
+        for c in range(i - 1, -1, -32):
+            j = c - lanes
+            inn = j >= 0
+            jj = np.where(inn, j, 0)
+            bq, bt, bl = q[jj], t[jj], l[jj]
+            qd = aq - bq
+            brk = inn & (qd > max_dist)
+            first = int(np.argmax(brk)) if brk.any() else 32
+            live = inn & (lanes < first)
+            visits += int(live.sum()) + int(brk.any())
+            chunks += 1
+            td = at - bt
+            atd = np.abs(td)
+            cand = live & (qd != 0) & (atd <= max_dist) & (td != 0)
+            g = np.abs(np.where(at >= bt, np.abs(qd) - atd,
+                                np.abs(qd) - np.abs((at + al) - (bt + bl))))
+            cand &= g.astype(f32) <= f32(max_gap)
+            over = cand & (g >= gtab.shape[0])
+            flag |= int(over.any())
+            cand &= ~over
+            bqe = bq + bl
+            sw_len = sw(np.where(aq > bqe, al, np.where(g == 0, aq + al - bq, aq + al - bqe)))
+            sw_bl = sw(bl)
+            w = np.where((aq > bqe) | (g != 0), sw_len, -sw_bl + sw_len)
+            d = np.where(at >= bt, 1, -1)
+            bdir = dirs[jj]
+            base = np.where((bdir == 0) | (bdir == d), ms[jj], sw_bl)
+            sc = (base + w) - gtab[np.clip(g, 0, gtab.shape[0] - 1)]
+            upd = cand & (sc >= f32(min_score)) & (sc > m0) & (sc > best)
+            best, bj, bd = np.where(upd, sc, best), np.where(upd, j, bj), np.where(upd, d, bd)
+            if brk.any():
+                break
+        for s in (16, 8, 4, 2, 1):
+            ob, oj, od = best[lanes ^ s], bj[lanes ^ s], bd[lanes ^ s]
+            take = (ob > best) | ((ob == best) & (oj > bj))
+            best, bj, bd = np.where(take, ob, best), np.where(take, oj, bj), np.where(take, od, bd)
+        found = bj[0] >= 0
+        ms[i] = best[0] if found else m0
+        prev[i] = bj[0] if found else i
+        dirs[i] = bd[0] if found else 0
+    return ms, prev, dirs, flag, visits, chunks
+
+
+# ---------------------------------------------------------------------------
+# WFA (B8)
+
+
+def mutate_pair(rng, n, sub_rate, indel_rate, max_indel=8):
+    """A random query of n bases and a target from it with substitutions
+    and indels of up to max_indel bases (tests/test_wfa_device.py's
+    generator)."""
+    q = rng.integers(0, 4, size=n).astype(np.uint8)
+    t = []
+    i = 0
+    while i < n:
+        r = rng.random()
+        if r < indel_rate:
+            ln = int(rng.integers(1, max_indel + 1))
+            if rng.random() < 0.5:
+                t.extend(rng.integers(0, 4, size=ln))  # insertion in t
+            else:
+                i += ln  # deletion from q
+            continue
+        if r < indel_rate + sub_rate:
+            t.append((int(q[i]) + int(rng.integers(1, 4))) % 4)
+        else:
+            t.append(int(q[i]))
+        i += 1
+    return q, np.array(t, dtype=np.uint8)
+
+
+#: (length, substitution rate, indel rate) of tests/test_wfa_device.py
+WFA_CASES = (
+    (40, 0.0, 0.0),
+    (64, 0.05, 0.0),
+    (120, 0.02, 0.01),
+    (300, 0.05, 0.01),
+    (500, 0.10, 0.02),
+    (1500, 0.02, 0.005),
+    (1500, 0.08, 0.01),
+)
+
+
+def wfa_pairs(seed=42, per_case=3):
+    """WFA_CASES pairs, pure-indel pairs (a deletion of 10, an insertion of
+    12, at the start and the end too), identical pairs, and last one pair of
+    unrelated 1,500-base sequences, whose cost overflows the 1,024 scores of
+    its bucket (the host's)."""
+    rng = np.random.default_rng(seed)
+    pairs = [mutate_pair(rng, n, sub, ind) for n, sub, ind in WFA_CASES for _ in range(per_case)]
+    q = rng.integers(0, 4, size=100).astype(np.uint8)
+    ins = rng.integers(0, 4, 12).astype(np.uint8)
+    pairs += [(q, np.concatenate([q[:50], q[60:]])), (q, np.concatenate([q[:50], ins, q[50:]])),
+              (q, q[10:].copy()), (q, np.concatenate([q, ins])), (q, q.copy()),
+              (rng.integers(0, 4, 777).astype(np.uint8),) * 2]
+    pairs.append((rng.integers(0, 4, 1500).astype(np.uint8),
+                  rng.integers(0, 4, 1500).astype(np.uint8)))
+    return pairs
+
+
+def wfa_tensors(pairs, device="cpu"):
+    """wfa_batch's inputs (seq, q_off, t_off, n, m) for pairs."""
+    from lexicmap_tpu_torch.kernels.wfa import pack_pairs
+
+    return [torch.from_numpy(a).to(device) for a in pack_pairs(pairs)]
