@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 7] [--genomes 200] [--queries 40] [--rounds 5]
                           [--compare-source OLD/seed_locate.cu]
                           [--compare-source OLD/seed_match.cu]
+                          [--compare-source OLD/chain1.cu] [--compare-source OLD/wfa.cu]
 
 Phases, each of which raises on a wrong result (nothing falls back):
   1. environment: torch/CUDA versions and the card (nvidia-smi);
@@ -48,7 +49,11 @@ Phases, each of which raises on a wrong result (nothing falls back):
      16 dense ones of 1,500 and 4 of 20,000; 4,096 pairs of 1.5 kb at 2-8%
      substitutions and 0.5-1% indels, 64 of 8 kb, 8 of 25 kb (those against
      the native WFA only), identical, pure-indel and one overflowing pair;
-     times as called, on the device and plain, bounds from the run's data.
+     times as called, on the device (B8 by kernel) and plain, bounds from
+     the run's data; B9 under other block-path thresholds; with
+     --compare-source, an earlier tree's chain1 and WFA kernels in turns
+     with this tree's, here and at the main path's first launches of
+     phase 6.
 Then one `kernels` JSON line, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.  Exits non-zero without a result
 when there is no CUDA device or the package is not beside this script.
@@ -108,25 +113,36 @@ def device_ms(fn, name, reps: int = 20) -> tuple[float, str]:
     torch.profiler's CUDA rows.  Returns (ms, "profiler"), or (None, "not
     measured") where the profiler shows no such row or there is no CUDA
     device."""
+    by = device_ms_split(fn, (name,) if isinstance(name, str) else name, reps)
+    if None in by.values():
+        return None, "not measured"
+    return sum(by.values()), "profiler"
+
+
+def device_ms_split(fn, names, reps: int = 20) -> dict:
+    """{name: mean device ms of its kernel rows} over `reps` calls of fn,
+    each name a substring of one kernel that fn launches (None where the
+    profiler shows no row)."""
     import torch
     from torch.autograd import DeviceType
 
     if not torch.cuda.is_available():
-        return None, "not measured"
+        return {nm: None for nm in names}
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for nm in (name,) if isinstance(name, str) else name:
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and nm in e.name]
-        if not us:
-            return None, "not measured"
-        total += sum(us) / len(us) / 1e3
-    return total, "profiler"
+    for _ in range(3):  # a trace now and then comes back without device rows: again
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for nm in names:
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and nm in e.name]
+            out[nm] = sum(us) / len(us) / 1e3 if us else None
+        if None not in out.values():
+            break
+    return out
 
 
 def sync(dev):
@@ -181,18 +197,21 @@ def seed_locate_case(dev, Mb, E, B, k, seed):
     return to_i32_bits(hi64).contiguous(), cnt, to_i32_bits(qh64).contiguous(), qv, hi64
 
 
+PARENT_SOURCES = ("seed_locate", "seed_match", "chain1", "wfa")
+
+
 def parent_build(paths):
-    """Start nvcc on each earlier tree's csrc/seed_locate.cu or seed_match.cu
-    (same flags; headers beside it), beside the kernel build;
-    parent_load() waits for them."""
+    """Start nvcc on each earlier tree's csrc/seed_locate.cu, seed_match.cu,
+    chain1.cu or wfa.cu (same flags; headers beside it), beside the kernel
+    build; parent_load() waits for them."""
     from lexicmap_tpu_torch.kernels import build
 
     started = {}
     for path in paths:
         name = os.path.splitext(os.path.basename(path))[0]
-        if name not in ("seed_locate", "seed_match") or name in started:
-            raise ValueError(f"--compare-source takes one seed_locate.cu and one seed_match.cu, "
-                             f"got {path}")
+        if name not in PARENT_SOURCES or name in started:
+            raise ValueError(f"--compare-source takes one each of "
+                             f"{', '.join(s + '.cu' for s in PARENT_SOURCES)}, got {path}")
         out = os.path.splitext(path)[0] + ".so"
         started[name] = (out, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, path],
@@ -201,8 +220,8 @@ def parent_build(paths):
 
 
 def parent_load(started):
-    """{"seed_locate": lib, "seed_match": lib} of the earlier sources, their
-    C entries bound (seed_locate only where the source has it)."""
+    """{name: lib} of the earlier sources, their C entries bound
+    (seed_locate only where the source has it)."""
     import ctypes
 
     libs = {}
@@ -213,6 +232,15 @@ def parent_load(started):
             raise RuntimeError(f"nvcc failed on the earlier {name}.cu:\n"
                                f"{log_.decode(errors='replace')}")
         lib = libs[name] = ctypes.CDLL(out)
+        if name == "chain1":  # the entry before the block path (no n_block)
+            lib.chain1_forward.argtypes = ([vp] * 5 + [ci, vp, ci, ctypes.c_float,
+                                                       ctypes.c_float, ci] + [vp] * 5)
+            lib.chain1_forward.restype = ci
+            continue
+        if name == "wfa":
+            lib.wfa_align_batch.argtypes = [vp] * 5 + [ci] * 9 + [vp] * 7
+            lib.wfa_align_batch.restype = ci
+            continue
         if name == "seed_match":
             lib.seed_match.argtypes = [vp] * 9 + [ci, ci, ctypes.c_uint, ci, vp]
             lib.seed_match.restype = ci
@@ -263,6 +291,79 @@ def lib_match(lib, hi, lo, cnt, qh, ql, qv, p, k):
     if err:
         raise RuntimeError(f"seed_match of {lib._name} failed to launch ({err})")
     return out[0], out[1], out[2]
+
+
+def parent_chain1(lib, qb, tb, ln, off, gtab, max_gap, min_score, max_dist, **_):
+    """chain1_forward as the wrapper of that earlier entry called its kernel
+    (a device argsort for the order, four allocations, one launch)."""
+    import torch
+
+    dev, N, G = qb.device, qb.shape[0], off.shape[0] - 1
+    order = torch.argsort(off[1:] - off[:-1], descending=True).to(torch.int32)
+    ms = torch.empty(N, dtype=torch.float32, device=dev)
+    prev = torch.empty(N, dtype=torch.int32, device=dev)
+    dirs = torch.empty(N, dtype=torch.int8, device=dev)
+    flags = torch.empty(G, dtype=torch.int32, device=dev)
+    err = lib.chain1_forward(qb.data_ptr(), tb.data_ptr(), ln.data_ptr(), off.data_ptr(),
+                             order.data_ptr(), G, gtab.data_ptr(), gtab.shape[0],
+                             float(max_gap), float(min_score), int(max_dist), ms.data_ptr(),
+                             prev.data_ptr(), dirs.data_ptr(), flags.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the earlier chain1 kernel failed to launch ({err})")
+    return ms, prev, dirs, flags
+
+
+def parent_wfa(lib, seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
+               max_dist_diff=50, **_):
+    """wfa_batch as the wrapper of the earlier entry (W-wide history
+    scratch) called its kernels: six allocations, one call of both."""
+    import torch
+
+    dev, B = seq.device, n.shape[0]
+    ops = torch.empty((B, CAP), dtype=torch.int8, device=dev)
+    cnts = torch.empty((B, CAP), dtype=torch.int32, device=dev)
+    nops = torch.empty(B, dtype=torch.int32, device=dev)
+    hist = torch.empty((B, S, 3, W), dtype=torch.int16, device=dev)
+    lo = torch.empty((B, S), dtype=torch.int32, device=dev)
+    done_s = torch.empty(B, dtype=torch.int32, device=dev)
+    err = lib.wfa_align_batch(
+        seq.data_ptr(), q_off.data_ptr(), t_off.data_ptr(), n.data_ptr(), m.data_ptr(), B, S, W,
+        CAP, x, o, e, min_wf_len, max_dist_diff, hist.data_ptr(), lo.data_ptr(),
+        done_s.data_ptr(), ops.data_ptr(), cnts.data_ptr(), nops.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the earlier wfa kernels failed to launch ({err})")
+    return ops, cnts, nops
+
+
+def same_stage_outputs(a, b) -> bool:
+    """chain1's four outputs equal (float32 bits), or the WFA's runs."""
+    import torch
+
+    if a[0].dtype == torch.float32:
+        return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and all(
+            torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+    from lexicmap_tpu_torch.kernels.wfa import decode_ops
+
+    return decode_ops(*(x.cpu().numpy() for x in a)) == decode_ops(*(x.cpu().numpy() for x in b))
+
+
+def stage_in_turns(dev, parent_fn, new_fn, names, reps):
+    """An earlier chain1 or WFA against this tree's, in turns (parent, new,
+    new, parent), as called (CUDA events) and on the device (the profiler
+    rows of `names`, split by kernel).  Both must give the same outputs."""
+    if not same_stage_outputs(parent_fn(), new_fn()):
+        raise AssertionError(f"the earlier {names[0]} and this tree's differ")
+    out = {"parent": [], "new": [], "parent_device": [], "new_device": [],
+           "parent_device_by": [], "new_device_by": []}
+    for key, fn in (("parent", parent_fn), ("new", new_fn), ("new", new_fn),
+                    ("parent", parent_fn)):
+        out[key].append(time_ms(fn, dev, reps))
+        by = device_ms_split(fn, names, reps)
+        out[key + "_device_by"].append(by)
+        out[key + "_device"].append(None if None in by.values() else sum(by.values()))
+    return out
 
 
 def in_turns(parent_fn, new_fn, parent_name, new_name, reps=20):
@@ -1298,12 +1399,14 @@ def wfa_case(seed, n_main=4096, n8=64, n25=8):
     return main, long8, long25, edges
 
 
-def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
+def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents=None):
     """B9 and B8 on the card against their plain versions (there) and the
-    native DP / WFA, exact; times as called, on the device (profiler),
-    plain, and their bounds from this run's data.  chain_sizes and
-    wfa_sizes cut the cases (chain1_case's and wfa_case's size arguments)
-    for a rehearsal on the CPU."""
+    native DP / WFA, exact; times as called, on the device (profiler; B8
+    by kernel), plain, and their bounds from this run's data; B9 under
+    other block thresholds; with `parents` (an earlier tree's chain1 and
+    wfa libraries), those kernels in turns with this tree's.  chain_sizes
+    and wfa_sizes cut the cases (chain1_case's and wfa_case's size
+    arguments) for a rehearsal on the CPU."""
     import numpy as np
     import torch
 
@@ -1345,6 +1448,16 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
     visits = chain1_visits(sets, md)
     c_ms = time_ms(lambda: C1.chain1_forward(*args), dev, reps)
     c_dev, c_by = device_ms(lambda: C1.chain1_forward(*args), "chain1_kernel", reps)
+    # the block path's threshold: the same sets with other n_block
+    by_block_min = {}
+    for bm in (256, 1024, 4096, 1 << 30):
+        order, n_block = C1.schedule(off, bm)
+        plan = (torch.from_numpy(order).to(dev), n_block)
+        if dev.type == "cuda":
+            if not same_stage_outputs(C1.chain1_forward(*args, plan=plan), got):
+                raise AssertionError(f"chain1 with BLOCK_MIN {bm} differs")
+            by_block_min[str(bm)] = {"block_genomes": n_block, "device_ms": device_ms(
+                lambda: C1.chain1_forward(*args, plan=plan), "chain1_kernel", reps)[0]}
     c_bytes = n_anchors * (12 + 9) + gtab.numel() * 4 + off.nbytes + 8 * len(sets)
     cb = (c_bytes / HBM_BYTES_PER_S * 1e3, visits * CHAIN1_OPS_PER_VISIT / FP32_OPS_PER_S * 1e3)
     dc = DeviceChainer(mg, msc, md, device=dev)
@@ -1357,13 +1470,24 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
                  "device_ms": c_dev, "device_ms_by": c_by, "plain_ms": plain_ms,
                  "bound_ms": max(cb), "bound_by": "bytes" if cb[0] >= cb[1] else "operations",
                  "max_abs_err": err, "chain_batch_s": batch_s, "launches_per_batch": dc.launches,
-                 "device_share": 1 - dc.stats["host_genomes"] / dc.stats["genomes"]}
+                 "device_share": 1 - dc.stats["host_genomes"] / dc.stats["genomes"],
+                 "steps_longest": int((off[1:] - off[:-1]).max()) - 1,
+                 "block_min": C1.BLOCK_MIN, "by_block_min": by_block_min}
+    if c_dev is not None:
+        chain_res["us_per_step"] = c_dev * 1e3 / chain_res["steps_longest"]
+    if parents and "chain1" in parents:
+        chain_res["parent"] = stage_in_turns(
+            dev, lambda: parent_chain1(parents["chain1"], *args),
+            lambda: C1.chain1_forward(*args), ("chain1_kernel",), reps)
+        log(f"[phase7] chain1, the earlier kernel and this one in turns: "
+            f"{json.dumps(chain_res['parent'])} [{card}]")
     log(f"[phase7] chain1 == plain == native DP (float32 bits, indices) on {len(sets)} sets, "
         f"{n_anchors} anchors ({visits} predecessor visits; sets of 2-700 anchors, dense ones of "
         f"1,500, the largest {int((off[1:] - off[:-1]).max())}): kernel {c_ms:.4f} ms as called, device {c_dev} ms, plain "
         f"{plain_ms:.1f} ms, bound {max(cb):.5f} ms by {chain_res['bound_by']}; "
         f"DeviceChainer.chain_batch {batch_s * 1e3:.1f} ms in {dc.launches} launch, {dc.stats} "
-        f"(made and checked in {t1 - t0:.1f} s) [{card}]")
+        f"(made and checked in {t1 - t0:.1f} s); device ms by BLOCK_MIN "
+        f"{json.dumps(by_block_min)} [{card}]")
     del got, want, cols
 
     # B8
@@ -1406,8 +1530,9 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
             f"{sum(o is not None for o in k)} of {len(pairs)} answered on the card "
             f"(bucket L={b[0]}, S={b[1]}, W={b[2]})")
     w_ms = time_ms(lambda: WK.wfa_batch(*wargs, S, W, S + 8), dev, reps)
-    w_dev, w_by = device_ms(lambda: WK.wfa_batch(*wargs, S, W, S + 8),
-                            ("wfa_forward", "wfa_traceback"), reps)
+    w_by = device_ms_split(lambda: WK.wfa_batch(*wargs, S, W, S + 8),
+                           ("wfa_forward", "wfa_traceback"), reps)
+    w_dev = None if None in w_by.values() else sum(w_by.values())
     nops = got[2].cpu().numpy()
     compares = work["extended"] + work["ext_bases"] // 32
     # the function's own bytes: packed sequences and each pair's offsets and
@@ -1416,11 +1541,15 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
     wb = (w_bytes / HBM_BYTES_PER_S * 1e3,
           (work["cells"] * WFA_OPS_PER_CELL + compares * WFA_OPS_PER_COMPARE)
           / FP32_OPS_PER_S * 1e3)
-    # what this design moves besides: each score's int16 history row, W
-    # cells of 6 bytes and its start (4), written once, and the cells and
-    # row starts the traceback's path reads back
-    hist_bytes = (w_bytes + work["rows"] * (W * 6 + 4) + work["tb_cells"] * 2
-                  + work["tb_rows"] * 4)
+    # what this design moves besides: each live score's int16 history over
+    # its span (the native row widths, 6 bytes a cell) and its 8-byte row
+    # entry, written once, and the cells and row entries the traceback's
+    # path reads back; a design with W-wide rows writes W cells and a
+    # 4-byte start a row
+    tb_bytes = work["tb_cells"] * 2 + work["tb_rows"] * 8
+    hist_bytes = w_bytes + work["cells"] * 6 + work["rows"] * 8 + tb_bytes
+    hist_bytes_wide = (w_bytes + work["rows"] * (W * 6 + 4) + work["tb_cells"] * 2
+                      + work["tb_rows"] * 4)
     dw = DeviceWFA(device=dev)
     t1 = time.perf_counter()
     res = dw.align_batch(main)
@@ -1433,6 +1562,7 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
                "bound_ms": max(wb), "bound_by": "bytes" if wb[0] >= wb[1] else "operations",
                "bytes": w_bytes, "history_bytes": hist_bytes,
                "history_bound_ms": hist_bytes / HBM_BYTES_PER_S * 1e3,
+               "history_bytes_wide_rows": hist_bytes_wide,
                "max_abs_err": 0, "align_batch_s": batch_s, "launches_per_batch": dw.launches,
                "device_share": dw.stats["device_pairs"] / dw.stats["pairs"]}
     log(f"[phase7] wfa == plain == wfa_align on {len(main)} pairs of 1.5 kb ({answered} answered "
@@ -1441,7 +1571,13 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=()):
         f"{w_plain_ms:.1f} ms, bound {max(wb):.5f} ms by {wfa_res['bound_by']} (with this "
         f"design's history traffic {wfa_res['history_bound_ms']:.5f} ms); "
         f"DeviceWFA.align_batch {batch_s * 1e3:.1f} ms in {dw.launches} launches, "
-        f"{dw.stats} (made in {made_s:.1f} s) [{card}]")
+        f"{dw.stats} (made in {made_s:.1f} s); device ms by kernel {json.dumps(w_by)} [{card}]")
+    if parents and "wfa" in parents:
+        wfa_res["parent"] = stage_in_turns(
+            dev, lambda: parent_wfa(parents["wfa"], *wargs, S, W, S + 8),
+            lambda: WK.wfa_batch(*wargs, S, W, S + 8), ("wfa_forward", "wfa_traceback"), reps)
+        log(f"[phase7] wfa, the earlier kernels and these in turns: "
+            f"{json.dumps(wfa_res['parent'])} [{card}]")
     # comparison launches do not count
     C1.chain1_forward.launches, WK.wfa_batch.launches = saved
     return chain_res, wfa_res
@@ -1512,7 +1648,8 @@ def launch_counts():
     return {fn.__name__: fn.launches for fn in kernel_fns()}
 
 
-def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=None):
+def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=None,
+                     parents=None):
     import numpy as np
     import torch
 
@@ -1676,10 +1813,15 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
 
         saved = launch_counts()
         fn = real_chain1 if name == "chain1" else real_wfa
+        names = ("chain1_kernel",) if name == "chain1" else ("wfa_forward", "wfa_traceback")
+        by = device_ms_split(lambda: fn(*a, **kw), names)
         main_shape[name] = {
             "ms": time_ms(lambda: fn(*a, **kw), dev, 20),
-            "device_ms": device_ms(lambda: fn(*a, **kw), "chain1_kernel" if name == "chain1"
-                                   else ("wfa_forward", "wfa_traceback"))[0]}
+            "device_ms": None if None in by.values() else sum(by.values()), "device_ms_by": by}
+        if parents and name in parents:
+            pfn = parent_chain1 if name == "chain1" else parent_wfa
+            main_shape[name]["parent"] = stage_in_turns(
+                dev, lambda: pfn(parents[name], *a, **kw), lambda: fn(*a, **kw), names, 20)
         if name == "chain1":
             got = real_chain1(*a, **kw)
             want = C1.chain1_forward_plain(*a[:8])
@@ -1929,9 +2071,10 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5,
                     help="end-to-end timing rounds of (host, device, device, host) passes")
     ap.add_argument("--compare-source", metavar="CU", action="append", default=[],
-                    help="an earlier tree's csrc/seed_locate.cu or csrc/seed_match.cu (given "
-                         "once each; any header it includes beside it): build it too and time "
-                         "its kernels against this tree's, in turns, at the same shapes")
+                    help="an earlier tree's csrc/seed_locate.cu, seed_match.cu, chain1.cu or "
+                         "wfa.cu (given once each; any header it includes beside it): build it "
+                         "too and time its kernels against this tree's, in turns, at the same "
+                         "shapes")
     args = ap.parse_args()
 
     import torch
@@ -1956,7 +2099,7 @@ def main() -> int:
     t0 = time.perf_counter()
     started = parent_build(args.compare_source)
     libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa"])
-    parents = parent_load(started)
+    parents = parent_load(started)  # {source name: the earlier tree's library}
     parent = parents.get("seed_locate")
     log(f"[build] {len(libs) + len(parents)} kernel sources built with nvcc in parallel in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1976,11 +2119,11 @@ def main() -> int:
     if p4["blob_bytes"] < 1e9:
         raise AssertionError("the phase-4 blob must hold at least 1 GB")
     torch.cuda.empty_cache()
-    cres7, wres7 = phase_chain_wfa(dev, card, seed=args.seed + 9, reps=10)
+    cres7, wres7 = phase_chain_wfa(dev, card, seed=args.seed + 9, reps=10, parents=parents)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
-                                args.rounds, parent)
+                                args.rounds, parent, parents)
 
     def seed_row(name, source, replaces, res, launches, extra=None):
         return {"name": name, "route": "cuda", "source": f"lexicmap_tpu_torch/csrc/{source}",
@@ -2012,6 +2155,8 @@ def main() -> int:
                 "library": "none: no PyTorch call computes this DP",
                 "device_ms": res["device_ms"], "device_ms_by": res["device_ms_by"],
                 "shape": shape, "phase7_device_share": res["device_share"],
+                **{k: res[k] for k in ("parent", "us_per_step", "block_min", "by_block_min")
+                   if k in res},
                 "main_path_device_share": share, "main_path_shape": eres["stage_main_shapes"][name]}
 
     def locate_extra(res, edges=n_edges, **more):

@@ -10,38 +10,54 @@
 //
 // Layout: every sequence is packed 2 bits a base, MSB first, 32 bases to a
 // 64-bit word, with one word of padding after its last; a pair is its two
-// word offsets and lengths n (query) and m (target).  The wavefront history
-// is int16 [B, S, 3, W] (M, I, D offsets f = target progress; NEG = dead) with
-// the window's first diagonal lo [B, S] (BIG for a score with no source):
-// row s holds diagonals lo .. lo+W-1.  done_s [B] is the final score, or -1
-// when the pair overflowed (a live span wider than W, or no end within S
-// scores): such a pair goes to the host.  The traceback writes (op, count)
-// runs newest first, op 0 = M, 1 = X, 2 = I, 3 = D, equal neighbours merged,
-// into ops int8 / cnts int32 [B, CAP] and their count into nops [B] (-1 on
-// overflow or failure).
+// word offsets and lengths n (query) and m (target).  done_s [B] is the
+// final score, or -1 when the pair overflowed (a live span wider than W, or
+// no end within S scores): such a pair goes to the host.  The traceback
+// writes (op, count) runs newest first, op 0 = M, 1 = X, 2 = I, 3 = D,
+// equal neighbours merged, into ops int8 / cnts int32 [B, CAP] and their
+// count into nops [B] (-1 on overflow or failure).
 //
-// wfa_forward, one CTA of W threads per pair, a thread per diagonal of the
-// window; per score s:
-//   1. the window [lo, lo+W) from the live spans of the source rows s-x,
-//      s-o-e, s-e (the native's trimmed spans), kept in shared memory;
-//   2. each thread computes its cell's D, I and M from a ring of the last
-//      max(x, o+e)+1 rows in shared memory, then extends M greedily, 32
-//      bases a step (XOR of two packed words, count of leading zeros);
-//   3. a block reduction of the live M count and the least distance to the
-//      end drives the adaptive reduction; the row goes to the ring and to
-//      the history in global memory;
-//   4. a second reduction gives the row's live span and whether diagonal
-//      m-n reached the end.
-// wfa_traceback, one thread per pair, walks the history back from done_s.
+// wfa_forward, one warp per pair, WARPS pairs to a block, over the scores
+// that are multiples of G = gcd(x, o+e, e) (any other has no live source:
+// every odd score under the even defaults); per score s:
+//   1. the span [kmin, kmax] from the live spans of the source rows s-x,
+//      s-o-e, s-e (the native's trimmed spans, from a per-warp ring of the
+//      last max(x, o+e)/G + 1 rows in shared memory, each row's metadata
+//      one 16-byte read).  A score with no live source (a dead row) costs
+//      that check and one store;
+//   2. the span's cells, 32 diagonals a pass (one pass for the ~15-cell
+//      spans of gene queries), each cell's D, I and M from the ring, M
+//      extended greedily 32 bases a step (XOR of two packed words, count of
+//      leading zeros) from the pair's words, copied into shared memory when
+//      they fit (pairs up to ~2.5 kb);
+//   3. the adaptive reduction's live count (ballot + popc) and least
+//      distance (__reduce_min_sync), then the pruned row to the ring and
+//      to the history, and its live span and end hit from ballots.
+// No block barrier: a warp's lanes order their ring traffic with
+// __syncwarp, and each pair's score chain runs at its own pace.
+//
+// History: a row is written only over its span, as three int16 runs of
+// `width` cells (M, I, D) appended to the pair's region of hist
+// [B, S * 3 * W]; meta int2 [B, S] holds each row's first diagonal and
+// (cells before it << 9 | width), width 0 for a dead row (a score that is
+// not a multiple of G has no entry: no path reads it).  A read outside a
+// row's span is NEG, as the dead cells of a W-wide row were.
+//
+// wfa_traceback, one warp per pair: the warp copies the pair's row table
+// and its cells (~20 KB for a 1.5 kb gene pair; the newest 48 or 112 KB of
+// a larger history) into shared memory with cp.async, then one lane walks them back from
+// done_s (the path is serial: a step's reads depend on the last step's
+// choice), so a step waits on shared memory, not on L2, and the runs stay
+// in registers until they close.
 //
 // Bound: the work is the wavefront cells computed and the bases the
-// extension compares, the bytes the history rows written and read back by
-// the traceback (chip_smoke.py counts both from the run's data).  The
-// forward kernel is bound by latency: each score is three barriers and the
-// slowest thread's extension, and a pair's scores are serial, so the card
-// is filled by many pairs, not by wide rows.  int16 offsets keep the
-// history at 6 bytes a cell; sequences are at most 30,000 bases.
+// extension compares (chip_smoke.py counts both from the run's data).  The
+// forward kernel is bound by latency: a pair's scores are serial, each a
+// chain of shared-memory reads, the extension and two warp reductions, so
+// the card is filled by many pairs, not by wide rows.  int16 offsets keep
+// the history at 6 bytes a cell; sequences are at most 30,000 bases.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,8 +66,15 @@ namespace {
 constexpr int NEG = -20000;  // a dead cell; survives +1 in int16
 constexpr int BIG = 1 << 20;
 constexpr int MAX_W = 256;
-constexpr int MAX_WARPS = MAX_W / 32;
 constexpr int MAX_R = 64;
+constexpr int WARPS = 4;        // pairs per block of wfa_forward
+constexpr int SEQ_WORDS = 160;  // per-warp cache of a pair's packed words
+// wfa_traceback's shared memory for a pair's history: a large batch takes
+// four pairs to a block, 48 KB each; a batch that one wave of two pairs
+// an SM holds (at most 264 pairs, as on the main path) 112 KB a pair, so
+// that divergent pairs fit whole (112 KB for every batch was slower on
+// 4,096 pairs on an H100: half the pairs in flight)
+constexpr int TB_SMEM_MANY = 48 << 10, TB_SMEM_FEW = 112 << 10, TB_FEW = 264;
 constexpr unsigned FULL = 0xffffffffu;
 
 // 32 bases starting at base i, MSB first
@@ -77,176 +100,248 @@ __device__ int extend(const uint64_t* q, const uint64_t* t, int n, int m, int f,
   return f;
 }
 
-__device__ __forceinline__ int warp_min(int v) {
-  for (int d = 16; d > 0; d >>= 1) v = min(v, __shfl_xor_sync(FULL, v, d));
-  return v;
+// one source row of the ring: its slot's cells, first diagonal and width
+struct Src {
+  const int16_t* cells;  // [3][W] of the slot
+  int lo, w;
+  __device__ Src(const int16_t* c, int4 meta) : cells(c), lo(meta.x), w(meta.y) {}
+  __device__ __forceinline__ int get(int which, int k, int W) const {
+    const int idx = k - lo;
+    return (unsigned)idx < (unsigned)w ? (int)cells[which * W + idx] : NEG;
+  }
+};
+
+__device__ __forceinline__ bool valid(int v, int k, int n, int m) {
+  return v > NEG && v <= m && v - k >= 0 && v - k <= n;
 }
 
-__device__ __forceinline__ int warp_max(int v) {
-  for (int d = 16; d > 0; d >>= 1) v = max(v, __shfl_xor_sync(FULL, v, d));
-  return v;
+// bytes of one warp's shared memory: word cache, ring meta, ring cells
+__host__ __device__ constexpr int warp_smem(int R, int W) {
+  return ((SEQ_WORDS * 8 + R * 16 + R * 3 * W * 2) + 15) / 16 * 16;
 }
 
-__global__ void wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
-                            const int64_t* __restrict__ t_off, const int32_t* __restrict__ ns,
-                            const int32_t* __restrict__ ms, int S, int W, int R, int x, int o,
-                            int e, int min_wf_len, int max_dist_diff, int16_t* hist,
-                            int32_t* los, int32_t* done_s) {
-  extern __shared__ int32_t ring[];  // [R][3][W]
-  __shared__ int meta_lo[MAX_R], meta_tlo[MAX_R], meta_thi[MAX_R];
-  __shared__ int red_a[MAX_WARPS][2], red_b[MAX_WARPS][3];
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nw = W >> 5;
+__host__ __device__ constexpr int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+
+__global__ void __launch_bounds__(WARPS * 32)
+wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
+            const int64_t* __restrict__ t_off, const int32_t* __restrict__ ns,
+            const int32_t* __restrict__ ms, int B, int S, int W, int R, int G, int x, int o,
+            int e, int min_wf_len, int max_dist_diff, int16_t* hist, int2* meta,
+            int32_t* done_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + wid;
+  if (b >= B) return;  // whole warps only: nothing below waits on the block
+  unsigned char* mine = smem + wid * warp_smem(R, W);
+  uint64_t* cache = reinterpret_cast<uint64_t*>(mine);
+  int4* r_meta = reinterpret_cast<int4*>(mine + SEQ_WORDS * 8);  // per slot: lo, width, tlo, thi
+  int16_t* ring = reinterpret_cast<int16_t*>(r_meta + R);        // [R][3][W]
+
+  const int n = ns[b], m = ms[b], k_end = m - n;
   const uint64_t* q = seq + q_off[b];
   const uint64_t* t = seq + t_off[b];
-  const int n = ns[b], m = ms[b], k_end = m - n;
-  int16_t* hb = hist + (int64_t)b * S * 3 * W;
-  int32_t* lb = los + (int64_t)b * S;
-
-  // s = 0: diagonal 0 only (lo = 0)
-  const int m0 = tid == 0 ? extend(q, t, n, m, 0, 0) : NEG;
-  ring[tid] = m0;
-  ring[W + tid] = NEG;
-  ring[2 * W + tid] = NEG;
-  hb[tid] = (int16_t)m0;
-  hb[W + tid] = (int16_t)NEG;
-  hb[2 * W + tid] = (int16_t)NEG;
-  if (tid == 0) {
-    lb[0] = 0;
-    meta_lo[0] = 0;
-    meta_tlo[0] = 0;
-    meta_thi[0] = 0;
+  const int nq = n / 32 + 2, nt = m / 32 + 2;
+  if (nq + nt <= SEQ_WORDS) {
+    for (int i = lane; i < nq; i += 32) cache[i] = q[i];
+    for (int i = lane; i < nt; i += 32) cache[nq + i] = t[i];
+    q = cache;
+    t = cache + nq;
+    __syncwarp();
   }
-  __syncthreads();
-  int s_final = (k_end == 0 && ring[0] >= m) ? 0 : -1;
+  int16_t* hb = hist + (int64_t)b * S * 3 * W;
+  int2* mb = meta + (int64_t)b * S;
 
-  const int srcs[3] = {x, o + e, e};
-  const int dks[3] = {0, 1, 1};
-  for (int s = 1; s_final < 0 && s < S; ++s) {
-    const int slot = s % R;
+  // s = 0: diagonal 0 only
+  const int m0 = extend(q, t, n, m, 0, 0);
+  if (lane == 0) {
+    ring[0] = (int16_t)m0;
+    ring[W] = (int16_t)NEG;
+    ring[2 * W] = (int16_t)NEG;
+    r_meta[0] = make_int4(0, 1, 0, 0);
+    hb[0] = (int16_t)m0;
+    hb[1] = (int16_t)NEG;
+    hb[2] = (int16_t)NEG;
+    mb[0] = make_int2(0, 1);
+  }
+  __syncwarp();
+  int s_final = (k_end == 0 && m0 >= m) ? 0 : -1;
+  int cum = 1;  // history cells (per kind) written so far
+
+  // a score that is not a multiple of G = gcd(x, o+e, e) has no live
+  // source: rows are kept only for multiples of G, slot (s / G) % R
+  const int ds[3] = {x / G, (o + e) / G, e / G};
+  int slot = 0;
+  for (int s = G; s_final < 0 && s < S; s += G) {
+    slot = slot + 1 == R ? 0 : slot + 1;
+    int4 src[3];  // the source rows' metas (dead where src < 0)
     int kmin = BIG, kmax = -BIG;
+#pragma unroll
     for (int z = 0; z < 3; ++z) {
-      const int src = s - srcs[z];
-      if (src < 0) continue;
-      const int r = src % R;
-      if (meta_tlo[r] <= meta_thi[r]) {
-        kmin = min(kmin, meta_tlo[r] - dks[z]);
-        kmax = max(kmax, meta_thi[r] + dks[z]);
+      src[z] = make_int4(BIG, 0, 1, 0);
+      if (s - ds[z] * G < 0) continue;
+      src[z] = r_meta[slot - ds[z] < 0 ? slot - ds[z] + R : slot - ds[z]];
+      if (src[z].z <= src[z].w) {
+        const int dk = z == 0 ? 0 : 1;
+        kmin = min(kmin, src[z].z - dk);
+        kmax = max(kmax, src[z].w + dk);
       }
     }
     if (kmin > kmax) {  // no live source: a dead row
-      if (tid == 0) {
-        lb[s] = BIG;
-        meta_lo[slot] = BIG;
-        meta_tlo[slot] = 1;
-        meta_thi[slot] = 0;
+      if (lane == 0) {
+        r_meta[slot] = make_int4(BIG, 0, 1, 0);
+        mb[s] = make_int2(BIG, cum << 9);
       }
-      __syncthreads();
+      __syncwarp();
       continue;
     }
-    if (kmax - kmin + 1 > W) break;  // the live span outgrew the window
-    const int lo = kmin, k = lo + tid;
-    auto get = [&](int src, int which, int kk) -> int {
-      if (src < 0) return NEG;
-      const int r = src % R;
-      const int idx = kk - meta_lo[r];
-      return (idx >= 0 && idx < W) ? ring[(r * 3 + which) * W + idx] : NEG;
+    const int width = kmax - kmin + 1;
+    if (width > W) break;  // the live span outgrew the window
+    const int lo = kmin;
+    auto cells = [&](int z) {
+      const int r = slot - ds[z] < 0 ? slot - ds[z] + R : slot - ds[z];
+      return ring + r * 3 * W;
     };
-    const int s_x = s - x, s_oe = s - o - e, s_e = s - e;
-    int D = max(get(s_oe, 0, k - 1), get(s_e, 2, k - 1));
-    if (D > NEG) D += 1;
-    int I = max(get(s_oe, 0, k + 1), get(s_e, 1, k + 1));
-    int mis = get(s_x, 0, k);
-    if (mis > NEG) mis += 1;
-    int M = max(max(mis, I), D);
-    if (!(M > NEG && M <= m && M - k >= 0 && M - k <= n)) M = NEG;
-    if (!(I > NEG && I <= m && I - k >= 0 && I - k <= n)) I = NEG;
-    if (!(D > NEG && D <= m && D - k >= 0 && D - k <= n)) D = NEG;
-    if (M > NEG) M = extend(q, t, n, m, M, k);
+    const Src sx(cells(0), src[0]), soe(cells(1), src[1]), se(cells(2), src[2]);
+    int16_t* row = ring + slot * 3 * W;
 
-    // adaptive reduction (the native's wfa DefaultAdaptiveOption)
-    const bool has = M > NEG;
-    const int dist = has ? (m - M) + (n - (M - k)) : BIG;
-    const int cnt_w = __popc(__ballot_sync(FULL, has));
-    const int dmin_w = warp_min(dist);
+    // pass 1: cells before the adaptive reduction
+    int M = NEG, I = NEG, D = NEG, cnt = 0, dmin = BIG;
+    for (int base = 0; base < width; base += 32) {
+      const int idx = base + lane, k = lo + idx;
+      M = I = D = NEG;
+      if (idx < width) {
+        D = max(soe.get(0, k - 1, W), se.get(2, k - 1, W));
+        if (D > NEG) D += 1;
+        I = max(soe.get(0, k + 1, W), se.get(1, k + 1, W));
+        int mis = sx.get(0, k, W);
+        if (mis > NEG) mis += 1;
+        M = max(max(mis, I), D);
+        if (!valid(M, k, n, m)) M = NEG;
+        if (!valid(I, k, n, m)) I = NEG;
+        if (!valid(D, k, n, m)) D = NEG;
+        if (M > NEG) M = extend(q, t, n, m, M, k);
+        if (width > 32) {  // kept for pass 2 (one pass keeps them in registers)
+          row[idx] = (int16_t)M;
+          row[W + idx] = (int16_t)I;
+          row[2 * W + idx] = (int16_t)D;
+        }
+      }
+      const bool has = M > NEG;
+      cnt += __popc(__ballot_sync(FULL, has));
+      if (has) dmin = min(dmin, (m - M) + (n - (M - k)));
+    }
+    dmin = __reduce_min_sync(FULL, dmin);
+    const bool prune = cnt >= min_wf_len;
+
+    // pass 2: the reduction, the row to the ring and the history, its span
+    int16_t* hrow = hb + cum * 3;
+    int tlo = BIG, thi = -BIG;
+    bool hit = false;
+    for (int base = 0; base < width; base += 32) {
+      const int idx = base + lane, k = lo + idx;
+      bool live = false;
+      if (idx < width) {
+        if (width > 32) {
+          M = row[idx];
+          I = row[W + idx];
+          D = row[2 * W + idx];
+        }
+        if (prune && M > NEG && (m - M) + (n - (M - k)) - dmin > max_dist_diff) M = I = D = NEG;
+        row[idx] = (int16_t)M;
+        row[W + idx] = (int16_t)I;
+        row[2 * W + idx] = (int16_t)D;
+        hrow[idx] = (int16_t)M;
+        hrow[width + idx] = (int16_t)I;
+        hrow[2 * width + idx] = (int16_t)D;
+        live = M > NEG || I > NEG || D > NEG;
+        hit = hit || (k == k_end && M >= m);
+      }
+      const unsigned lv = __ballot_sync(FULL, live);
+      if (lv) {
+        if (tlo == BIG) tlo = lo + base + __ffs(lv) - 1;
+        thi = lo + base + 31 - __clz(lv);
+      }
+    }
     if (lane == 0) {
-      red_a[warp][0] = cnt_w;
-      red_a[warp][1] = dmin_w;
+      r_meta[slot] = make_int4(lo, width, tlo, thi);
+      mb[s] = make_int2(lo, (cum << 9) | width);
     }
-    __syncthreads();
-    int cnt = 0, dmin = BIG;
-    for (int z = 0; z < nw; ++z) {
-      cnt += red_a[z][0];
-      dmin = min(dmin, red_a[z][1]);
-    }
-    if (cnt >= min_wf_len && has && dist - dmin > max_dist_diff) M = I = D = NEG;
-
-    ring[(slot * 3) * W + tid] = M;
-    ring[(slot * 3 + 1) * W + tid] = I;
-    ring[(slot * 3 + 2) * W + tid] = D;
-    int16_t* row = hb + (int64_t)s * 3 * W;
-    row[tid] = (int16_t)M;
-    row[W + tid] = (int16_t)I;
-    row[2 * W + tid] = (int16_t)D;
-
-    const bool live = M > NEG || I > NEG || D > NEG;
-    const int tlo_w = warp_min(live ? k : BIG);
-    const int thi_w = warp_max(live ? k : -BIG);
-    const int hit_w = __any_sync(FULL, k == k_end && M >= m);
-    if (lane == 0) {
-      red_b[warp][0] = tlo_w;
-      red_b[warp][1] = thi_w;
-      red_b[warp][2] = hit_w;
-    }
-    __syncthreads();
-    int tlo = BIG, thi = -BIG, hit = 0;
-    for (int z = 0; z < nw; ++z) {
-      tlo = min(tlo, red_b[z][0]);
-      thi = max(thi, red_b[z][1]);
-      hit |= red_b[z][2];
-    }
-    if (tid == 0) {
-      lb[s] = lo;
-      meta_lo[slot] = lo;
-      meta_tlo[slot] = tlo;
-      meta_thi[slot] = thi;
-    }
-    if (hit) s_final = s;
-    __syncthreads();
+    cum += width;
+    if (__any_sync(FULL, hit)) s_final = s;
+    __syncwarp();
   }
-  if (tid == 0) done_s[b] = s_final;
+  if (lane == 0) done_s[b] = s_final;
 }
 
-__global__ void wfa_traceback(const int16_t* __restrict__ hist, const int32_t* __restrict__ los,
-                              const int32_t* __restrict__ done_s, const int32_t* __restrict__ ns,
-                              const int32_t* __restrict__ ms, int B, int S, int W, int CAP,
-                              int x, int o, int e, int8_t* ops, int32_t* cnts, int32_t* nops) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(128)
+wfa_traceback(const int16_t* __restrict__ hist, const int2* __restrict__ meta,
+              const int32_t* __restrict__ done_s, const int32_t* __restrict__ ns,
+              const int32_t* __restrict__ ms, int B, int S, int W, int CAP, int x, int o, int e,
+              int stage_bytes, int8_t* ops, int32_t* cnts, int32_t* nops) {
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + wid;
   if (b >= B) return;
   int s = done_s[b];
   if (s < 0) {
-    nops[b] = -1;
+    if (lane == 0) nops[b] = -1;
     return;
   }
   const int16_t* hb = hist + (int64_t)b * S * 3 * W;
-  const int32_t* lb = los + (int64_t)b * S;
+  const int2* mb = meta + (int64_t)b * S;
+  // the pair's history into the warp's shared memory: its row table up to
+  // done_s where that takes at most half of stage_bytes (8 bytes a lane a
+  // step), then as many of its last cells as fit (16 bytes a lane a step;
+  // a pair's cells start 16-byte aligned): the walk starts at done_s, so
+  // an older row's cells, if any, are the ones read from global memory
+  const int2 last = mb[s];
+  const int n_cells = ((last.y >> 9) + (last.y & 511)) * 3;
+  int4* stage = reinterpret_cast<int4*>(tb_smem + wid * stage_bytes);
+  const int rows16 = (s + 2) / 2 <= stage_bytes / 32 ? (s + 2) / 2 : 0;
+  if (rows16) {
+    for (int z = lane; z <= s; z += 32)
+      __pipeline_memcpy_async(reinterpret_cast<int2*>(stage) + z, mb + z, 8);
+    mb = reinterpret_cast<const int2*>(stage);
+  }
+  const int cap16 = stage_bytes / 16 - rows16, n16 = (n_cells + 7) / 8;
+  const int first16 = n16 > cap16 ? n16 - cap16 : 0;
+  // cells copied asynchronously (cp.async): every lane's copies in flight
+  // at once, not one global round trip after another
+  const int4* csrc = reinterpret_cast<const int4*>(hb);
+  for (int z = first16 + lane; z < n16; z += 32)
+    __pipeline_memcpy_async(stage + rows16 + z - first16, csrc + z, 16);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  const int16_t* staged = reinterpret_cast<const int16_t*>(stage + rows16);
+  const int staged_from = first16 * 8;  // cells from here on are in shared memory
+  __syncwarp();
+  if (lane != 0) return;  // one lane walks: the path is serial
   int8_t* op = ops + (int64_t)b * CAP;
   int32_t* cn = cnts + (int64_t)b * CAP;
-  auto get = [&](int ss, int which, int kk) -> int {
-    if (ss < 0) return NEG;
-    const int idx = kk - lb[ss];
-    return (idx >= 0 && idx < W) ? (int)hb[((int64_t)ss * 3 + which) * W + idx] : NEG;
+  const int2 dead = make_int2(BIG, 0);
+  auto row = [&](int ss) -> int2 { return ss < 0 ? dead : mb[ss]; };
+  auto get = [&](int2 r, int which, int kk) -> int {
+    const int idx = kk - r.x, w = r.y & 511;
+    if ((unsigned)idx >= (unsigned)w) return NEG;
+    const int at = (r.y >> 9) * 3 + which * w + idx;
+    return at >= staged_from ? (int)staged[at - staged_from] : (int)hb[at];
   };
-  int w = 0;
+  // runs so far (w, the last of them open in cur / cur_n, stored when the
+  // next one starts: the walk never reads back what it wrote)
+  int w = 0, cur = -1, cur_n = 0;
   auto emit = [&](int code, int c) -> bool {
     if (c <= 0) return true;
-    if (w > 0 && op[w - 1] == code) {
-      cn[w - 1] += c;
+    if (w > 0 && cur == code) {
+      cur_n += c;
       return true;
     }
     if (w >= CAP) return false;
-    op[w] = (int8_t)code;
-    cn[w] = c;
+    if (w > 0) {
+      op[w - 1] = (int8_t)cur;
+      cn[w - 1] = cur_n;
+    }
+    cur = code;
+    cur_n = c;
     ++w;
     return true;
   };
@@ -258,9 +353,10 @@ __global__ void wfa_traceback(const int16_t* __restrict__ hist, const int32_t* _
         ok = emit(0, f);
         break;
       }
-      int mis = get(s - x, 0, k);
+      const int2 rx = row(s - x), rs = row(s);
+      int mis = get(rx, 0, k);
       if (mis > NEG) mis += 1;
-      const int ins = get(s, 1, k), del = get(s, 2, k);
+      const int ins = get(rs, 1, k), del = get(rs, 2, k);
       const int fp = max(max(mis, ins), del);
       if (fp <= NEG + 2) {
         ok = false;
@@ -277,32 +373,39 @@ __global__ void wfa_traceback(const int16_t* __restrict__ hist, const int32_t* _
       } else {
         state = 1;
       }
-    } else if (state == 1) {  // I: consume query, from k+1, f unchanged
-      const int ov = get(s - o - e, 0, k + 1), ev = get(s - e, 1, k + 1);
-      ok = emit(2, 1);
-      if (ov == f) {
-        s -= o + e;
-        state = 0;
-      } else if (ev == f) {
-        s -= e;
-      } else {
-        ok = false;
+    } else {
+      const int2 roe = row(s - o - e), re = row(s - e);
+      if (state == 1) {  // I: consume query, from k+1, f unchanged
+        const int ov = get(roe, 0, k + 1), ev = get(re, 1, k + 1);
+        ok = emit(2, 1);
+        if (ov == f) {
+          s -= o + e;
+          state = 0;
+        } else if (ev == f) {
+          s -= e;
+        } else {
+          ok = false;
+        }
+        k += 1;
+      } else {  // D: consume target, from k-1, f -> f-1
+        const int ov = get(roe, 0, k - 1), ev = get(re, 2, k - 1);
+        ok = emit(3, 1);
+        if (ov == f - 1) {
+          s -= o + e;
+          state = 0;
+        } else if (ev == f - 1) {
+          s -= e;
+        } else {
+          ok = false;
+        }
+        k -= 1;
+        f -= 1;
       }
-      k += 1;
-    } else {  // D: consume target, from k-1, f -> f-1
-      const int ov = get(s - o - e, 0, k - 1), ev = get(s - e, 2, k - 1);
-      ok = emit(3, 1);
-      if (ov == f - 1) {
-        s -= o + e;
-        state = 0;
-      } else if (ev == f - 1) {
-        s -= e;
-      } else {
-        ok = false;
-      }
-      k -= 1;
-      f -= 1;
     }
+  }
+  if (ok && w > 0) {
+    op[w - 1] = (int8_t)cur;
+    cn[w - 1] = cur_n;
   }
   nops[b] = ok ? w : -1;
 }
@@ -313,30 +416,39 @@ extern "C" {
 
 // Launches both kernels on `stream` and returns cudaGetLastError() after
 // them (cudaErrorInvalidValue for a shape this build does not take).
-// hist, los and done_s are the caller's scratch.
+// hist int16 [B, S * 3 * W], meta int2 [B, S] and done_s int32 [B] are the
+// caller's scratch.
 int wfa_align_batch(const void* seq, const void* q_off, const void* t_off, const void* ns,
                     const void* ms, int B, int S, int W, int CAP, int x, int o, int e,
-                    int min_wf_len, int max_dist_diff, void* hist, void* los, void* done_s,
+                    int min_wf_len, int max_dist_diff, void* hist, void* meta, void* done_s,
                     void* ops, void* cnts, void* nops, void* stream) {
   if (B <= 0) return 0;
-  const int R = (x > o + e ? x : o + e) + 1;
   if (W < 32 || W > MAX_W || W % 32 || S < 1 || CAP < 1 || x < 1 || e < 1 || o < 0 ||
-      R > MAX_R)
+      (int64_t)S * W >= (1 << 22))
     return (int)cudaErrorInvalidValue;
-  const int smem = R * 3 * W * (int)sizeof(int32_t);
+  const int G = gcd(gcd(x, o + e), e);
+  const int R = (x > o + e ? x : o + e) / G + 1;
+  if (R > MAX_R) return (int)cudaErrorInvalidValue;
+  const int smem = WARPS * warp_smem(R, W);
   cudaError_t err = cudaFuncSetAttribute(wfa_forward,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  const bool few = B <= TB_FEW;
+  const int tb_warps = few ? 1 : 4, tb_smem = few ? TB_SMEM_FEW : TB_SMEM_MANY;
+  err = cudaFuncSetAttribute(wfa_traceback, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tb_warps * tb_smem);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  wfa_forward<<<B, W, smem, st>>>((const uint64_t*)seq, (const int64_t*)q_off,
-                                  (const int64_t*)t_off, (const int32_t*)ns, (const int32_t*)ms,
-                                  S, W, R, x, o, e, min_wf_len, max_dist_diff, (int16_t*)hist,
-                                  (int32_t*)los, (int32_t*)done_s);
+  const int blocks = (B + WARPS - 1) / WARPS;
+  wfa_forward<<<blocks, WARPS * 32, smem, st>>>(
+      (const uint64_t*)seq, (const int64_t*)q_off, (const int64_t*)t_off, (const int32_t*)ns,
+      (const int32_t*)ms, B, S, W, R, G, x, o, e, min_wf_len, max_dist_diff, (int16_t*)hist,
+      (int2*)meta, (int32_t*)done_s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  wfa_traceback<<<(B + 127) / 128, 128, 0, st>>>(
-      (const int16_t*)hist, (const int32_t*)los, (const int32_t*)done_s, (const int32_t*)ns,
-      (const int32_t*)ms, B, S, W, CAP, x, o, e, (int8_t*)ops, (int32_t*)cnts,
+  wfa_traceback<<<(B + tb_warps - 1) / tb_warps, tb_warps * 32, tb_warps * tb_smem, st>>>(
+      (const int16_t*)hist, (const int2*)meta, (const int32_t*)done_s, (const int32_t*)ns,
+      (const int32_t*)ms, B, S, W, CAP, x, o, e, tb_smem, (int8_t*)ops, (int32_t*)cnts,
       (int32_t*)nops);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,11 @@ offsets, and flags int32 [G]; a genome with a nonzero flag is not answered
 and goes to the host.  The gap score of an integer gap g comes from the
 table gtab float32 [L] (parallel/chain_device.py::gap_score_table); a gap
 g <= max_gap with g >= L sets F_GAP_TABLE.
+
+The kernel takes the genomes longest first (`schedule`): those of at least
+BLOCK_MIN anchors a block of four warps each, the others a warp each.  On
+the card the four outputs are views of one buffer (`parallel.fetch_numpy`
+brings them back in one copy).
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from .pseudo_align import _require as _check
 from .seed_locate import _on_device
 
 F_GAP_TABLE = 1  # a gap within max_gap past the gap-score table
+#: anchors from which a genome takes a whole block (four warps share each
+#: step's predecessors) instead of one warp
+BLOCK_MIN = 1024
 
 _count_lock = threading.Lock()
 
@@ -42,6 +50,15 @@ def pack_sets(sets) -> tuple[np.ndarray, np.ndarray]:
         if sets:
             np.concatenate([s[c] for s in sets], out=cols[c])
     return cols, off
+
+
+def schedule(off: np.ndarray, block_min: int = BLOCK_MIN) -> tuple[np.ndarray, int]:
+    """The kernel's genome order from the host's offsets: (order int32 [G],
+    the genomes longest first, and n_block, how many of them, those of at
+    least block_min anchors, take a block each)."""
+    n = np.diff(off)
+    order = np.argsort(-n, kind="stable").astype(np.int32)
+    return order, int(np.count_nonzero(n >= block_min))
 
 
 # ---------------------------------------------------------------------------
@@ -164,17 +181,18 @@ def kernel_lib() -> ctypes.CDLL:
 
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _lib_handle = bind("chain1", {
-            "chain1_forward": ([vp] * 5 + [i32, vp, i32, f32, f32, i32] + [vp] * 5, i32),
+            "chain1_forward": ([vp] * 5 + [i32, i32, vp, i32, f32, f32, i32] + [vp] * 5, i32),
             "chain1_error_string": ([i32], ctypes.c_char_p)})
     return _lib_handle
 
 
-def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist):
+def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist, *, plan=None):
     """The chain1 forward DP of every genome of a ragged batch (see the
-    module docstring for the layout; the kernel takes the genomes longest
-    first).  Returns (max_scores f32 [N], prev i32 [N], dirs i8 [N], flags
-    i32 [G]).  CUDA tensors launch the kernel (`launches` counts them); CPU
-    tensors run the plain version."""
+    module docstring for the layout).  Returns (max_scores f32 [N], prev
+    i32 [N], dirs i8 [N], flags i32 [G]).  CUDA tensors launch the kernel
+    (`launches` counts them); CPU tensors run the plain version.  `plan`,
+    when given, is `schedule(off)` with its order already on the card;
+    else it is made from a host copy of off."""
     dev = qb.device
     N = qb.shape[0]
     for name, t in (("qb", qb), ("tb", tb), ("ln", ln)):
@@ -192,18 +210,24 @@ def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist):
         return chain1_forward_plain(qb, tb, ln, off, gtab, max_gap, min_score, max_dist)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    order = torch.argsort(off[1:] - off[:-1], descending=True).to(torch.int32)
     lib = kernel_lib()
-    ms = torch.empty(N, dtype=torch.float32, device=dev)
-    prev = torch.empty(N, dtype=torch.int32, device=dev)
-    dirs = torch.empty(N, dtype=torch.int8, device=dev)
-    flags = torch.empty(G, dtype=torch.int32, device=dev)
+    out = torch.empty(9 * N + 4 * G, dtype=torch.uint8, device=dev)
+    ms = out[: 4 * N].view(torch.float32)
+    prev = out[4 * N: 8 * N].view(torch.int32)
+    flags = out[8 * N: 8 * N + 4 * G].view(torch.int32)
+    dirs = out[8 * N + 4 * G:].view(torch.int8)
     if G == 0:
         return ms, prev, dirs, flags
+    if plan is None:
+        host, n_block = schedule(off.cpu().numpy())
+        plan = (torch.from_numpy(host).to(dev), n_block)
+    order, n_block = plan
+    _check("order", order, torch.int32, dev, (G,))
     err = _on_device(dev, lambda stream: lib.chain1_forward(
         qb.data_ptr(), tb.data_ptr(), ln.data_ptr(), off.data_ptr(), order.data_ptr(), G,
-        gtab.data_ptr(), gtab.shape[0], float(max_gap), float(min_score), int(max_dist),
-        ms.data_ptr(), prev.data_ptr(), dirs.data_ptr(), flags.data_ptr(), stream))
+        n_block, gtab.data_ptr(), gtab.shape[0], float(max_gap), float(min_score),
+        int(max_dist), ms.data_ptr(), prev.data_ptr(), dirs.data_ptr(), flags.data_ptr(),
+        stream))
     if err != 0:
         raise RuntimeError(f"chain1_forward launch failed: {lib.chain1_error_string(err).decode()}")
     with _count_lock:

@@ -14,8 +14,11 @@ target (q_off, t_off int64 [B]) and their lengths (n, m int32 [B], each in
 cnts int32 [B, CAP], the runs newest first with equal neighbours merged,
 and nops int32 [B], the number of runs, or -1 for a pair that overflowed
 the window of W diagonals or S scores (or CAP runs): such a pair is not
-answered and goes to the host.  The history the traceback reads is
-[B, S, 3, W] int16 of scratch: the caller bounds B.
+answered and goes to the host.  On the card the three outputs are views of
+one buffer (`parallel.fetch_numpy` brings them back in one copy), and the
+history the traceback reads is scratch of `history_bytes(B, S, W)`: room
+for [B, S, 3, W] int16 cells, of which each score writes only its live
+span, and a [B, S] int2 row table.  The caller bounds B.
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ def pack_pairs(pairs):
 
 
 def history_bytes(B: int, S: int, W: int) -> int:
-    """Device bytes of the scratch a launch of B pairs takes."""
-    return B * (S * (3 * W * 2 + 4) + 4)
+    """Device bytes of the scratch a launch of B pairs takes: the history's
+    room, its row table and each pair's final score."""
+    return B * (S * (3 * W * 2 + 8) + 4)
 
 
 # ---------------------------------------------------------------------------
@@ -362,9 +366,9 @@ def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
         _check(name, t, torch.int64, dev, (B,))
     for name, t in (("n", n), ("m", m)):
         _check(name, t, torch.int32, dev, (B,))
-    if W % 32 or not 32 <= W <= 256 or S < 1 or CAP < 1:
-        raise ValueError(f"unsupported window: W={W} (a multiple of 32, <= 256), S={S}, "
-                         f"CAP={CAP}")
+    if W % 32 or not 32 <= W <= 256 or S < 1 or CAP < 1 or S * W >= 1 << 22:
+        raise ValueError(f"unsupported window: W={W} (a multiple of 32, <= 256), S={S} "
+                         f"(S * W < 2**22), CAP={CAP}")
     if x < 1 or e < 1 or o < 0:
         raise ValueError("penalties must have x >= 1, e >= 1, o >= 0")
     if not checked:
@@ -375,18 +379,19 @@ def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = kernel_lib()
-    ops = torch.empty((B, CAP), dtype=torch.int8, device=dev)
-    cnts = torch.empty((B, CAP), dtype=torch.int32, device=dev)
-    nops = torch.empty(B, dtype=torch.int32, device=dev)
+    out = torch.empty(B * (4 + 5 * CAP), dtype=torch.uint8, device=dev)
+    nops = out[: 4 * B].view(torch.int32)
+    cnts = out[4 * B: 4 * B * (1 + CAP)].view(torch.int32).view(B, CAP)
+    ops = out[4 * B * (1 + CAP):].view(torch.int8).view(B, CAP)
     if B == 0:
         return ops, cnts, nops
-    hist = torch.empty((B, S, 3, W), dtype=torch.int16, device=dev)
-    lo = torch.empty((B, S), dtype=torch.int32, device=dev)
-    done_s = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty(history_bytes(B, S, W), dtype=torch.uint8, device=dev)
+    hist, meta = scratch.data_ptr(), scratch.data_ptr() + B * S * 3 * W * 2
+    done_s = meta + B * S * 8
     err = _on_device(dev, lambda stream: lib.wfa_align_batch(
         seq.data_ptr(), q_off.data_ptr(), t_off.data_ptr(), n.data_ptr(), m.data_ptr(), B,
-        S, W, CAP, x, o, e, min_wf_len, max_dist_diff, hist.data_ptr(), lo.data_ptr(),
-        done_s.data_ptr(), ops.data_ptr(), cnts.data_ptr(), nops.data_ptr(), stream))
+        S, W, CAP, x, o, e, min_wf_len, max_dist_diff, hist, meta, done_s, ops.data_ptr(),
+        cnts.data_ptr(), nops.data_ptr(), stream))
     if err != 0:
         raise RuntimeError(f"wfa_batch launch failed: {lib.wfa_error_string(err).decode()}")
     with _count_lock:

@@ -57,6 +57,26 @@ def count_d2h(label: str, *arrays) -> int:
     return n
 
 
+def fetch_numpy(label: str, *ts) -> list:
+    """Host numpy copies of tensors, counted as one fetch under `label`.
+    Contiguous views of one buffer (the kernel wrappers' outputs on the
+    card) come back in a single copy of that buffer."""
+    st = ts[0].untyped_storage()
+    if len(ts) > 1 and all(t.is_contiguous() and t.untyped_storage().data_ptr() == st.data_ptr()
+                           for t in ts):
+        raw = torch.empty(0, dtype=torch.uint8, device=ts[0].device).set_(
+            st, 0, (st.nbytes(),)).cpu().numpy()
+        out = []
+        for t in ts:
+            at = t.storage_offset() * t.element_size()
+            part = raw[at: at + t.numel() * t.element_size()]
+            out.append(part.view(torch.empty(0, dtype=t.dtype).numpy().dtype).reshape(t.shape))
+    else:
+        out = [t.cpu().numpy() for t in ts]
+    count_d2h(label, *out)
+    return out
+
+
 def transport_summary() -> dict:
     """Snapshot of per-stage transport counters (plus process totals)."""
     tot = {"fetches": 0, "d2h_bytes": 0, "h2d_bytes": 0}

@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.chain1 import chain1_forward, pack_sets
-from . import count_d2h, count_h2d, resolve_device
+from ..kernels.chain1 import chain1_forward, pack_sets, schedule
+from . import count_h2d, fetch_numpy, resolve_device
 
 #: the gap-score table's largest gap: a longer max_gap leaves the gaps past
 #: it to the host (F_GAP_TABLE), instead of a table of max_gap entries
@@ -73,14 +73,23 @@ class DeviceChainer:
         if not idxs:
             return out
         cols, off = pack_sets([anchor_sets[i] for i in idxs])
-        count_h2d("device chain DP", cols, off)
-        cols_d = torch.from_numpy(cols).to(self.device)
+        order, n_block = schedule(off)
+        # one upload: the columns, the order and the offsets (int64 at an
+        # even int32 index) in one int32 buffer, then views of their types
+        N, G = cols.shape[1], len(idxs)
+        at = (3 * N + G + 1) // 2 * 2
+        host = np.zeros(at + 2 * (G + 1), dtype=np.int32)
+        host[: 3 * N] = cols.reshape(-1)
+        host[3 * N: 3 * N + G] = order
+        host[at:] = off.view(np.int32)
+        count_h2d("device chain DP", host)
+        up = torch.from_numpy(host).to(self.device)
         ms, prev, dirs, flags = chain1_forward(
-            cols_d[0], cols_d[1], cols_d[2], torch.from_numpy(off).to(self.device),
-            self._gtab, self.max_gap, self.min_score, self.max_dist)
+            up[:N], up[N: 2 * N], up[2 * N: 3 * N], up[at:].view(torch.int64), self._gtab,
+            self.max_gap, self.min_score, self.max_dist,
+            plan=(up[3 * N: 3 * N + G], n_block))
         self.launches += self.device.type == "cuda"
-        ms, prev, dirs, flags = (t.cpu().numpy() for t in (ms, prev, dirs, flags))
-        count_d2h("device chain DP", ms, prev, dirs, flags)
+        ms, prev, dirs, flags = fetch_numpy("device chain DP", ms, prev, dirs, flags)
         self.stats["genomes"] += len(idxs)
         self.stats["host_genomes"] += int(np.count_nonzero(flags))
         for r, i in enumerate(idxs):

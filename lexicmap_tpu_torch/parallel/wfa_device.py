@@ -22,11 +22,12 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from ..kernels.wfa import check_pairs, decode_ops, history_bytes, pack_pairs, wfa_batch
 from ..ops.wfa import wfa_align
-from . import count_d2h, count_h2d, resolve_device
+from . import count_h2d, fetch_numpy, resolve_device
 
 #: (longest sequence, scores, window of diagonals): S covers a cost of
 #: about half the length (~10% substitutions and 1% indels), W the live
@@ -119,14 +120,16 @@ class DeviceWFA:
         arrs = pack_pairs(pairs)
         check_pairs(arrs[0].shape[0], *arrs[1:])
         count_h2d("device WFA", *arrs)
-        dev = self.device
+        # one upload: the words, the offsets and the lengths side by side
+        # as int64 words, then views of their own types
+        B, NW = len(pairs), arrs[0].shape[0]
+        host = np.concatenate([arrs[0], arrs[1], arrs[2],
+                               np.concatenate([arrs[3], arrs[4]]).view(np.int64)])
+        up = torch.from_numpy(host).to(self.device)
+        lens = up[NW + 2 * B:].view(torch.int32)
         ops, cnts, nops = wfa_batch(
-            *(torch.from_numpy(a).to(dev) for a in arrs),
+            up[:NW], up[NW: NW + B], up[NW + B: NW + 2 * B], lens[:B], lens[B:],
             S, W, S + 8, self.x, self.o, self.e, self.min_wf_len, self.max_dist_diff,
             checked=True)
-        nops = nops.cpu().numpy()
-        width = max(int(nops.max()), 1)
-        ops = ops[:, :width].cpu().numpy()
-        cnts = cnts[:, :width].cpu().numpy()
-        count_d2h("device WFA", nops, ops, cnts)
+        ops, cnts, nops = fetch_numpy("device WFA", ops, cnts, nops)
         return decode_ops(ops, cnts, nops)

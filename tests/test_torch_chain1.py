@@ -68,27 +68,85 @@ def test_plain_equals_native_and_jax(sets, jax_out):
     assert n_jax == len(sets) - 2
 
 
+@pytest.mark.parametrize("warps", [1, 4])
 @pytest.mark.parametrize("which", range(10))
-def test_kernel_replay_equals_native(sets, which):
-    """The kernel's warp scan, replayed in numpy, on every set: those the
-    JAX package flags too (its dense set and the one of 9,000 anchors)."""
+def test_kernel_replay_equals_native(sets, which, warps):
+    """The kernel's scan, replayed in numpy on its warp path and its block
+    path, on every set: those the JAX package flags too (its dense set and
+    the one of 9,000 anchors)."""
     s = sets[which]
-    ms, prev, dirs, flag, visits, chunks = chain1_replay(*s, CD.gap_score_table(MG), MG, MSC, MD)
+    ms, prev, dirs, flag, counts = chain1_replay(*s, CD.gap_score_table(MG), MG, MSC, MD, warps)
     w_ms, w_prev, w_dirs = native(s)
     assert flag == 0
     assert np.array_equal(bits(ms), bits(w_ms))
     assert np.array_equal(prev, w_prev) and np.array_equal(dirs, w_dirs)
     n = s[0].shape[0]
-    assert n - 1 <= visits and chunks <= visits
+    assert n - 1 <= counts["visits"] and counts["rounds"] <= counts["chunks"]
+    assert counts["visits"] <= counts["chunks"] * 32 < counts["visits"] + 32 * (n - 1)
 
 
 def test_smoke_visit_count_equals_replay(sets):
     """chip_smoke.py's count of the native scan's predecessor visits (B9's
-    bound) equals the kernel replay's."""
+    bound) equals the kernel replay's, on both paths."""
     from chip_smoke import chain1_visits
 
+    gt = CD.gap_score_table(MG)
     got = [chain1_visits([s], MD) for s in sets[:9]]
-    assert got == [chain1_replay(*s, CD.gap_score_table(MG), MG, MSC, MD)[4] for s in sets[:9]]
+    for warps in (1, 4):
+        assert got == [chain1_replay(*s, gt, MG, MSC, MD, warps)[4]["visits"] for s in sets[:9]]
+
+
+def test_replay_schedule_counts(sets):
+    """The two paths' schedules on the dense set (1,500 anchors in 900 bp,
+    every earlier anchor within max_dist): the warp path scans a step's
+    chunks two an iteration and reads the predecessors older than its ring
+    of 512 from global memory; the block path takes four chunks a round
+    and keeps all of them in its ring of 2,048."""
+    s = sets[7]
+    n = s[0].shape[0]
+    gt = CD.gap_score_table(MG)
+    one = chain1_replay(*s, gt, MG, MSC, MD, 1)[4]
+    four = chain1_replay(*s, gt, MG, MSC, MD, 4)[4]
+    steps = [-(-i // 32) for i in range(1, n)]  # no break: every chunk of every step
+    assert one["chunks"] == sum(steps)
+    assert one["rounds"] == sum(-(-c // 2) for c in steps)
+    assert four["rounds"] == sum(-(-c // 4) for c in steps)
+    assert four["chunks"] == one["chunks"]
+    assert one["past_ring"] == sum(max(0, i - 512) for i in range(1, n))
+    assert four["past_ring"] == 0
+    assert one["visits"] == four["visits"] == n * (n - 1) // 2
+
+
+@pytest.mark.parametrize("warps", [1, 4])
+def test_replay_unsorted_breaks_mid_window(warps):
+    """Anchors out of QBegin order: the first predecessor past max_dist
+    (descending j) can fall in any chunk and round, with nearer ones
+    behind it that the native scan never reaches.  Both paths stop where
+    it does."""
+    rng = np.random.default_rng(11)
+    n = 700
+    qb = rng.integers(0, 1500, n).astype(np.int32)
+    qb[rng.random(n) < 0.02] += 5000  # far anchors that break the scans after them
+    tb = (qb + rng.integers(-40, 40, n)).astype(np.int32)
+    s = (qb, tb, rng.integers(15, 32, n).astype(np.int32))
+    ms, prev, dirs, flag, counts = chain1_replay(*s, CD.gap_score_table(MG), MG, MSC, MD, warps)
+    w_ms, w_prev, w_dirs = native(s)
+    assert np.array_equal(bits(ms), bits(w_ms))
+    assert np.array_equal(prev, w_prev) and np.array_equal(dirs, w_dirs)
+    assert counts["visits"] < n * (n - 1) // 2
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_schedule_block_threshold(offset):
+    """schedule(): genomes longest first; those of at least BLOCK_MIN
+    anchors (here one at BLOCK_MIN + offset) take the block path."""
+    sizes = [5, C1.BLOCK_MIN + offset, 0, 2 * C1.BLOCK_MIN, 700, 2]
+    off = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=off[1:])
+    order, n_block = C1.schedule(off)
+    assert order.dtype == np.int32
+    assert [sizes[g] for g in order] == sorted(sizes, reverse=True)
+    assert n_block == (2 if offset >= 0 else 1)
 
 
 def test_device_chainer_equals_native_and_jax(sets, jax_out):
@@ -133,3 +191,18 @@ def test_wrapper_checks():
         C1.chain1_forward(qb, tb, ln, off, gtab[:0], MG, MSC, MD)
     empty = C1.chain1_forward(qb[:0], tb[:0], ln[:0], off[:1], gtab, MG, MSC, MD)
     assert [t.shape[0] for t in empty] == [0, 0, 0, 0]
+
+
+def test_device_chainer_one_upload_one_fetch(sets):
+    """chain_batch sends the columns, the genome order and the offsets up
+    in one copy and brings the four outputs back in one."""
+    from lexicmap_tpu_torch.parallel import transport
+
+    before = dict(transport.get("device chain DP", {"fetches": 0, "h2d_bytes": 0}))
+    dc = CD.DeviceChainer(MG, MSC, MD, device="cpu")
+    dc.chain_batch(sets[:4])
+    acc = transport["device chain DP"]
+    N = sum(s[0].shape[0] for s in sets[:4])
+    assert acc["fetches"] - before["fetches"] == 1
+    # int32 columns and order, the int64 offsets at an even int32 index
+    assert acc["h2d_bytes"] - before["h2d_bytes"] == 4 * ((3 * N + 4 + 1) // 2 * 2 + 2 * 5)

@@ -201,19 +201,26 @@ def test_cuda_query_bucket_table_equals_cpu(cuda_device):
     assert torch.equal(qtab.cpu(), query_bucket_table(qk.cpu(), qoff.cpu()))
 
 
-def _chain1_on_card(sets, dev, lead=0):
+def _chain1_on_card(sets, dev, lead=0, block_min=None, gtab_len=None):
     """chain1_forward on the card (inputs `lead` elements into their
-    buffers) against its plain version there and the native DP."""
+    buffers; genomes of at least `block_min` anchors on the block path,
+    the wrapper's own BLOCK_MIN when None; the gap table cut to gtab_len)
+    against its plain version there and, for the genomes it answers, the
+    native DP."""
     from lexicmap_tpu_torch.native import chain1_forward_native
     from lexicmap_tpu_torch.parallel.chain_device import gap_score_table
 
     mg, msc, md = CHAIN1_PARAMS
-    gtab = torch.from_numpy(gap_score_table(mg)).to(dev)
+    gtab = torch.from_numpy(gap_score_table(mg)[:gtab_len]).to(dev)
     qb, tb, ln, off = chain1_csr(sets, dev)
     qb, tb, ln = (torch.cat([torch.zeros(lead, dtype=torch.int32, device=dev), a])[lead:]
                   for a in (qb, tb, ln))
+    kw = {}
+    if block_min is not None:
+        order, n_block = C1.schedule(off.cpu().numpy(), block_min)
+        kw["plan"] = (torch.from_numpy(order).to(dev), n_block)
     before = C1.chain1_forward.launches
-    got = C1.chain1_forward(qb, tb, ln, off, gtab, mg, msc, md)
+    got = C1.chain1_forward(qb, tb, ln, off, gtab, mg, msc, md, **kw)
     torch.cuda.synchronize()
     assert C1.chain1_forward.launches == before + (len(sets) > 0)
     want = C1.chain1_forward_plain(qb, tb, ln, off, gtab, mg, msc, md)
@@ -226,6 +233,8 @@ def _chain1_on_card(sets, dev, lead=0):
             continue
         w_ms, w_prev, w_dirs = chain1_forward_native(*s, mg, msc, md)
         a, b = o[g], o[g + 1]
+        if gtab_len is not None and flags[g]:
+            continue  # a gap past the cut table: the host's genome
         assert flags[g] == 0
         assert np.array_equal(ms[a:b].view(np.uint32), w_ms.astype(np.float32).view(np.uint32))
         assert np.array_equal(prev[a:b], w_prev) and np.array_equal(dirs[a:b], w_dirs)
@@ -251,6 +260,97 @@ def test_cuda_chain1_edges(cuda_device, case):
         one = tuple(a[:1] for a in sets[2])
         none = tuple(a[:0] for a in sets[2])
         _chain1_on_card([none, sets[1], one, none, sets[3]], cuda_device)
+
+
+def _dense_set(rng, n, span=900):
+    """n anchors in `span` bp: every earlier anchor within max_dist."""
+    qb = np.sort(rng.integers(0, span, n)).astype(np.int32)
+    tb = (qb + rng.integers(-30, 30, n)).astype(np.int32)
+    return qb, tb, rng.integers(15, 32, n).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "warp", "block"])
+def test_cuda_chain1_paths(cuda_device, path):
+    """Both paths of the kernel on genomes at the block threshold (BLOCK_MIN
+    - 1, BLOCK_MIN, BLOCK_MIN + 1 dense anchors), one of 3,000 whose window
+    outgrows the block path's ring of 2,048 (and a warp's of 512), and
+    short ones, on the threshold's split, all on warps, or all on blocks."""
+    rng = np.random.default_rng(21)
+    bm = C1.BLOCK_MIN
+    sets = [_dense_set(rng, n) for n in (bm - 1, bm, bm + 1)]
+    sets += [_dense_set(rng, 3000, 1200)] + chain1_sets(seed=8, big=0)[:4]
+    sets.append(tuple(a[:1] for a in sets[-1]))
+    _chain1_on_card(sets, cuda_device, block_min={"default": None, "warp": 1 << 30,
+                                                   "block": 0}[path])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_min", [1 << 30, 0])
+def test_cuda_chain1_unsorted_and_flags(cuda_device, block_min):
+    """Anchors out of QBegin order (breaks in any chunk and round), and a
+    gap table cut to 3 entries (flags raised only by the predecessors the
+    native scan visits): kernel == plain on both paths."""
+    rng = np.random.default_rng(11)
+    sets = []
+    for n in (700, 1500):
+        qb = rng.integers(0, 1500, n).astype(np.int32)
+        qb[rng.random(n) < 0.02] += 5000
+        tb = (qb + rng.integers(-40, 40, n)).astype(np.int32)
+        sets.append((qb, tb, rng.integers(15, 32, n).astype(np.int32)))
+    _chain1_on_card(sets, cuda_device, block_min=block_min)
+    _chain1_on_card(sets + chain1_sets(seed=9, big=0), cuda_device, block_min=block_min,
+                    gtab_len=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_min", [1 << 30, 0])
+def test_cuda_chain1_wide_coordinates(cuda_device, block_min):
+    """Columns near the int32 limit and a negative tb (the kernel's gaps
+    and differences in int64), on both paths: kernel == plain == native."""
+    sets = []
+    for shift, s in zip((1 << 30, (1 << 31) - 10_000, -(1 << 20)), chain1_sets(seed=12, big=0)[3:6]):
+        qb, tb, ln = (a.astype(np.int64) for a in s)
+        qb = qb + max(shift, 0)
+        tb = tb + shift
+        sets.append((qb.astype(np.int32), tb.astype(np.int32), ln.astype(np.int32)))
+    _chain1_on_card(sets + chain1_sets(seed=13, big=0)[:2], cuda_device, block_min=block_min)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(10))
+def test_cuda_wfa_edges(cuda_device, case):
+    """B8 at its boundaries (torch_parity.wfa_edge_cases: spans of 32/33
+    and W/W+1, an end at score S-1 or S, exactly CAP runs or one more):
+    kernel == plain, answered exactly as the case says, then == wfa_align."""
+    from lexicmap_tpu_torch.ops.wfa import wfa_align
+    from torch_parity import wfa_edge_cases
+
+    name, ps, S, W, CAP, answered = wfa_edge_cases()[case]
+    args = wfa_tensors(ps, cuda_device)
+    got = WK.decode_ops(*(t.cpu().numpy() for t in WK.wfa_batch(*args, S, W, CAP)))
+    want = WK.decode_ops(*(t.cpu().numpy() for t in WK.wfa_plain(*args, S, W, CAP)))
+    assert got == want, name
+    assert (got[0] is not None) == answered, name
+    if answered:
+        assert got == [wfa_align(q, t).ops for q, t in ps], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x, o, e", [(3, 5, 1), (6, 3, 3), (5, 0, 2)])
+def test_cuda_wfa_other_penalties(cuda_device, x, o, e):
+    """Penalties whose gcd is 1 or 3 (every score a row, or every third)
+    and a zero gap-open: kernel == plain == wfa_align."""
+    from lexicmap_tpu_torch.ops.wfa import wfa_align
+
+    pairs = wfa_pairs()[:-1]
+    args = wfa_tensors(pairs, cuda_device)
+    got = WK.decode_ops(*(t.cpu().numpy() for t in WK.wfa_batch(*args, 1024, 128, 1032, x, o, e)))
+    want = WK.decode_ops(*(t.cpu().numpy() for t in WK.wfa_plain(*args, 1024, 128, 1032, x, o, e)))
+    assert got == want
+    for (q, t), g in zip(pairs, got):
+        if g is not None:
+            assert g == wfa_align(q, t, x, o, e).ops
 
 
 @pytest.mark.cuda

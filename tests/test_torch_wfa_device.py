@@ -10,7 +10,14 @@ import torch
 
 jax = pytest.importorskip("jax")
 
-from torch_parity import mutate_pair, wfa_pairs, wfa_tensors
+from torch_parity import (
+    mutate_pair,
+    wfa_edge_cases,
+    wfa_pairs,
+    wfa_span_pair,
+    wfa_span_replay,
+    wfa_tensors,
+)
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 from lexicmap_tpu.parallel.wfa_device import DeviceWFA as JaxWFA
@@ -154,3 +161,80 @@ def test_threads_share_one_aligner():
         sys.setswitchinterval(old)
     assert got == want
     assert dw.stats["pairs"] == dw.stats["device_pairs"] == 18
+
+
+def test_span_replay_equals_plain_counts(pairs):
+    """The forward kernel's schedule (a warp a pair over each score's span,
+    32 diagonals a pass), replayed from the plain pass's history: the
+    spans' cells are the native row widths the plain pass counts, one span
+    a computed row, and the kernel writes three history cells a diagonal
+    of them (and three for score 0) instead of 3 x W a row."""
+    S, W = 1024, 128
+    work = {}
+    hist, lo, done = WK._forward(*wfa_tensors(pairs), S, W, 4, 6, 2, 10, 50, work=work)
+    rep = wfa_span_replay(hist, lo, done)
+    assert sum(r["cells"] for r in rep) == work["cells"]
+    assert sum(len(r["spans"]) for r in rep) == work["rows"]
+    assert sum(r["hist_cells"] for r in rep) == 3 * (work["cells"] + len(pairs))
+    assert sum(r["passes"] for r in rep) < 2 * work["rows"]
+    assert all(r["max_span"] <= W for r, d in zip(rep, done.tolist()) if d >= 0)
+    assert rep[-1]["max_span"] == W + 1  # the unrelated pair overflows W
+    for r, d in zip(rep, done.tolist()):  # even penalties: every odd score is dead
+        if d > 0:
+            assert r["dead"] + len(r["spans"]) == d and r["dead"] >= d // 2
+
+
+@pytest.mark.parametrize("span", [32, 33, 128, 129])
+def test_span_pairs_are_at_their_boundary(span):
+    """The edge pairs' largest span is exactly the one they stand for."""
+    args = wfa_tensors([wfa_span_pair(span)])
+    hist, lo, done = WK._forward(*args, 4096, 256, 4, 6, 2, 10, 50)
+    assert int(done[0]) >= 0
+    assert wfa_span_replay(hist, lo, done)[0]["max_span"] == span
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_wfa_edges_plain_equals_host(case):
+    """At the kernels' boundaries (span 32/33, W/W+1, end at score S-1 or
+    S, exactly CAP runs or one more): a pair is answered exactly when the
+    case says, and then equals wfa_align."""
+    name, ps, S, W, CAP, answered = wfa_edge_cases()[case]
+    ops, cnts, nops = WK.wfa_batch(*wfa_tensors(ps), S, W, CAP)
+    got = WK.decode_ops(ops.numpy(), cnts.numpy(), nops.numpy())
+    assert (got[0] is not None) == answered, name
+    if answered:
+        assert got == host_ops(ps), name
+
+
+def test_outputs_fetch_in_one_copy():
+    """fetch_numpy: views of one buffer (the wrapper's outputs on the card)
+    come back in one copy, counted as one fetch; separate tensors (the
+    plain version's) one by one, also counted once."""
+    from lexicmap_tpu_torch.parallel import fetch_numpy, transport
+
+    B, CAP = 3, 5
+    out = torch.arange(B * (4 + 5 * CAP), dtype=torch.uint8)
+    nops = out[: 4 * B].view(torch.int32)
+    cnts = out[4 * B: 4 * B * (1 + CAP)].view(torch.int32).view(B, CAP)
+    ops = out[4 * B * (1 + CAP):].view(torch.int8).view(B, CAP)
+    before = dict(transport.get("test fetch", {"fetches": 0, "d2h_bytes": 0}))
+    for ts in ((ops, cnts, nops), (ops.clone(), cnts.clone(), nops.clone())):
+        got = fetch_numpy("test fetch", *ts)
+        assert all(g.dtype == t.numpy().dtype and np.array_equal(g, t.numpy())
+                   for g, t in zip(got, ts))
+    acc = transport["test fetch"]
+    assert acc["fetches"] - before["fetches"] == 2
+    assert acc["d2h_bytes"] - before["d2h_bytes"] == 2 * out.numel()
+
+
+def test_device_wfa_one_fetch_per_launch(monkeypatch):
+    """_align_chunk uploads a launch's words, offsets and lengths in one
+    copy and brings ops, counts and run counts back in one."""
+    from lexicmap_tpu_torch.parallel import transport
+
+    rng = np.random.default_rng(5)
+    pairs = [mutate_pair(rng, 200, 0.03, 0.01) for _ in range(5)]
+    monkeypatch.setattr(WD, "HIST_BYTES", 2 * WK.history_bytes(1, *WD.BUCKETS[0][1:]))
+    before = dict(transport.get("device WFA", {"fetches": 0}))
+    assert WD.DeviceWFA(device="cpu").align_batch(pairs) == host_ops(pairs)
+    assert transport["device WFA"]["fetches"] - before["fetches"] == 3  # launches of 2, 2, 1

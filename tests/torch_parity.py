@@ -657,17 +657,24 @@ def chain1_csr(sets, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in (*cols, off)]
 
 
-def chain1_replay(qb, tb, ln, gtab, max_gap, min_score, max_dist):
-    """The chain1 kernel's warp scan of one genome in numpy: 32 lanes take
-    j = i-1-lane, i-33-lane, ...; a chunk's ballot of qd > max_dist keeps
-    the lanes before the first breaking one; each lane keeps its best by
-    strict improvement, then the xor-shuffle reduction takes the larger j
-    on equal scores.  Returns (ms f32, prev i64, dirs i8, flag, visits,
-    chunks): visits are the predecessors the scan reads up to its break
-    (the native loop's), chunks the warp's 32-lane steps."""
+def chain1_replay(qb, tb, ln, gtab, max_gap, min_score, max_dist, warps=1):
+    """The chain1 kernel's scan of one genome in numpy, on its warp path
+    (warps=1: one warp takes the chunks j = i-1-lane, i-33-lane, ..., two
+    an iteration) or its block path (warps=4: warp w takes chunks w, w+4,
+    ... in rounds).  The breaks of an iteration's or a round's chunks are
+    balloted first (qb only), and no chunk past the first break is
+    scanned; in a scanned chunk the lanes before the first breaking one
+    count.  Each lane keeps its best by strict improvement; the maximum
+    over (score, j) takes the larger j on equal scores.  Returns (ms f32,
+    prev i64, dirs i8, flag, counts) with counts {visits: the predecessors
+    the native scan reads, up to its break; chunks: the 32-lane chunks
+    scanned; rounds: the steps' iterations (warp path) or rounds (block
+    path); past_ring: predecessors read from global memory, older than
+    the path's ring of 512 or 2,048}."""
     f32 = np.float32
     n = qb.shape[0]
     q, t, l = (a.astype(np.int64) for a in (qb, tb, ln))
+    ring = 512 if warps == 1 else 512 * warps
 
     def sw(x):
         return (f32(0.1) * x.astype(f32)) * x.astype(f32)
@@ -678,54 +685,75 @@ def chain1_replay(qb, tb, ln, gtab, max_gap, min_score, max_dist):
     if n:
         ms[0] = sw(l[:1])[0]
     lanes = np.arange(32)
-    flag = visits = chunks = 0
-    for i in range(1, n):
+    flag = 0
+    counts = {"visits": 0, "chunks": 0, "rounds": 0, "past_ring": 0}
+
+    def chunk(i, c):
+        """Chunk c of step i: (best score [32] or -inf, key j << 1 | fwd,
+        whether it breaks, the flag)."""
         aq, at, al = q[i], t[i], l[i]
         m0 = sw(l[i: i + 1])[0]
-        best = np.full(32, -np.inf, f32)
-        bj = np.full(32, -1, np.int64)
-        bd = np.zeros(32, np.int64)
-        for c in range(i - 1, -1, -32):
-            j = c - lanes
-            inn = j >= 0
-            jj = np.where(inn, j, 0)
-            bq, bt, bl = q[jj], t[jj], l[jj]
-            qd = aq - bq
-            brk = inn & (qd > max_dist)
-            first = int(np.argmax(brk)) if brk.any() else 32
-            live = inn & (lanes < first)
-            visits += int(live.sum()) + int(brk.any())
-            chunks += 1
-            td = at - bt
-            atd = np.abs(td)
-            cand = live & (qd != 0) & (atd <= max_dist) & (td != 0)
-            g = np.abs(np.where(at >= bt, np.abs(qd) - atd,
-                                np.abs(qd) - np.abs((at + al) - (bt + bl))))
-            cand &= g.astype(f32) <= f32(max_gap)
-            over = cand & (g >= gtab.shape[0])
-            flag |= int(over.any())
-            cand &= ~over
-            bqe = bq + bl
-            sw_len = sw(np.where(aq > bqe, al, np.where(g == 0, aq + al - bq, aq + al - bqe)))
-            sw_bl = sw(bl)
-            w = np.where((aq > bqe) | (g != 0), sw_len, -sw_bl + sw_len)
-            d = np.where(at >= bt, 1, -1)
-            bdir = dirs[jj]
-            base = np.where((bdir == 0) | (bdir == d), ms[jj], sw_bl)
-            sc = (base + w) - gtab[np.clip(g, 0, gtab.shape[0] - 1)]
-            upd = cand & (sc >= f32(min_score)) & (sc > m0) & (sc > best)
-            best, bj, bd = np.where(upd, sc, best), np.where(upd, j, bj), np.where(upd, d, bd)
-            if brk.any():
+        j = i - 1 - 32 * c - lanes
+        inn = j >= 0
+        jj = np.where(inn, j, 0)
+        bq, bt, bl = q[jj], t[jj], l[jj]
+        qd = aq - bq
+        brk = inn & (qd > max_dist)
+        first = int(np.argmax(brk)) if brk.any() else 32
+        live = inn & (lanes < first)
+        counts["chunks"] += 1
+        counts["past_ring"] += int((inn & (j < i - ring)).sum())
+        td = at - bt
+        atd = np.abs(td)
+        cand = live & (qd != 0) & (atd <= max_dist) & (td != 0)
+        g = np.abs(np.where(at >= bt, np.abs(qd) - atd,
+                            np.abs(qd) - np.abs((at + al) - (bt + bl))))
+        cand &= g.astype(f32) <= f32(max_gap)
+        over = cand & (g >= gtab.shape[0])
+        cand &= ~over
+        bqe = bq + bl
+        sw_len = sw(np.where(aq > bqe, al, np.where(g == 0, aq + al - bq, aq + al - bqe)))
+        sw_bl = sw(bl)
+        w = np.where((aq > bqe) | (g != 0), sw_len, -sw_bl + sw_len)
+        d = np.where(at >= bt, 1, -1)
+        base = np.where((dirs[jj] == 0) | (dirs[jj] == d), ms[jj], sw_bl)
+        sc = (base + w) - gtab[np.clip(g, 0, gtab.shape[0] - 1)]
+        ok = cand & (sc >= f32(min_score)) & (sc > m0)
+        visits = int(live.sum()) + int(brk.any())
+        return (np.where(ok, sc, f32(-np.inf)), np.where(ok, (j << 1) | (d > 0), -1),
+                bool(brk.any()), int(over.any()), visits)
+
+    def breaks(i, c):
+        j = i - 1 - 32 * c - lanes
+        return bool(((j >= 0) & (q[i] - q[np.maximum(j, 0)] > max_dist)).any())
+
+    per = 2 if warps == 1 else warps  # chunks an iteration or a round
+    for i in range(1, n):
+        best = np.full((warps, 32), -np.inf, f32)
+        key = np.full((warps, 32), -1, np.int64)
+        nchunks = -(-i // 32)
+        for r in range(-(-nchunks // per)):
+            counts["rounds"] += 1
+            cs = list(range(r * per, min(r * per + per, nchunks)))
+            brk = [z for z, c in enumerate(cs) if breaks(i, c)]
+            for z, c in enumerate(cs[: brk[0] + 1] if brk else cs):  # none past a break
+                w = 0 if warps == 1 else z
+                sc, k, _, over, visits = chunk(i, c)
+                flag |= over
+                counts["visits"] += visits
+                take = sc > best[w]  # lane-local strict improvement, j descending
+                best[w], key[w] = np.where(take, sc, best[w]), np.where(take, k, key[w])
+            if brk:
                 break
-        for s in (16, 8, 4, 2, 1):
-            ob, oj, od = best[lanes ^ s], bj[lanes ^ s], bd[lanes ^ s]
-            take = (ob > best) | ((ob == best) & (oj > bj))
-            best, bj, bd = np.where(take, ob, best), np.where(take, oj, bj), np.where(take, od, bd)
-        found = bj[0] >= 0
-        ms[i] = best[0] if found else m0
-        prev[i] = bj[0] if found else i
-        dirs[i] = bd[0] if found else 0
-    return ms, prev, dirs, flag, visits, chunks
+        found = key >= 0
+        m0 = sw(l[i: i + 1])[0]
+        if found.any():
+            top = best[found].max()
+            k = key[found & (best == top)].max()
+            ms[i], prev[i], dirs[i] = top, k >> 1, 1 if k & 1 else -1
+        else:
+            ms[i], prev[i], dirs[i] = m0, i, 0
+    return ms, prev, dirs, flag, counts
 
 
 # ---------------------------------------------------------------------------
@@ -790,3 +818,95 @@ def wfa_tensors(pairs, device="cpu"):
     from lexicmap_tpu_torch.kernels.wfa import pack_pairs
 
     return [torch.from_numpy(a).to(device) for a in pack_pairs(pairs)]
+
+
+def wfa_span_replay(hist, lo, done_s, x=4, o=6, e=2):
+    """The WFA forward kernel's schedule replayed from the plain pass's
+    history (`kernels/wfa.py::_forward`): per pair, each score's span
+    [min(source tlo - dk), max(source thi + dk)] over the live spans of its
+    source rows s-x (dk 0), s-o-e and s-e (dk 1), as the kernel computes it
+    one warp a pair, 32 diagonals a pass.  Returns one dict a pair: `spans`
+    (the widths of the scores it computes, up to its end or the score
+    whose span overflows), `max_span` (that score's too), `cells` (their
+    sum: the native row widths), `passes`, `dead` (scores with no live
+    source), and `hist_cells`, the int16 history cells the kernel writes
+    (three a diagonal of each computed span, and the three of score 0)."""
+    from lexicmap_tpu_torch.kernels.wfa import BIG, NEG
+
+    h, lo = hist.numpy(), lo.numpy()
+    B, S = lo.shape
+    out = []
+    for b in range(B):
+        tlo = np.full(S, BIG, np.int64)
+        thi = np.full(S, -BIG, np.int64)
+        last = int(done_s[b]) if int(done_s[b]) >= 0 else S - 1
+        spans, dead, max_span = [], 0, 1
+        tlo[0] = thi[0] = 0
+        for s in range(1, last + 1):
+            kmin, kmax = BIG, -BIG
+            for src, dk in ((s - x, 0), (s - o - e, 1), (s - e, 1)):
+                if src >= 0 and tlo[src] <= thi[src]:
+                    kmin, kmax = min(kmin, tlo[src] - dk), max(kmax, thi[src] + dk)
+            if kmin > kmax:
+                dead += 1
+                continue
+            width = kmax - kmin + 1
+            max_span = max(max_span, width)
+            if lo[b, s] == BIG:  # the plain pass stopped here: the span overflowed
+                break
+            assert lo[b, s] == kmin
+            spans.append(width)
+            live = np.nonzero((h[b, s] > NEG).any(0))[0]
+            if live.size:
+                tlo[s], thi[s] = kmin + live[0], kmin + live[-1]
+        out.append({"spans": spans, "max_span": int(max_span), "cells": int(sum(spans)),
+                    "passes": sum(-(-w // 32) for w in spans), "dead": dead,
+                    "hist_cells": 3 * (1 + int(sum(spans)))})
+    return out
+
+
+#: pairs whose largest WFA span (wfa_span_replay's max_span under the
+#: default penalties) is exactly the key: ("mutated", seed, index) is the
+#: index-th mutate_pair of 200-1,200 bases at 5-25% substitutions and 0-6%
+#: indels drawn from default_rng(seed); ("divergent", seed, r) shares 150
+#: bases on each side of r unrelated ones
+WFA_SPAN_PAIRS = {32: ("mutated", 1021, 34), 33: ("divergent", 1, 11),
+                  128: ("mutated", 1017, 29), 129: ("divergent", 3, 50)}
+
+
+def wfa_span_pair(span):
+    """The pair of WFA_SPAN_PAIRS whose largest span is `span`."""
+    kind, seed, arg = WFA_SPAN_PAIRS[span]
+    rng = np.random.default_rng(seed)
+    if kind == "mutated":
+        for _ in range(arg + 1):
+            pair = mutate_pair(rng, int(rng.integers(200, 1200)), float(rng.uniform(0.05, 0.25)),
+                               float(rng.uniform(0.0, 0.06)))
+        return pair
+    p, s = rng.integers(0, 4, 150), rng.integers(0, 4, 150)
+    q = np.concatenate([p, rng.integers(0, 4, arg), s]).astype(np.uint8)
+    t = np.concatenate([p, rng.integers(0, 4, arg), s]).astype(np.uint8)
+    return q, t
+
+
+def wfa_edge_cases():
+    """WFA batches at the kernels' boundaries, as (name, pairs, S, W, CAP,
+    answered): largest spans of 32 and 33 diagonals (one pass or two) and
+    of W and W+1 (answered or flagged); a pair whose end is score S-1 and
+    the same with one score fewer; a pair of exactly CAP runs and the same
+    with one run fewer."""
+    from lexicmap_tpu_torch.kernels.wfa import _forward, wfa_plain
+
+    out = [(f"span {span}, W {W}", [wfa_span_pair(span)], S, W, S + 8, ok)
+           for span, W, S, ok in ((32, 32, 1024, True), (33, 32, 1024, False),
+                                  (33, 64, 1024, True), (128, 128, 2048, True),
+                                  (129, 128, 1024, False), (129, 160, 1024, True))]
+    pair = wfa_pairs()[12]  # 500 bases at 10% substitutions, 2% indels
+    args = wfa_tensors([pair])
+    d = int(_forward(*args, 1024, 128, 4, 6, 2, 10, 50)[2][0])
+    r = int(wfa_plain(*args, 1024, 128, 1032)[2][0])
+    out += [("end at score S-1", [pair], d + 1, 128, d + 9, True),
+            ("end needs score S", [pair], d, 128, d + 8, False),
+            ("CAP runs", [pair], 1024, 128, r, True),
+            ("CAP - 1 runs", [pair], 1024, 128, r - 1, False)]
+    return out
