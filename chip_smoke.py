@@ -44,6 +44,11 @@ Phases, each of which raises on a wrong result (nothing falls back):
      chained and of the WFA spans aligned on the card, both kernels equal
      to their plain versions on the main path's first launches; then
      single-query `search` with the device matcher, and the CLI both ways;
+     the same 200 genomes indexed again with `index --engine device` after
+     the host build (B10 once per genome; the trees byte-identical file by
+     file; genomes per minute of both), and `genome search --engine
+     device` vs `--engine host` for two 1%-mutated indexed genomes against
+     the device-built index (rows equal, the source genome first);
   7. (run before 6) chain1 (B9) and the WFA (B8) vs their plain versions
      and the native DP / WFA, exact: 4,096 anchor sets of 2-700 anchors,
      16 dense ones of 1,500 and 4 of 20,000; 4,096 pairs of 1.5 kb at 2-8%
@@ -53,7 +58,14 @@ Phases, each of which raises on a wrong result (nothing falls back):
      the run's data; B9 under other block-path thresholds; with
      --compare-source, an earlier tree's chain1 and WFA kernels in turns
      with this tree's, here and at the main path's first launches of
-     phase 6.
+     phase 6;
+  8. (run before 6) the LexicHash capture (B10) at the index default of
+     20,000 masks on genomes of 4.19, 6, 12 and 20 Mb (MAX_GENOME_SIZE;
+     one with a copied block and a mask's k-mer 12,000 times in tandem,
+     one of contigs with excluded intervals) and one shorter than k: the
+     kernel == its plain version == native capture_native, exactly; times
+     as called, on the device, plain, native and through the engine, and
+     the bound from each genome's bytes and operations.
 Then one `kernels` JSON line, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.  Exits non-zero without a result
 when there is no CUDA device or the package is not beside this script.
@@ -347,6 +359,28 @@ def same_stage_outputs(a, b) -> bool:
     from lexicmap_tpu_torch.kernels.wfa import decode_ops
 
     return decode_ops(*(x.cpu().numpy() for x in a)) == decode_ops(*(x.cpu().numpy() for x in b))
+
+
+def int_err(got, want) -> float:
+    """The largest |a - b| over pairs of integer tensors or numpy arrays
+    (uint64 read as its int64 bits, so two unequal words never differ by 0);
+    inf where a pair's shapes differ."""
+    import numpy as np
+    import torch
+
+    err = 0
+    for a, b in zip(got, want):
+        if isinstance(a, np.ndarray):
+            a, b = (torch.from_numpy(np.ascontiguousarray(x).view(np.int64)
+                                     if x.dtype == np.uint64 else x.astype(np.int64))
+                    for x in (a, b))
+        if a.shape != b.shape:
+            return float("inf")
+        if a.numel():
+            d = (a.long() - b.long()).abs()
+            d.masked_fill_(d < 0, torch.iinfo(torch.int64).max)  # |INT64_MIN| wraps
+            err = max(err, int(d.max()))
+    return err
 
 
 def stage_in_turns(dev, parent_fn, new_fn, names, reps):
@@ -1587,6 +1621,136 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
 # phase 6: end to end
 
 
+# --------------------------------------------------------------------------
+# phase 8: the LexicHash capture (B10) vs its plain version and native
+
+CAPTURE_OPS_PER_STRAND = 9  # rolling k-mer update, bucket lookup, xor, min, winner test
+CAPTURE_KERNELS = ("capture_min", "capture_count", "capture_scatter", "capture_finish")
+
+
+def capture_genomes(seed, sizes, masks, k, interval=1000, copies=(50, 12_000)):
+    """The phase's genomes, as (what, codes, exclude): random genomes of
+    `sizes` bases; the second has a 5 kb block copied copies[0] times and a
+    mask's k-mer as a tandem repeat copies[1] times (that mask wins at
+    every copy: past the kernel's SORT_CAP, so its slice is merged), the
+    third is contigs of L/120-L/12 bases (100 kb-1 Mb at 12 Mb) joined by
+    `interval` A's whose k-mers are excluded, as the index build excludes
+    them; then one genome shorter than k."""
+    import numpy as np
+
+    from lexicmap_tpu_torch.ops.masking import skip_mask_from_regions
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, L in enumerate(sizes):
+        codes = rng.integers(0, 4, size=L, dtype=np.uint8)
+        exclude, what = None, "random"
+        if i == 1:
+            block = codes[:5_000].copy()
+            for c in range(copies[0]):
+                codes[10_000 + c * 7_000: 15_000 + c * 7_000] = block
+            unit = np.array([(int(masks[123]) >> (2 * (k - 1 - t))) & 3 for t in range(k)],
+                            dtype=np.uint8)
+            at = 10_000 + copies[0] * 7_000
+            codes[at: at + copies[1] * k] = np.tile(unit, copies[1])
+            what = f"a 5 kb block x {copies[0]}, mask 123's k-mer x {copies[1]} in tandem"
+        elif i == 2:
+            regions, n = [], int(rng.integers(L // 120, L // 12))
+            while n + interval < L:
+                regions.append((n, n + interval - 1))
+                codes[n: n + interval] = 0
+                n += interval + int(rng.integers(L // 120, L // 12))
+            exclude = skip_mask_from_regions(L, k, regions)
+            what = f"{len(regions) + 1} contigs, {len(regions)} excluded intervals"
+        out.append((what, codes, exclude))
+    out.append(("shorter than k", out[0][1][: k - 1].copy(), None))
+    return out
+
+
+def phase_capture(dev, card, seed, reps, sizes=(4 << 20, 6_000_000, 12_000_000, 20_000_000),
+                  m=20_000, copies=(50, 12_000)):
+    """B10 at the index default (20,000 masks, p = 8) on genomes up to
+    MAX_GENOME_SIZE: the kernel == its plain version (on the card) == native
+    capture_native, exactly; times as called, on the device (its four
+    kernels' profiler rows), plain, native, through DeviceCaptureEngine as
+    the build calls it (upload and fetch included), and the bound from each
+    genome's bytes and operations.  sizes, m and copies cut it for a
+    rehearsal on the CPU."""
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch.kernels import capture as CK
+    from lexicmap_tpu_torch.masks import MaskSet
+    from lexicmap_tpu_torch.native import capture_native_call
+    from lexicmap_tpu_torch.parallel.build_device import DeviceCaptureEngine
+    from lexicmap_tpu_torch.utils.kmers import kmers_fwd_rc
+
+    saved = CK.capture.launches
+    t0 = time.perf_counter()
+    ms = MaskSet.generate(31, m, 1)
+    eng = DeviceCaptureEngine(ms, device=dev)
+    k, p = eng.k, eng.p
+    cases = capture_genomes(seed, sizes, ms.masks, k, copies=copies)
+    log(f"[capture] {m} masks (p = {p}, table of {eng.table.numel()} entries), "
+        f"{len(cases)} genomes made in {time.perf_counter() - t0:.1f} s")
+    rows = []
+    for what, codes, exclude in cases:
+        L = codes.shape[0]
+        if L < k:
+            if eng.capture(codes, exclude) is not None:
+                raise AssertionError("a genome shorter than k must give None")
+            continue
+        c = torch.from_numpy(codes).to(dev)
+        e = None if exclude is None else torch.from_numpy(exclude).to(dev)
+        args = (c, e, eng.table, eng.masks, k, p)
+        got = CK.capture(*args)
+        sync(dev)
+        t1 = time.perf_counter()
+        want = CK.capture_plain(*args)
+        sync(dev)
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        err = int_err(got, want)
+        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"capture kernel != plain on the {L}-base genome ({what}, "
+                                 f"max abs err {err})")
+        t1 = time.perf_counter()
+        fwd, rc = kmers_fwd_rc(codes, k)
+        nat = capture_native_call(fwd, rc, exclude, ms.masks, k, p, False)
+        native_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        eng_out = eng.capture(codes, exclude)
+        engine_ms = (time.perf_counter() - t1) * 1e3
+        for a, b, name in zip(eng_out, nat, ("kmers", "counts", "pos_flat")):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"capture != native {name} on the {L}-base genome ({what})")
+        err = max(err, int_err(eng_out, nat))
+        counts = eng_out[1]
+        total = int(counts.sum())
+        nk = L - k + 1
+        valid = nk - (int(exclude.sum()) if exclude is not None else 0)
+        n_bytes = (L + (nk if exclude is not None else 0) + eng.table.numel() * 4 + 8 * m
+                   + 16 * m + 4 * total)
+        b = (n_bytes / HBM_BYTES_PER_S * 1e3,
+             2 * valid * CAPTURE_OPS_PER_STRAND / FP32_OPS_PER_S * 1e3)
+        by = device_ms_split(lambda: CK.capture(*args), CAPTURE_KERNELS, reps)
+        r = {"bases": L, "what": what, "masks": m, "p": p, "winners": total,
+             "max_count": int(counts.max()),
+             "captured_masks": int((counts > 0).sum()),
+             "ms": time_ms(lambda: CK.capture(*args), dev, reps),
+             "device_ms": None if None in by.values() else sum(by.values()), "device_ms_by": by,
+             "plain_ms": plain_ms, "native_ms": native_ms, "engine_ms": engine_ms,
+             "bound_ms": max(b), "bound_by": "bytes" if b[0] >= b[1] else "operations",
+             "bytes": n_bytes, "operations": 2 * valid * CAPTURE_OPS_PER_STRAND,
+             "max_abs_err": err}
+        rows.append(r)
+        log(f"[capture] {json.dumps(r)}: kernel == plain == native [{card}]")
+        del got, want, c, e
+    CK.capture.launches = saved  # comparisons do not count
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
 def write_genomes(root, n_genomes, n_queries, seed, n_many=32, many_in=16):
     """The 200-genome set of scripts/scale_smoke_gen.py (400-700 kb random
     genomes), with `n_queries` 1.5 kb queries carrying 3% point mutations,
@@ -1632,11 +1796,12 @@ def write_genomes(root, n_genomes, n_queries, seed, n_many=32, many_in=16):
 
 
 def kernel_fns():
-    from lexicmap_tpu_torch.kernels import chain1, pseudo_align, seed_locate, seed_match, wfa
+    from lexicmap_tpu_torch.kernels import (
+        capture, chain1, pseudo_align, seed_locate, seed_match, wfa)
 
     return (seed_locate.seed_locate_batch, seed_locate.seed_locate, seed_match.seed_match,
             pseudo_align.pseudo_probe, pseudo_align.pseudo_chain, chain1.chain1_forward,
-            wfa.wfa_batch)
+            wfa.wfa_batch, capture.capture)
 
 
 def reset_launches():
@@ -1646,6 +1811,184 @@ def reset_launches():
 
 def launch_counts():
     return {fn.__name__: fn.launches for fn in kernel_fns()}
+
+
+def tree_bytes(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def device_build(dev, card, tmp, host_db, n_genomes, host_build_s, n_check=2):
+    """The same index again with `index --engine device`, after the host
+    build: the trees byte-identical file by file, B10 launched once per
+    genome and its first `n_check` launches equal to its plain version on
+    the same device tensors; genomes per minute of both, and the device
+    build's seconds in seeding (seed_genome) and in the capture
+    (DeviceCaptureEngine.capture: upload, kernels, fetch)."""
+    import torch
+
+    from lexicmap_tpu_torch import cli
+    from lexicmap_tpu_torch.index import build as B
+    from lexicmap_tpu_torch.kernels import capture as CK
+    from lexicmap_tpu_torch.parallel import build_device as BD
+    from lexicmap_tpu_torch.parallel.build_device import DeviceCaptureEngine
+
+    db = os.path.join(tmp, "idx_device.lmt")
+    spent = {"seed_genome": 0.0, "capture": 0.0}
+    real_seed, real_capture = B.seed_genome, DeviceCaptureEngine.capture
+    real_kernel, recorded = BD.capture, []
+
+    def recording_kernel(*a):
+        out = real_kernel(*a)
+        if len(recorded) < n_check:  # the main path's inputs and outputs, kept
+            recorded.append((a, tuple(x.clone() for x in out)))
+        return out
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    B.seed_genome = timed("seed_genome", real_seed)
+    DeviceCaptureEngine.capture = timed("capture", real_capture)
+    BD.capture = recording_kernel
+    CK.capture.launches = 0  # the device build's run starts here
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["index", "--quiet", "-I", os.path.join(tmp, "genomes"), "-O", db, "-b",
+                       "25", "--engine", "device", "--device", str(dev)])
+        dev_build_s = time.perf_counter() - t0
+    finally:
+        B.seed_genome, DeviceCaptureEngine.capture = real_seed, real_capture
+        BD.capture = real_kernel
+    launches = CK.capture.launches  # ... and ends here
+    if rc != 0:
+        raise AssertionError(f"index --engine device failed with {rc}")
+    if len(recorded) != n_check:
+        raise AssertionError(f"recorded {len(recorded)} capture launches, expected {n_check}")
+    main_err, main_shapes = 0, []
+    for a, got in recorded:  # the kernel vs its plain version on the main path's inputs
+        want = CK.capture_plain(*a)
+        err = int_err(got, want)
+        if err or not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"main path: capture kernel != plain on a {a[0].shape[0]}-base "
+                                 f"genome (max abs err {err})")
+        main_err = max(main_err, err)
+        main_shapes.append({"bases": int(a[0].shape[0]), "masks": int(a[3].shape[0]),
+                            "p": a[5], "winners": int(got[2].shape[0])})
+    del recorded
+    log(f"[e2e] main path, first {n_check} capture launches: kernel == plain on "
+        f"{json.dumps(main_shapes)}")
+    host_tree, dev_tree = tree_bytes(host_db), tree_bytes(db)
+    if sorted(host_tree) != sorted(dev_tree):
+        raise AssertionError("the device-built index has other files than the host-built one")
+    bad = [name for name in host_tree if host_tree[name] != dev_tree[name]]
+    if bad:
+        raise AssertionError(f"device-built index differs from the host-built one in {bad[:5]}")
+    if dev.type == "cuda" and launches != n_genomes:
+        raise AssertionError(f"the device build launched capture {launches} times, expected "
+                             f"{n_genomes} (one per genome)")
+    res = {"db": db, "capture_launches": launches, "files": len(host_tree),
+           "host_s": host_build_s, "device_s": dev_build_s,
+           "host_genomes_per_min": n_genomes / host_build_s * 60,
+           "device_genomes_per_min": n_genomes / dev_build_s * 60,
+           "device_seed_genome_s": spent["seed_genome"], "device_capture_s": spent["capture"],
+           "capture_share": spent["capture"] / dev_build_s,
+           "main_path_err": main_err, "main_path_shape": main_shapes}
+    log(f"[e2e] index --engine device: the same {len(host_tree)} files byte for byte; "
+        f"{json.dumps({k: v for k, v in res.items() if k != 'db'})} [{card}]")
+    return res
+
+
+def genome_search(dev, card, tmp, db, genome_files, seed, n_check=4):
+    """`genome search --engine device` and `--engine host` through the CLI
+    for two query genomes, 1% mutated copies of two indexed genomes: the
+    same rows, each query's source genome ranked first, and the screening's
+    first `n_check` seed_locate_batch launches equal to the kernel's plain
+    version on the same device tensors."""
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch import cli
+    from lexicmap_tpu_torch.kernels import seed_locate as SL
+    from lexicmap_tpu_torch.parallel import device_search as DS
+
+    real_kernel, recorded = DS.seed_locate_batch, []
+
+    def recording_kernel(*a):
+        out = real_kernel(*a)
+        if len(recorded) < n_check:  # the main path's inputs and outputs, kept
+            recorded.append((a, tuple(x.clone() for x in out)))
+        return out
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    queries = []
+    for path in genome_files:
+        with open(path, "rb") as fh:
+            seq = np.frombuffer(b"".join(fh.read().split(b"\n")[1:]), dtype=np.uint8).copy()
+        at = rng.choice(seq.shape[0], seq.shape[0] // 100, replace=False)
+        seq[at] = acgt[(np.searchsorted(acgt, seq[at]) + rng.integers(1, 4, at.shape[0])) % 4]
+        q = os.path.join(tmp, "q_" + os.path.basename(path))
+        with open(q, "wb") as fh:
+            fh.write(b">c0\n" + seq.tobytes() + b"\n")
+        queries.append(q)
+    out, secs = {}, {}
+    for engine in ("device", "host"):
+        o = os.path.join(tmp, f"genome_{engine}.tsv")
+        SL.seed_locate_batch.launches = 0
+        DS.seed_locate_batch = recording_kernel
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["--quiet", "genome", "search", "-d", db, *queries, "-o", o,
+                           "--engine", engine, "--device", str(dev)])
+        finally:
+            DS.seed_locate_batch = real_kernel
+        secs[engine] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"genome search --engine {engine} failed with {rc}")
+        if engine == "device":
+            launched = SL.seed_locate_batch.launches
+        with open(o) as fh:
+            out[engine] = fh.read().splitlines()
+    if out["device"] != out["host"]:
+        raise AssertionError("genome search --engine device rows differ from --engine host's")
+    for q, path in zip(queries, genome_files):
+        want = os.path.splitext(os.path.basename(path))[0]
+        rows = [r.split("\t") for r in out["device"][1:]
+                if r.startswith(os.path.splitext(os.path.basename(q))[0] + "\t")]
+        if not rows or rows[0][1] != want:
+            raise AssertionError(f"{os.path.basename(q)} does not rank {want} first: {rows[:2]}")
+    if dev.type == "cuda" and not launched:
+        raise AssertionError("genome search --engine device launched no seed_locate_batch")
+    if not recorded:
+        raise AssertionError("genome search --engine device screened no window on the matcher")
+    main_err, main_shapes = 0, []
+    for a, got in recorded:  # the kernel vs its plain version on the main path's inputs
+        want = SL.seed_locate_batch_plain(*a)
+        err = int_err(got, want)
+        if err or not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"genome search: seed_locate_batch != plain on Mb={a[0].shape[0]}"
+                                 f", B={a[2].shape[0]} (max abs err {err})")
+        main_err = max(main_err, err)
+        main_shapes.append({"Mb": int(a[0].shape[0]), "E": int(a[0].shape[1]),
+                            "B": int(a[2].shape[0]), "p": a[4]})
+    del recorded
+    res = {"queries": len(queries), "rows": len(out["device"]) - 1, "seconds": secs,
+           "seed_locate_batch_launches": launched, "main_path_err": main_err,
+           "main_path_shape": main_shapes}
+    log(f"[e2e] genome search --engine device: rows == --engine host's, each query's source "
+        f"genome first; {json.dumps(res)} [{card}]")
+    return res
 
 
 def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=None,
@@ -1668,7 +2011,9 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
     rc = cli.main(["index", "--quiet", "-I", os.path.join(tmp, "genomes"), "-O", db, "-b", "25"])
     if rc != 0:
         raise AssertionError(f"index build failed with {rc}")
-    log(f"[e2e] index built with the port's `index` in {time.perf_counter() - t0:.1f} s")
+    host_build_s = time.perf_counter() - t0
+    log(f"[e2e] index built with the port's `index` in {host_build_s:.1f} s")
+    build = device_build(dev, card, tmp, db, n_genomes, host_build_s)
 
     seqs = [s for _, s in qrecs]
     ids = [qid for qid, _ in qrecs]
@@ -1950,6 +2295,11 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         f"{up_share:.4f} of {up.pseudo.stats['windows']} windows on the card, one pass "
         f"{up_s:.3f} s [{card}]")
 
+    # genome search against the device-built index
+    gres = genome_search(dev, card, tmp, build["db"],
+                         [os.path.join(tmp, "genomes", f"g{gi:03d}.fasta")
+                          for gi in (0, n_genomes // 2)], seed + 11)
+
     # the kernel vs its plain version at the shapes the main path gives it
     batch = np.stack([dev_idx._mask_query(seq_to_codes(s.upper()))[0] for s in seqs[:32]])
     shapes = check_main_path_shapes(dev, card, dev_idx, batch, parent)
@@ -2004,7 +2354,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             "many_hit": {"rows": mrows, "windows": mwin, "seconds": many_s},
             "stage_qpm": stage_qpm, "stage_times": stage_times, "chain_share": chain_share,
             "wfa_share": wfa_share, "chainer_stats": cstats, "wfa_stats": wstats,
-            "stage_main_shapes": main_shape}
+            "stage_main_shapes": main_shape, "build": build, "genome_search": gres}
 
 
 def check_main_path_shapes(dev, card, idx, kmers, parent=None):
@@ -2036,10 +2386,12 @@ def check_main_path_shapes(dev, card, idx, kmers, parent=None):
         nh, e0 = seed_locate_batch(*a)
         pn, pe = seed_locate_batch_plain(*a)
         sn, se = seed_locate(*one)
-        if not (torch.equal(nh, pn) and torch.equal(e0, pe) and torch.equal(sn, pn[0])
-                and torch.equal(se, pe[0])):
+        err = max(int_err((nh, e0), (pn, pe)), int_err((sn, se), (pn[0], pe[0])))
+        if err or not (torch.equal(nh, pn) and torch.equal(e0, pe) and torch.equal(sn, pn[0])
+                       and torch.equal(se, pe[0])):
             raise AssertionError(f"kernel != plain on the main-path bucket E={bk.E}")
         r = {"Mb": int(bk.hi.shape[0]), "E": bk.E, "B": int(kmers.shape[0]), "equal": True,
+             "max_abs_err": err,
              "ms": time_ms(lambda: seed_locate_batch(*a), dev, 20),
              "device_ms": device_ms(lambda: seed_locate_batch(*a), "locate_batch")[0],
              "plain_ms": time_ms(lambda: seed_locate_batch_plain(*a), dev, 3),
@@ -2061,6 +2413,24 @@ def check_main_path_shapes(dev, card, idx, kmers, parent=None):
 
 
 # --------------------------------------------------------------------------
+
+
+def capture_row(rows, build):
+    """The kernels line's B10 row: the largest genome's numbers (every
+    genome's under "genomes"), launches from the main path's device build,
+    the error over phase 8 and the build's first launches against the plain
+    version."""
+    big = max(rows, key=lambda r: r["bases"])
+    err = max([r["max_abs_err"] for r in rows] + [build["main_path_err"]])
+    return {"name": "capture", "route": "cuda", "source": "lexicmap_tpu_torch/csrc/capture.cu",
+            "replaces": "lexicmap_tpu/parallel/build_device.py:57",
+            "launches": build["capture_launches"], "equal": err == 0,
+            "max_abs_err": err, "main_path_err": build["main_path_err"],
+            "main_path_shape": build["main_path_shape"], "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": None, "library": "none: no PyTorch call computes a LexicHash capture",
+            "device_ms": big["device_ms"], "device_ms_by": big["device_ms_by"],
+            "shape": {k: big[k] for k in ("bases", "masks", "p")}, "genomes": rows}
 
 
 def main() -> int:
@@ -2098,7 +2468,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     started = parent_build(args.compare_source)
-    libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa"])
+    libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa", "capture"])
     parents = parent_load(started)  # {source name: the earlier tree's library}
     parent = parents.get("seed_locate")
     log(f"[build] {len(libs) + len(parents)} kernel sources built with nvcc in parallel in "
@@ -2121,6 +2491,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cres7, wres7 = phase_chain_wfa(dev, card, seed=args.seed + 9, reps=10, parents=parents)
     torch.cuda.empty_cache()
+    capres = phase_capture(dev, card, seed=args.seed + 13, reps=5)
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
                                 args.rounds, parent, parents)
@@ -2164,11 +2535,17 @@ def main() -> int:
                 "io_bytes", "parent")
         return {**{k: res[k] for k in keys if k in res}, "edge_shapes": edges, **more}
 
+    gs = eres["genome_search"]
+    main_locate_err = max([gs["main_path_err"]] + [r["max_abs_err"] for r in eres["shapes"]])
+    kres_all = {**kres, "max_abs_err": max(kres["max_abs_err"], main_locate_err)}
+    kres_all["equal"] = kres["equal"] and kres_all["max_abs_err"] == 0
     kernels = [
         seed_row("seed_locate_batch", "seed_locate.cu",
-                 "lexicmap_tpu/parallel/pallas_kernels.py:119", kres,
+                 "lexicmap_tpu/parallel/pallas_kernels.py:119", kres_all,
                  eres["launches"]["seed_locate_batch"],
-                 locate_extra(kres, main_path_shapes=eres["shapes"])),
+                 locate_extra(kres, main_path_shapes=eres["shapes"],
+                              main_path_err=main_locate_err,
+                              main_path_shape=gs["main_path_shape"])),
         seed_row("seed_locate", "seed_locate.cu", "lexicmap_tpu/parallel/pallas_kernels.py:79",
                  sres, eres["single_launches"], locate_extra(sres)),
         seed_row("seed_match", "seed_match.cu", "lexicmap_tpu/parallel/pallas_kernels.py:205",
@@ -2181,18 +2558,24 @@ def main() -> int:
         stage_row("wfa", "wfa.cu", "lexicmap_tpu/parallel/wfa_device.py:49", wres7,
                   {"pairs": wres7["pairs"], "bucket": wres7["bucket"], "cells": wres7["cells"],
                    "answered": wres7["answered"]}, eres["wfa_share"]),
+        capture_row(capres, eres["build"]),
     ]
     log(f"[summary] matcher {json.dumps(mres)}")
     log(f"[summary] phase4 {json.dumps(p4)}")
     log(f"[summary] phase7 chain1 {json.dumps(cres7)}")
     log(f"[summary] phase7 wfa {json.dumps(wres7)}")
+    log(f"[summary] capture {json.dumps(capres)}")
+    log(f"[summary] index build {json.dumps({k: v for k, v in eres['build'].items() if k != 'db'})}"
+        f"; genome search {json.dumps(eres['genome_search'])}")
     log(f"[summary] e2e q/min device {eres['dev_qpm']} device with chain1 + wfa "
         f"{eres['stage_qpm']} host {eres['host_qpm']}; many-hit "
         f"{json.dumps(eres['many_hit'])}; total {time.perf_counter() - t_all:.1f} s")
     on_path = ("seed_locate_batch", "pseudo_probe", "pseudo_chain", "chain1_forward",
                "wfa_batch")
-    if not all(eres["launches"][n] for n in on_path) or not eres["single_launches"]:
-        raise AssertionError(f"a kernel of the path was not launched: {eres['launches']}")
+    if (not all(eres["launches"][n] for n in on_path) or not eres["single_launches"]
+            or not eres["build"]["capture_launches"]):
+        raise AssertionError(f"a kernel of the path was not launched: {eres['launches']}, "
+                             f"capture {eres['build']['capture_launches']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

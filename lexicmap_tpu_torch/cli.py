@@ -1,7 +1,12 @@
-"""Command-line interface of the port: `index` and `search`.
+"""Command-line interface of the port: `index`, `search` and `genome
+search / pair / compare`.
 
     python -m lexicmap_tpu_torch.cli index -O db.lmt genomes/*.fa.gz
     python -m lexicmap_tpu_torch.cli search -d db.lmt q.fasta -o out.tsv
+    python -m lexicmap_tpu_torch.cli genome search -d db.lmt g.fasta --engine device
+
+`index --engine device` captures each genome's seeds on the GPU through
+the CUDA capture kernels (`--device cpu`: their plain PyTorch twin).
 
 `search --engine device` (the default) matches seeds (phase 2a) and
 pseudo-aligns candidate windows (phase 4) on the GPU through the CUDA
@@ -21,6 +26,7 @@ import gzip
 import sys
 import time
 
+from .cli_utils import no_cuda
 from .constants import IndexDefaults, SearchDefaults
 
 
@@ -72,13 +78,13 @@ def cmd_index(args) -> int:
         verbose=not args.quiet,
         threads=args.threads,
         engine=args.engine,
+        device=args.device,
     )
-    t0 = time.time()
-    try:
-        info = build_index(args.out_dir, files, opt)
-    except NotImplementedError as e:
-        print(f"error: {e}", file=sys.stderr)
+    if (args.engine == "device" and args.device == "cuda"
+            and no_cuda("run the device capture on the CPU, or --engine host")):
         return 1
+    t0 = time.time()
+    info = build_index(args.out_dir, files, opt)
     if not args.quiet:
         print(
             f"indexed {info.genomes} genomes ({info.input_bases} bases) "
@@ -163,12 +169,8 @@ def cmd_search(args) -> int:
 
         args.engine = "device" if torch.cuda.is_available() else "host"
     if "device" in (args.engine, args.chain, args.wfa):
-        import torch
-
-        if args.device == "cuda" and not torch.cuda.is_available():
-            print("error: no CUDA device is available; pass --device cpu to run "
-                  "the device stages on the CPU, or --engine host (and --chain / --wfa "
-                  "host)", file=sys.stderr)
+        if args.device == "cuda" and no_cuda("run the device stages on the CPU, or "
+                                              "--engine host (and --chain / --wfa host)"):
             return 1
         if args.max_query_conc > 1:
             # the -J pool forks, and CUDA does not survive a fork after init
@@ -395,8 +397,13 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--force", action="store_true")
     pi.add_argument(
         "--engine", choices=["host", "device"], default="host",
-        help="capture engine: host trie co-descent (device capture is not "
-        "ported to the GPU yet)",
+        help="capture engine: host trie co-descent or device capture on the GPU "
+        "(bit-exact)",
+    )
+    pi.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="where the device capture runs: the GPU (default) or the CPU (the "
+        "kernels' plain PyTorch twin)",
     )
     pi.set_defaults(func=cmd_index)
 
@@ -469,6 +476,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="keep genomes lacking a taxid in the genome2taxid file",
     )
     ps.set_defaults(func=cmd_search)
+
+    from .cli_genome import register_genome
+
+    register_genome(sub)
     return p
 
 
@@ -494,7 +505,7 @@ class _TeeStream:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    args.quiet = args.quiet or args.root_quiet
+    args.quiet = getattr(args, "quiet", False) or args.root_quiet  # `genome` has no --quiet
     if not args.log:
         return args.func(args)
     saved = sys.stderr

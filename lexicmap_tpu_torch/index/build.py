@@ -97,9 +97,12 @@ class BuildOptions:
     verbose: bool = False
     threads: int = 0  # 0 -> all CPUs
     # capture engine: "host" = native C++ trie co-descent; "device" = the
-    # TPU sort-join capture (parallel/build_device.py), bit-exact, run
+    # CUDA capture kernels (parallel/build_device.py), bit-exact, run
     # in-process (no fork workers: the device serializes capture anyway)
     engine: str = "host"
+    # where the device capture runs: "cuda" (the default; raises without a
+    # CUDA device) or "cpu" (the kernels' plain PyTorch twin)
+    device: str = "cuda"
 
     @property
     def desert_seed_pos_range(self) -> int:
@@ -246,11 +249,14 @@ def seed_genome(
     if regions:
         exclude = skip_mask_from_regions(scodes.shape[0], k, regions)
     native = None
+    # a mask set beyond the kernels' key width, or a genome shorter than k
+    # (capture returns None), takes the host capture; any other error of
+    # the device capture propagates
     if opt.engine == "device":
-        try:
-            native = _device_capture(mask_set).capture(scodes, exclude)
-        except ValueError:
-            native = None  # mask set unsupported on device -> host capture
+        from ..parallel.build_device import DeviceCaptureEngine
+
+        if DeviceCaptureEngine.supported(mask_set):
+            native = _device_capture(mask_set, opt.device).capture(scodes, exclude)
     if native is None:
         native = capture_native_call(
             fwd, rc, exclude, mask_set.masks, k, mask_set.distinct_prefix_len, False
@@ -686,12 +692,20 @@ def _seed_positions_with_flags(
     return out.astype(np.uint32)
 
 
-def _device_capture(mask_set):
-    """Device capture (build --engine device) is not ported to the GPU yet."""
-    raise NotImplementedError(
-        "index --engine device: the device capture engine is not ported to "
-        "the GPU yet (see ROADMAP.md, queue A); build with --engine host"
-    )
+# lazy per-mask-set device capture engine (build --engine device)
+_DEVICE_CAPTURE = None
+
+
+def _device_capture(mask_set, device):
+    global _DEVICE_CAPTURE
+    from ..parallel import resolve_device
+    from ..parallel.build_device import DeviceCaptureEngine
+
+    dev = resolve_device(device)
+    if (_DEVICE_CAPTURE is None or _DEVICE_CAPTURE.ms is not mask_set
+            or _DEVICE_CAPTURE.device != dev):
+        _DEVICE_CAPTURE = DeviceCaptureEngine(mask_set, device=dev)
+    return _DEVICE_CAPTURE
 
 
 # worker-pool state inherited across fork() for parallel genome seeding
@@ -716,7 +730,7 @@ def _iter_seeded_genomes(mask_set, batch, files, opt, skipped):
     ref: lib-index-build.go:929-1491)."""
     n_workers = min(os.cpu_count() or 1, opt.threads if opt.threads > 0 else 64)
     if opt.engine == "device":
-        n_workers = 1  # device capture runs in-process (JAX cannot fork)
+        n_workers = 1  # device capture runs in-process (a forked worker cannot use CUDA)
     items = [(path, batch * opt.batch_size + fi) for fi, path in enumerate(files)]
     if n_workers <= 1 or len(files) <= 1:
         for path, file_idx in items:
@@ -801,6 +815,10 @@ def _build_one_batch(
 
 
 def build_index(outdir: str, infiles: list[str], opt: BuildOptions) -> IndexInfo:
+    if opt.engine == "device":
+        from ..parallel import resolve_device
+
+        resolve_device(opt.device)  # no CUDA device for device="cuda": raise before any work
     if os.path.exists(outdir):
         if opt.force:
             shutil.rmtree(outdir)

@@ -7,7 +7,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from torch_parity import mutated_queries, write_genomes
+from torch_parity import mutated_queries, tree_bytes, write_genomes
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 from lexicmap_tpu import cli as jcli
@@ -27,6 +27,11 @@ ARGV = [
     ["search", "--engine", "auto", "-d", "db", "q.fa"],
     ["search", "--engine", "device", "--chain", "device", "--wfa", "device", "-d", "db", "q.fa"],
     ["search", "-a", "--engine", "host", "--wfa", "device", "--debug", "-d", "db", "q.fa"],
+    ["index", "--engine", "device", "-O", "o.lmt", "g.fa"],
+    ["genome", "search", "-d", "db", "g.fa"],
+    ["genome", "search", "--engine", "device", "-d", "db", "-o", "o.tsv", "g.fa"],
+    ["genome", "pair", "-d", "db", "-m", "256", "-f", "0.1"],
+    ["genome", "compare", "a.fa", "b.fa", "-o", "o.tsv"],
 ]
 
 
@@ -36,7 +41,8 @@ def test_argv_parses_under_both_parsers(argv):
     t = tcli.build_parser().parse_args(argv)
     assert t.cmd == j.cmd
     # the default engine differs on purpose (the port's is device)
-    keys = ("wfa", "chain", "log", "max_open_files") + (("engine",) if "--engine" in argv else ())
+    keys = ("wfa", "chain", "log", "max_open_files", "genome_cmd", "masks", "min_mask_fraction",
+            "out_file", "files") + (("engine",) if "--engine" in argv else ())
     for key in keys:
         if hasattr(j, key):
             assert getattr(t, key) == getattr(j, key), key
@@ -160,3 +166,44 @@ def test_host_engine_device_stage_warns(db, tmp_path, capsys, monkeypatch, argv,
     assert built == [None]
     assert (warned in err) if warned else ("warning" not in err)
     assert got == run(db, tmp_path, "host", ["--engine", "host", *extra], root=["--quiet"])
+
+
+def test_index_engine_device_on_cpu_equals_host(db, tmp_path):
+    """`index --engine device --device cpu` (the capture kernels' plain
+    twin) writes the host engine's tree, byte for byte."""
+    trees = []
+    for engine in ("device", "host"):
+        out = tmp_path / f"{engine}.lmt"
+        argv = ["--quiet", "index", "-O", str(out), "-m", "256", "-c", "2", "--engine", engine,
+                *(["--device", "cpu"] if engine == "device" else []), *db[2]]
+        assert tcli.main(argv) == 0
+        trees.append(tree_bytes(str(out)))
+    assert trees[0] == trees[1] and len(trees[0]) > 5
+
+
+def test_genome_search_engine_device_on_cpu_equals_host(db, tmp_path):
+    """`genome search --engine device --device cpu` (screening through the
+    device matcher's plain twin) writes the host engine's rows."""
+    got = []
+    for engine in ("device", "host"):
+        o = tmp_path / f"g_{engine}.tsv"
+        assert tcli.main(["--quiet", "genome", "search", "-d", db[0], "-o", str(o), "--engine",
+                          engine, "--device", "cpu", *db[2][:2]]) == 0
+        got.append(o.read_text())
+    assert got[0] == got[1]
+    rows = got[0].splitlines()[1:]
+    assert [r.split("\t")[:2] for r in rows[:1]] == [["D0", "D0"]]
+
+
+def test_genome_search_engine_device_refused_without_cuda(db, tmp_path, monkeypatch, capsys):
+    """`genome search --engine device` on the card is refused without a
+    CUDA device (the same refusal as `index` and `search`), and runs on the
+    CPU only when `--device cpu` asks for it."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    o = tmp_path / "g.tsv"
+    assert tcli.main(["--quiet", "genome", "search", "-d", db[0], "-o", str(o), "--engine",
+                      "device", db[2][0]]) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--device cpu" in err and not o.exists()

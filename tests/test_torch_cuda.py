@@ -10,6 +10,7 @@ from chip_smoke import native_rows, same_prefix
 from torch_parity import (
     CHAIN1_PARAMS,
     CHAIN_PARAMS,
+    capture_cases,
     chain1_csr,
     chain1_sets,
     chain_stress_windows,
@@ -414,3 +415,90 @@ def test_cuda_search_many_device_stages_equal_host(cuda_device, tmp_path):
     assert WK.wfa_batch.launches > before[1]
     assert dev.device_chainer.stats["host_genomes"] == 0
     assert dev.device_wfa.stats["device_pairs"] == dev.device_wfa.stats["pairs"] > 0
+
+
+def _capture_on_card(dev, masks, k, codes, exclude):
+    """B10 on the card and its plain version there, from the engine's
+    tables; returns (kernel outputs, plain outputs) as numpy."""
+    from lexicmap_tpu_torch.kernels import capture as CK
+    from lexicmap_tpu_torch.masks import MaskSet
+    from lexicmap_tpu_torch.parallel.build_device import DeviceCaptureEngine
+
+    eng = DeviceCaptureEngine(MaskSet(masks, k), device=dev)
+    c = torch.from_numpy(codes).to(dev)
+    e = None if exclude is None else torch.from_numpy(exclude).to(dev)
+    before = CK.capture.launches
+    got = CK.capture(c, e, eng.table, eng.masks, k, eng.p)
+    torch.cuda.synchronize()
+    assert CK.capture.launches == before + 1
+    want = CK.capture_plain(c, e, eng.table, eng.masks, k, eng.p)
+    return [t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want], eng
+
+
+def _native_capture(eng, codes, exclude):
+    from lexicmap_tpu_torch.native import capture_native_call
+    from lexicmap_tpu_torch.utils.kmers import kmers_fwd_rc
+
+    fwd, rc = kmers_fwd_rc(codes, eng.k)
+    return capture_native_call(fwd, rc, exclude, eng.ms.masks, eng.k, eng.p, False)
+
+
+def _capture_case_ids():
+    return [c[0] for c in capture_cases()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_capture_case_ids())), ids=_capture_case_ids())
+def test_cuda_capture_equals_plain_and_native(cuda_device, case):
+    """B10 == its plain version == native capture_native, exactly, on
+    torch_parity.capture_cases (dense and bisected bucket tables, k = 21-32,
+    slices sorted by one thread, a block, and merged runs)."""
+    name, masks, k, codes, exclude = capture_cases()[case]
+    got, want, eng = _capture_on_card(cuda_device, masks, k, codes, exclude)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and (a == b).all(), name
+    nat = _native_capture(eng, codes, exclude)
+    assert (got[0].view(np.uint64) == nat[0]).all() and (got[1] == nat[1]).all()
+    assert (got[2].view(np.uint32) == nat[2]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_4mb_genome_equals_plain_and_native(cuda_device):
+    """A 4 Mb genome at the index default of 20,000 masks (p = 8), with a
+    copied block and contig-interval exclusions."""
+    from lexicmap_tpu_torch.masks import MaskSet
+
+    rng = np.random.default_rng(61)
+    codes = rng.integers(0, 4, size=4 << 20, dtype=np.uint8)
+    for c in range(20):
+        codes[100_000 + c * 6_000: 105_000 + c * 6_000] = codes[10_000:15_000]
+    exclude = np.zeros(codes.shape[0] - 30, dtype=bool)
+    exclude[2_000_000:2_001_030] = True
+    got, want, eng = _capture_on_card(cuda_device, MaskSet.generate(31, 20_000, 1).masks, 31,
+                                      codes, exclude)
+    assert eng.p == 8 and eng.table.shape[0] == 1 << 16
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and (a == b).all()
+    nat = _native_capture(eng, codes, exclude)
+    assert (got[0].view(np.uint64) == nat[0]).all() and (got[1] == nat[1]).all()
+    assert (got[2].view(np.uint32) == nat[2]).all()
+    assert got[1].max() >= 21
+
+
+@pytest.mark.cuda
+def test_cuda_device_build_equals_host_build(cuda_device, tmp_path):
+    """`index --engine device` on the card writes the host build's tree."""
+    from lexicmap_tpu_torch.index.build import BuildOptions, build_index
+    from lexicmap_tpu_torch.kernels import capture as CK
+    from torch_parity import tree_bytes, write_genomes
+
+    files, _ = write_genomes(tmp_path, n=3, length=60000, seed=22)
+    trees = []
+    before = CK.capture.launches
+    for engine in ("device", "host"):
+        out = str(tmp_path / f"{engine}.lmt")
+        build_index(out, files, BuildOptions(k=31, n_masks=1024, chunks=2, engine=engine,
+                                             verbose=False))
+        trees.append(tree_bytes(out))
+    assert CK.capture.launches == before + 3
+    assert trees[0] == trees[1]

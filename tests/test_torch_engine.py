@@ -320,9 +320,15 @@ def test_cli_refuses(db, tmp_path, monkeypatch, capsys, argv, msg):
     assert msg in capsys.readouterr().err
 
 
-def test_cli_index_device_engine_refused(db, tmp_path, capsys):
-    rc = tcli.main(["index", "--quiet", "-O", str(tmp_path / "x.lmt"), "-m", "64",
-                    "--engine", "device", db[2][0]])
-    assert rc == 1
+def test_cli_index_device_engine_refused(db, tmp_path, capsys, monkeypatch):
+    """`index --engine device` runs on the card (B10); without a CUDA
+    device it is refused unless `--device cpu` asks for the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "x.lmt"
+    rc = tcli.main(["index", "--quiet", "-O", str(out), "-m", "64", "--engine", "device",
+                    db[2][0]])
+    assert rc == 1 and not out.exists()
     err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP" in err
+    assert "no CUDA device" in err and "--device cpu" in err

@@ -910,3 +910,64 @@ def wfa_edge_cases():
             ("CAP runs", [pair], 1024, 128, r, True),
             ("CAP - 1 runs", [pair], 1024, 128, r - 1, False)]
     return out
+
+
+def tree_bytes(root):
+    """{path relative to root: bytes} of every file under an index tree."""
+    import os
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+def mask_kmer_codes(mask, k):
+    """The k bases whose forward k-mer is `mask`."""
+    return np.array([(int(mask) >> (2 * (k - 1 - t))) & 3 for t in range(k)], dtype=np.uint8)
+
+
+def capture_cases(seed=50):
+    """Capture inputs at small size, as (name, masks uint64, k, codes,
+    exclude): a random genome; exclusions at both ends; k = 21 and 32; a
+    mask's own k-mer as a tandem repeat 20,000 times (more than two of the
+    kernel's SORT_CAP runs, so its slice is merged); a homopolymer, whose
+    k-mer wins at every position; a distinct prefix of 14 bases (the
+    bucket table's bisection); a genome of exactly k bases; every position
+    excluded."""
+    from lexicmap_tpu_torch.masks import MaskSet
+
+    rng = np.random.default_rng(seed)
+
+    def codes(n):
+        return rng.integers(0, 4, size=n, dtype=np.uint8)
+
+    m31 = MaskSet.generate(31, 512, 1).masks
+    out = [("random", m31, 31, codes(200_000), None)]
+    c = codes(150_000)
+    ex = np.zeros(c.shape[0] - 30, dtype=bool)
+    ex[:77] = ex[50_000:52_000] = ex[-5:] = True
+    c[90_000:91_000] = c[10_000:11_000]
+    out.append(("exclusions and a repeat", m31, 31, c, ex))
+    for k in (21, 32):
+        out.append((f"k={k}", MaskSet.generate(k, 256, 7).masks, k, codes(120_000), None))
+    c = codes(700_000)
+    c[20_000: 20_000 + 20_000 * 31] = np.tile(mask_kmer_codes(m31[5], 31), 20_000)
+    out.append(("tandem repeat of a mask's k-mer", m31, 31, c, None))
+    p = MaskSet(m31, 31).distinct_prefix_len
+    homo = next(b for b in range(4)  # a base whose homopolymer k-mer has a mask's bucket
+                if ((m31 >> np.uint64(2 * (31 - p))) == np.uint64(int(str(b) * p, 4))).any())
+    out.append(("homopolymer", m31, 31, np.full(300_000, homo, dtype=np.uint8), None))
+    sparse = rng.integers(0, 1 << 62, size=64, dtype=np.uint64)
+    sparse[1] = sparse[0] ^ np.uint64(1 << (2 * (31 - 13) - 1))
+    c = codes(80_000)
+    for i, mk in enumerate(np.sort(sparse)[:8]):
+        c[1_000 + 100 * i: 1_031 + 100 * i] = mask_kmer_codes(mk, 31)
+    out.append(("distinct prefix of 14", sparse, 31, c, None))
+    out.append(("exactly k bases", m31, 31, codes(31), None))
+    c = codes(5_000)
+    out.append(("all excluded", m31, 31, c, np.ones(c.shape[0] - 30, dtype=bool)))
+    return out
