@@ -27,6 +27,18 @@ Phases, each of which raises on a wrong result (nothing falls back):
      shapes (and, for seed_locate, the main path's);
   4. DeviceSeedMatcher over a synthetic 20,000-mask x 10,240-entry seed
      table vs a numpy bisection oracle;
+  4b. the sharded matcher on one NCCL rank with four local shards, over
+     phase 4's table: seed_match_shard (B11) through
+     make_sharded_search_step on its 16-mer hi words (rows with pad words,
+     all-T queries), then the entry's dry run (lexicmap_tpu_torch/entry.py)
+     on the card: the kernel == its plain version on every shard and on the
+     path's first two launches, n_hits, lcp and the scores == an int64
+     numpy count; ShardedSeedMatcher (B1 and shard_compact, B12, per
+     shard): queries over its hit capacity declined, the others' triples ==
+     DeviceSeedMatcher's and the bisection oracle's, the compaction ==
+     its plain version; times as called, on the device and plain, the
+     bound (B11: the sectors its bisections touch plus I/O), and the
+     library calls (torch.searchsorted x2, torch.sort);
   5. phase 4 at real state size: a >= 1 GB resident genome blob (1,000
      genomes of 4 Mb) with mutated copies of 32 queries planted at 2,048
      window sites; pseudo_probe and pseudo_chain vs their plain versions
@@ -48,7 +60,13 @@ Phases, each of which raises on a wrong result (nothing falls back):
      the host build (B10 once per genome; the trees byte-identical file by
      file; genomes per minute of both), and `genome search --engine
      device` vs `--engine host` for two 1%-mutated indexed genomes against
-     the device-built index (rows equal, the source genome first);
+     the device-built index (rows equal, the source genome first); then
+     the mesh engine (DeviceSearchEngine over phase 4b's mesh, chain1 and
+     the WFA on the card too): rows equal, four B1 and four compaction
+     launches a batch, the compaction's first two launches == plain, q/min
+     in turns with the device engine; and `python -m
+     lexicmap_tpu_torch.parallel.multiproc --nprocs 1 --local-devices 4
+     --twins device`: its TSV == the host rows;
   7. (run before 6) chain1 (B9) and the WFA (B8) vs their plain versions
      and the native DP / WFA, exact: 4,096 anchor sets of 2-700 anchors,
      16 dense ones of 1,500 and 4 of 20,000; 4,096 pairs of 1.5 kb at 2-8%
@@ -414,11 +432,12 @@ def in_turns(parent_fn, new_fn, parent_name, new_name, reps=20):
     return out
 
 
-def bisection_probe_bytes(hi64, cnt, qh, qv, p) -> tuple[int, int]:
+def bisection_probe_bytes(hi64, cnt, qh, qv, p, rb_from_lb=True) -> tuple[int, int]:
     """Replay two lower-bound bisections per valid (b, row), rb's started
-    from lb's answer (the earlier thread-per-(b, m) kernel's search), and
-    count the distinct 32-byte table sectors they read and the probes made
-    (the data-dependent work of this run).  Returns (sector_bytes, probes)."""
+    from lb's answer (the earlier thread-per-(b, m) kernel's search) or,
+    with rb_from_lb=False, from the row's start (B11's), and count the
+    distinct 32-byte table sectors they read and the probes made (the
+    data-dependent work of this run).  Returns (sector_bytes, probes)."""
     import torch
 
     from lexicmap_tpu_torch.kernels.seed_locate import suffix_mask
@@ -449,7 +468,7 @@ def bisection_probe_bytes(hi64, cnt, qh, qv, p) -> tuple[int, int]:
             hi = torch.where(act & ~right, mid, hi)
 
     lo = bisect(torch.zeros_like(n), n.clone(), q & (0xFFFFFFFF ^ suf), True)
-    bisect(lo.clone(), n.clone(), q | suf, False)
+    bisect(lo.clone() if rb_from_lb else torch.zeros_like(n), n.clone(), q | suf, False)
     distinct = int(torch.unique(torch.cat(sectors)).numel()) if sectors else 0
     return distinct * SECTOR, probes
 
@@ -963,8 +982,262 @@ def phase_matcher(dev, card, M, E, B, p, seed, reps):
     res = {"hbm_bytes": matcher.hbm_bytes, "ms_per_batch": ms, "device_ms": dev_ms,
            "triples": n_trip,
            "launches": launches, "init_s": init_s}
-    del matcher
-    return res
+    return res, {"kmers": kmers, "off": off, "q": q, "k": k, "matcher": matcher}
+
+
+# --------------------------------------------------------------------------
+# phase 4b: the sharded matcher's kernels at the 10k shape, one NCCL rank
+# holding four tp shards
+
+
+def host_shard_count(hi, qh, k, p):
+    """B11's definition in int64 numpy: (n_hits, lcp) [B, M] and the
+    per-query sums, by bisection over each whole padded row."""
+    import numpy as np
+
+    M, E = hi.shape
+    suf = (1 << (2 * (k - p))) - 1
+    flat = hi.reshape(-1).astype(np.int64)
+    q = qh.astype(np.int64)
+    B = q.shape[0]
+    starts = np.broadcast_to(np.arange(M, dtype=np.int64) * E, (B, M)).reshape(-1)
+    qf = q.reshape(-1)
+    e0 = segment_bisect(flat, starts, starts + E, qf & (0xFFFFFFFF ^ suf), "left") - starts
+    e1 = segment_bisect(flat, starts, starts + E, qf | suf, "right") - starts
+    nh = np.where(qf != 0, e1 - e0, 0)
+    x = flat[starts + np.minimum(e0, E - 1)] ^ qf
+    bitlen = np.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        big = (x >> s) != 0
+        bitlen += np.where(big, s, 0)
+        x = np.where(big, x >> s, x)
+    bitlen += x != 0
+    lcp = np.where(nh > 0, ((32 - bitlen) >> 1) + k - 16, 0)
+    nh, lcp = nh.reshape(B, M), lcp.reshape(B, M)
+    return nh, lcp, (nh * lcp).sum(1)
+
+
+def phase_sharded(dev, card, state, seed, reps):
+    """B11 through make_sharded_search_step and B12 through
+    ShardedSeedMatcher on a one-rank NCCL mesh with four local shards, over
+    phase 4's table; the entry's dry run on the card.  Returns (B11's
+    result, B12's result, the mesh)."""
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch import entry as TE
+    from lexicmap_tpu_torch.kernels import seed_match_shard as MS
+    from lexicmap_tpu_torch.kernels import shard_compact as SC
+    from lexicmap_tpu_torch.kernels.seed_locate import PAD_HI, seed_locate_batch, split_kmers_hi_lo
+    from lexicmap_tpu_torch.parallel import sharded as TS
+
+    kmers, off, q, k = state["kmers"], state["off"], state["q"], state["k"]
+    M, B, p = off.shape[0] - 1, q.shape[0], 15
+    E = kmers.shape[0] // M
+    mesh = TS.make_mesh(local_shards=4, device=dev)
+    L = mesh.local_shards
+    log(f"[sharded] {mesh!r}, backend {torch.distributed.get_backend()}")
+
+    # B11's table: phase 4's 31-mers as 16-mer hi words, row 0 a quarter pad
+    # words, row 1 all-T prefixes before its pad words; all-T queries there
+    rng = np.random.default_rng(seed + 20)
+    hi = split_kmers_hi_lo(kmers, k)[0].reshape(M, E)
+    hi[0, 3 * E // 4:] = PAD_HI
+    hi[1, E // 2:] = np.uint32(0xFFFFFF00) + rng.integers(0, 0xF0, E - E // 2, dtype=np.uint32)
+    hi[1, E - 64:] = PAD_HI
+    hi[1] = np.sort(hi[1])
+    qh = np.zeros((B, M), dtype=np.uint32)
+    qh[q != 0] = split_kmers_hi_lo(q[q != 0], k)[0]
+    qh[0, 0], qh[1, 1] = 0xFFFFFFFF, 0xFFFFFFFD
+    s_seeds, s_queries = TS.shard_arrays(mesh, hi, qh)
+    step = TS.make_sharded_search_step(mesh, k=16, min_prefix=p)
+
+    # the path: the step at this shape, then the entry's dry run on the card
+    recorded, real = [], TS.seed_match_shard
+
+    def recording(*a):
+        out = real(*a)
+        if len(recorded) < 2:  # the main path's inputs and outputs, kept
+            recorded.append((a, tuple(x.clone() for x in out)))
+        return out
+
+    TS.seed_match_shard = recording
+    reset_launches()  # the sharded step's run starts here
+    try:
+        scores = step(s_seeds, s_queries)
+        sync(dev)
+        TE.dryrun_multichip(L, dev)
+    finally:
+        TS.seed_match_shard = real
+    launches = launch_counts()  # ... and ends here
+    if dev.type == "cuda" and launches["seed_match_shard"] != 2 * L:
+        raise AssertionError(f"the step and the dry run launched seed_match_shard "
+                             f"{launches['seed_match_shard']} times, expected {2 * L}")
+    main_err, main_shape = 0, []
+    for a, got in recorded:
+        want = MS.seed_match_shard_plain(*a)
+        err = int_err(got, want)
+        if err or not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"main path: seed_match_shard != plain (max abs err {err})")
+        main_shape.append({"B": int(a[1].shape[0]), "M": int(a[0].shape[0]),
+                           "E": int(a[0].shape[1]), "k": a[2], "p": a[3]})
+    log(f"[sharded] main path, first {len(recorded)} seed_match_shard launches: kernel == "
+        f"plain on {json.dumps(main_shape)}")
+
+    # every shard's kernel against its plain twin, and the whole against an
+    # int64 numpy count of the definition
+    saved = launch_counts()
+    outs = [MS.seed_match_shard(s_seeds[l], s_queries[l], 16, p) for l in range(L)]
+    err = 0
+    for l, got in enumerate(outs):
+        want = MS.seed_match_shard_plain(s_seeds[l], s_queries[l], 16, p)
+        err = max(err, int_err(got, want))
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"seed_match_shard != plain on shard {l}")
+    hn, hl, hs = host_shard_count(hi, qh, 16, p)
+    nh = torch.cat([o[0] for o in outs], 1).cpu().numpy()
+    lcp = torch.cat([o[1] for o in outs], 1).cpu().numpy()
+    sc = scores.cpu().numpy()
+    if not (np.array_equal(nh, hn) and np.array_equal(lcp, hl) and
+            np.array_equal(sc.astype(np.int64), hs) and hs.max() < 1 << 24):
+        raise AssertionError("seed_match_shard / the step disagree with the int64 host count")
+    if nh[0, 0] < E // 4 or nh[1, 1] < 64:
+        raise AssertionError("the all-T queries must count the pad words")
+    log(f"[sharded] seed_match_shard: kernel == plain on {L} shards of {M // L} x {E}, "
+        f"n_hits, lcp and the step's scores == int64 host count ({int((nh > 0).sum())} cells "
+        f"with hits; largest score {float(sc.max())}, under 2^24)")
+
+    def b11():
+        for l in range(L):
+            MS.seed_match_shard(s_seeds[l], s_queries[l], 16, p)
+
+    ms = time_ms(b11, dev, reps)
+    by = device_ms_split(b11, ("match_shard", "score_f32"), reps)
+    dev_ms = None if None in by.values() else L * sum(by.values())
+    step_ms = time_ms(lambda: step(s_seeds, s_queries), dev, reps)
+    plain_ms = time_ms(lambda: [MS.seed_match_shard_plain(s_seeds[l], s_queries[l], 16, p)
+                                for l in range(L)], dev, 2)
+    hi64 = s_seeds.reshape(M, E).long() & 0xFFFFFFFF
+    qs = s_queries.permute(1, 0, 2).reshape(B, M)
+    q64 = qs.T.contiguous().long() & 0xFFFFFFFF
+    suf = (1 << (2 * (16 - p))) - 1
+    lb, rb = q64 & (0xFFFFFFFF ^ suf), q64 | suf
+
+    def library():
+        return torch.searchsorted(hi64, lb), torch.searchsorted(hi64, rb, right=True)
+
+    if not torch.equal((library()[1] - library()[0]).T.cpu().where(qs.cpu() != 0, 0),
+                       torch.from_numpy(nh).long()):
+        raise AssertionError("library searchsorted disagrees with the kernel")
+    library_ms = time_ms(library, dev, reps)
+    sector_bytes, probes = bisection_probe_bytes(
+        hi64, torch.full((M,), E, dtype=torch.int32, device=dev), qs, qs != 0, p,
+        rb_from_lb=False)
+    del hi64, q64, lb, rb
+    io_bytes = B * M * 4 + 2 * B * M * 4 + B * 12
+    bound_ms, bound_by = locate_bound(sector_bytes, sector_bytes, probes, io_bytes)
+    b11res = {"M": M, "E": E, "B": B, "k": 16, "p": p, "L": L, "equal": True,
+              "max_abs_err": max(err, main_err), "main_path_err": main_err,
+              "main_path_shape": main_shape, "launches": launches["seed_match_shard"],
+              "ms": ms, "device_ms": dev_ms, "device_ms_by": by, "step_ms": step_ms,
+              "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "sector_bytes": sector_bytes, "io_bytes": io_bytes,
+              "probes": probes, "table_bytes": M * E * 4, "largest_score": float(sc.max())}
+    log(f"[sharded] seed_match_shard x {L}: ms={ms:.4f} (device {dev_ms}, {json.dumps(by)}) "
+        f"step as called {step_ms:.4f} plain_ms={plain_ms:.2f} library_ms={library_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}; sectors {sector_bytes / 1e6:.1f} MB) [{card}]")
+    del s_seeds, s_queries, outs
+
+    # B12: ShardedSeedMatcher over the 31-mer table, a quarter of the
+    # queries drawn from one row in eight at random (kept under H), half
+    # from 90% of the rows (over H: declined), a quarter random
+    q2 = q.copy()
+    rows8 = rng.random(M) < 1 / 8
+    drawn = kmers[off[:-1][None, :] + rng.integers(0, E, size=(B // 4, M))]
+    drawn ^= rng.integers(0, 1 << (2 * (k - p)), size=(B // 4, M), dtype=np.uint64)
+    sub = np.where(rows8[None, :], drawn, rng.integers(0, 1 << 62, size=(B // 4, M),
+                                                        dtype=np.uint64))
+    sub[rng.random(sub.shape) < 0.1] = 0
+    q2[B // 2: B // 2 + B // 4] = sub
+    t0 = time.perf_counter()
+    sm = TS.ShardedSeedMatcher(_StandIn(kmers, off, k), mesh)
+    init_s = time.perf_counter() - t0
+    log(f"[sharded] {sm.describe()}; init {init_s:.1f} s")
+    if sm.host_tables or len(sm.buckets) != 1:
+        raise AssertionError("the smoke table must be one bucket, wholly on the card")
+    bk = sm.buckets[0]
+    H = sm.capacity(bk)
+    got = sm.match_batch(q2, p)
+    want = state["matcher"].match_batch(q2, p)
+    suf64 = np.uint64((1 << (2 * (k - p))) - 1)
+    bsel, msel = np.nonzero(q2 != 0)
+    x = q2[bsel, msel]
+    lo = segment_bisect(kmers, off[msel], off[msel + 1], x & ~suf64, "left")
+    up = segment_bisect(kmers, off[msel], off[msel + 1], x | suf64, "right")
+    kept = per_shard_max = 0
+    for b in range(B):
+        s = (bsel == b) & (up > lo)
+        oracle = (msel[s], lo[s] - off[msel[s]], (up - lo)[s])
+        fullest = int(np.bincount(oracle[0] % sm.tp, minlength=sm.tp).max())
+        if fullest > H:
+            if got[b] is not None:
+                raise AssertionError(f"query {b}: {fullest} hits on a shard over H = {H}, "
+                                     f"not declined")
+            continue
+        if got[b] is None or any(not (np.array_equal(g, o) and np.array_equal(g, w))
+                                 for g, o, w in zip(got[b], oracle, want[b])):
+            raise AssertionError(f"query {b}: sharded triples != DeviceSeedMatcher's / oracle")
+        kept += 1
+        per_shard_max = max(per_shard_max, fullest)
+    declined = sum(g is None for g in got)
+    if declined < B // 2 or per_shard_max < H // 4:
+        raise AssertionError(f"expected >= {B // 2} queries declined and some kept with "
+                             f"hundreds of hits a shard: {declined} declined, {per_shard_max}")
+    log(f"[sharded] match_batch: {kept} queries == DeviceSeedMatcher's and the host "
+        f"bisection's (up to {per_shard_max} hits a shard kept, H = {H}), {declined} declined "
+        f"over H")
+
+    # the compaction against its plain twin on shard 0's locate outputs
+    sel = q2 != 0
+    qh_full = np.zeros((B, M), dtype=np.uint32)
+    qh_full[sel] = split_kmers_hi_lo(q2[sel], k)[0]
+    ids = bk.ids_per_shard[0]
+    qh0 = np.zeros((B, bk.mb_pad), dtype=np.uint32)
+    qv0 = np.zeros((B, bk.mb_pad), dtype=bool)
+    qh0[:, : ids.shape[0]], qv0[:, : ids.shape[0]] = qh_full[:, ids], sel[:, ids]
+    qh0 = torch.from_numpy(qh0.view(np.int32)).to(dev)
+    qv0 = torch.from_numpy(qv0).to(dev)
+    nh0, e00 = seed_locate_batch(bk.hi[0], bk.cnt[0], qh0, qv0, p)
+    a = (nh0, e00, bk.gids[0], H)
+    cgot = SC.shard_compact(*a)
+    cwant = SC.shard_compact_plain(*a)
+    cerr = int_err(cgot, cwant)
+    if cerr or not all(torch.equal(x, y) for x, y in zip(cgot, cwant)):
+        raise AssertionError(f"shard_compact != plain at the 10k shape (max abs err {cerr})")
+    keys = torch.where(nh0 > 0, bk.gids[0].long()[None, :] & 0xFFFFFFFF, 0xFFFFFFFF)
+    c_ms = time_ms(lambda: SC.shard_compact(*a), dev, reps)
+    c_dev, c_by = device_ms(lambda: SC.shard_compact(*a), "compact_rows", reps)
+    c_plain = time_ms(lambda: SC.shard_compact_plain(*a), dev, reps)
+    c_lib = time_ms(lambda: torch.sort(keys, dim=1, stable=True), dev, reps)
+    c_bytes = 2 * nh0.numel() * 4 + bk.mb_pad * 4 + B * (3 * H + 1) * 4
+    c_bytes_ms = c_bytes / HBM_BYTES_PER_S * 1e3
+    c_ops_ms = 2 * nh0.numel() / FP32_OPS_PER_S * 1e3
+    batch_ms = time_ms(lambda: sm.match_batch(q2, p), dev, 3, warmup=0)
+    for fn in kernel_fns():  # the comparisons' launches do not count
+        fn.launches = saved[fn.__name__]
+    b12res = {"B": B, "mb_pad": bk.mb_pad, "E": bk.E, "H": H, "tile": bk.tile, "equal": True,
+              "max_abs_err": cerr, "hits_shard0": int((nh0 > 0).sum()),
+              "kept_queries": kept, "declined_queries": declined,
+              "most_hits_kept": per_shard_max, "ms": c_ms, "device_ms": c_dev,
+              "device_ms_by": c_by, "plain_ms": c_plain, "library_ms": c_lib,
+              "bound_ms": max(c_bytes_ms, c_ops_ms),
+              "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
+              "bytes": c_bytes, "matcher_ms_per_batch": batch_ms, "init_s": init_s,
+              "hbm_bytes": sm.hbm_bytes}
+    log(f"[sharded] shard_compact at B={B}, rows={bk.mb_pad}, H={H}: kernel == plain; "
+        f"{json.dumps({k_: v for k_, v in b12res.items() if 'ms' in k_})} [{card}]")
+    del sm, state["matcher"]
+    return b11res, b12res, mesh
 
 
 # --------------------------------------------------------------------------
@@ -1797,11 +2070,13 @@ def write_genomes(root, n_genomes, n_queries, seed, n_many=32, many_in=16):
 
 def kernel_fns():
     from lexicmap_tpu_torch.kernels import (
-        capture, chain1, pseudo_align, seed_locate, seed_match, wfa)
+        capture, chain1, pseudo_align, seed_locate, seed_match, seed_match_shard, shard_compact,
+        wfa)
 
     return (seed_locate.seed_locate_batch, seed_locate.seed_locate, seed_match.seed_match,
             pseudo_align.pseudo_probe, pseudo_align.pseudo_chain, chain1.chain1_forward,
-            wfa.wfa_batch, capture.capture)
+            wfa.wfa_batch, capture.capture, seed_match_shard.seed_match_shard,
+            shard_compact.shard_compact)
 
 
 def reset_launches():
@@ -1992,7 +2267,7 @@ def genome_search(dev, card, tmp, db, genome_files, seed, n_check=4):
 
 
 def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=None,
-                     parents=None):
+                     parents=None, mesh=None):
     import numpy as np
     import torch
 
@@ -2345,7 +2620,9 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         raise AssertionError(f"cli search --chain device --wfa device launched {cli_launches}")
     log(f"[e2e] cli search --engine device --chain device --wfa device: TSV == host rows; "
         f"launches {json.dumps(cli_launches)}")
-    return {"launches": launches, "single_launches": single_launches, "dev_qpm": dev_qpm,
+    sharded = sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx, tmp,
+                                 rows)
+    return {"sharded": sharded, "launches": launches, "single_launches": single_launches, "dev_qpm": dev_qpm,
             "host_qpm": host_qpm, "times": times, "pseudo_ms_per_batch": ptimes_batch,
             "rows": sum(map(len, dev_rows)),
             "shapes": shapes, "hbm_bytes": dev_idx.device_matcher.hbm_bytes,
@@ -2355,6 +2632,143 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             "stage_qpm": stage_qpm, "stage_times": stage_times, "chain_share": chain_share,
             "wfa_share": wfa_share, "chainer_stats": cstats, "wfa_stats": wstats,
             "stage_main_shapes": main_shape, "build": build, "genome_search": gres}
+
+
+def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx, tmp, rows,
+                       rounds=2, n_check=2):
+    """The mesh engine (DeviceSearchEngine with a one-rank mesh of four
+    shards; chain1 and the WFA on the card too) on the 200-genome index:
+    rows equal to the host engine's, four launches of B1 and of the
+    compaction a batch, the first `n_check` launches of each equal to its
+    plain version on the same tensors; q/min in turns with the device engine; then the
+    multi-process search's launcher with one worker of four shards: its TSV
+    equal to the host rows."""
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch.cli import TSV_HEADER
+    from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
+    from lexicmap_tpu_torch.kernels import seed_locate as SL
+    from lexicmap_tpu_torch.kernels import shard_compact as SC
+    from lexicmap_tpu_torch.parallel import sharded as TS
+    from lexicmap_tpu_torch.parallel.engine import DeviceSearchEngine, match_phase
+    from lexicmap_tpu_torch.utils.kmers import seq_to_codes
+
+    def run(eng, qs):
+        out = []
+        for o in range(0, len(qs), 32):
+            out += eng.finish_batch(eng.prepare_batch(qs[o: o + 32]))
+        sync(dev)
+        return out
+
+    midx = IndexSearcher(db, SearchOptions(device=str(dev), chain_engine="device",
+                                           wfa_engine="device"))
+    recorded, real = {}, {}
+
+    def recording(name):
+        kept, fn = recorded.setdefault(name, []), getattr(TS, name)
+        real[name] = fn
+
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            if len(kept) < n_check:  # the main path's inputs and outputs, kept
+                kept.append((a, tuple(x.clone() for x in out)))
+            return out
+        return call
+
+    for name in ("seed_locate_batch", "shard_compact"):
+        setattr(TS, name, recording(name))
+    reset_launches()  # the mesh engine's run starts here
+    try:
+        t0 = time.perf_counter()
+        meng = DeviceSearchEngine(midx, mesh=mesh)
+        init_s = time.perf_counter() - t0
+        got = run(meng, seqs)
+    finally:
+        for name, fn in real.items():
+            setattr(TS, name, fn)
+    launches = launch_counts()  # ... and ends here
+    if rows(got, ids, seqs) != host_rows:
+        raise AssertionError("mesh engine rows differ from the host rows")
+    batches = -(-len(seqs) // 32)
+    per = mesh.local_shards * len(meng.matcher.buckets) * batches
+    if dev.type == "cuda" and not (launches["seed_locate_batch"] == launches["shard_compact"]
+                                   == per and launches["chain1_forward"] == batches):
+        raise AssertionError(f"mesh engine launches {launches}, expected {per} of B1 and of "
+                             f"the compaction, {batches} of chain1")
+    for name, kept in recorded.items():
+        if len(kept) != n_check:
+            raise AssertionError(f"recorded {len(kept)} {name} launches, expected {n_check}")
+    main_err, main_shape = 0, []
+    for a, out in recorded.pop("shard_compact"):
+        want = SC.shard_compact_plain(*a)
+        err = int_err(out, want)
+        if err or not all(torch.equal(x, y) for x, y in zip(out, want)):
+            raise AssertionError(f"main path: shard_compact != plain (max abs err {err})")
+        main_shape.append({"B": int(a[0].shape[0]), "rows": int(a[0].shape[1]), "H": a[3],
+                           "hits": int((a[0] > 0).sum()), "most": int(out[3].max())})
+    locate_err, locate_shape = 0, []
+    for a, out in recorded.pop("seed_locate_batch"):  # B1 on the shard rows
+        want = SL.seed_locate_batch_plain(*a)
+        err = int_err(out, want)
+        if err or not all(torch.equal(x, y) for x, y in zip(out, want)):
+            raise AssertionError(f"main path: mesh engine's seed_locate_batch != plain on "
+                                 f"Mb={a[0].shape[0]}, B={a[2].shape[0]} (max abs err {err})")
+        locate_err = max(locate_err, err)
+        locate_shape.append({"Mb": int(a[0].shape[0]), "E": int(a[0].shape[1]),
+                             "B": int(a[2].shape[0]), "p": a[4], "path": "mesh engine"})
+    log(f"[e2e] mesh engine ({meng.matcher.describe()}; init {init_s:.1f} s): rows == host "
+        f"rows; launches {json.dumps(launches)}; first {n_check} shard_compact launches == "
+        f"plain on {json.dumps(main_shape)}; first {n_check} seed_locate_batch launches == "
+        f"plain on {json.dumps(locate_shape)}")
+
+    # q/min in turns with the device engine (no claim)
+    saved = launch_counts()
+    declined = sum(d is None for d in match_phase(midx, meng.matcher, np.stack(
+        [midx._mask_query(seq_to_codes(s.upper()))[0] for s in seqs[:32]])))
+    dev_s, mesh_s = [], []
+    for _ in range(rounds):
+        for name in ("device", "mesh", "mesh", "device"):
+            t0 = time.perf_counter()
+            if name == "device":
+                dev_idx.search_many(seqs)
+                sync(dev)
+            else:
+                run(meng, seqs)
+            (dev_s if name == "device" else mesh_s).append(time.perf_counter() - t0)
+    for fn in kernel_fns():
+        fn.launches = saved[fn.__name__]
+    n = len(seqs)
+    res = {"launches": launches, "main_path_err": main_err, "main_path_shape": main_shape,
+           "locate_main_path_err": locate_err, "locate_main_path_shape": locate_shape,
+           "init_s": init_s, "declined_of_32": declined,
+           "mesh_qpm": [n / t * 60 for t in mesh_s], "device_qpm": [n / t * 60 for t in dev_s],
+           "mesh_times": dict(meng.times), "hbm_bytes": meng.matcher.hbm_bytes}
+    log(f"[e2e] q/min in turns: mesh engine {[round(x, 1) for x in res['mesh_qpm']]}, device "
+        f"engine {[round(x, 1) for x in res['device_qpm']]} [{card}]")
+    del meng, midx
+
+    # the launcher, one worker holding four shards, phases 3-5 on its card
+    out = os.path.join(tmp, "mp.tsv")
+    work = os.path.join(tmp, "mp")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lexicmap_tpu_torch.parallel.multiproc", "--db", db,
+                        "-q", qpath, "-o", out, "--nprocs", "1", "--local-devices", "4",
+                        "--twins", "device", "--device", dev.type, "--workdir", work,
+                        "--timeout", "500"],
+                       cwd=HERE, capture_output=True, text=True, timeout=600)
+    mp_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"multiproc failed with {r.returncode}: {r.stderr[-3000:]}")
+    with open(out) as fh:
+        tsv = fh.read().splitlines()
+    if tsv != [TSV_HEADER] + [x for rr in host_rows for x in rr]:
+        raise AssertionError("multiproc TSV differs from the host rows")
+    with open(os.path.join(work, "summary.json")) as fh:
+        res["multiproc"] = {**json.load(fh), "launcher_s": mp_s}
+    log(f"[e2e] multiproc --nprocs 1 --local-devices 4 --twins device --device {dev.type}: "
+        f"TSV == host rows ({len(tsv) - 1} rows); {json.dumps(res['multiproc'])} [{card}]")
+    return res
 
 
 def check_main_path_shapes(dev, card, idx, kmers, parent=None):
@@ -2433,6 +2847,20 @@ def capture_row(rows, build):
             "shape": {k: big[k] for k in ("bases", "masks", "p")}, "genomes": rows}
 
 
+def sharded_row(name, replaces, res, launches, main_err, main_shape, library):
+    """The kernels line's row of B11 or B12's compaction: the numbers at the
+    10k shape, launches and the first launches' check from the main path."""
+    err = max(res["max_abs_err"], main_err)
+    return {"name": name, "route": "cuda", "source": "lexicmap_tpu_torch/csrc/sharded.cu",
+            "replaces": replaces, "launches": launches, "equal": res["equal"] and err == 0,
+            "max_abs_err": err, "main_path_err": main_err, "main_path_shape": main_shape,
+            "ms": res["ms"], "device_ms": res["device_ms"], "device_ms_by": res["device_ms_by"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"], "library": library,
+            "shape": {key: res[key] for key in ("B", "E", "p", "M", "L", "k", "mb_pad", "H")
+                      if key in res}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -2468,7 +2896,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     started = parent_build(args.compare_source)
-    libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa", "capture"])
+    libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa", "capture",
+                        "sharded"])
     parents = parent_load(started)  # {source name: the earlier tree's library}
     parent = parents.get("seed_locate")
     log(f"[build] {len(libs) + len(parents)} kernel sources built with nvcc in parallel in "
@@ -2482,7 +2911,11 @@ def main() -> int:
     bres = phase_seed_match(dev, card, Mb=20_000, E=10_240, p=15, seed=args.seed + 3, reps=20,
                             parent=parents.get("seed_match"))
     torch.cuda.empty_cache()
-    mres = phase_matcher(dev, card, M=20_000, E=10_240, B=32, p=15, seed=args.seed, reps=5)
+    mres, mstate = phase_matcher(dev, card, M=20_000, E=10_240, B=32, p=15, seed=args.seed,
+                                 reps=5)
+    torch.cuda.empty_cache()
+    shres, cpres, mesh = phase_sharded(dev, card, mstate, seed=args.seed, reps=20)
+    del mstate
     torch.cuda.empty_cache()
     pres, cres, p4 = phase_pseudo(dev, card, n_stores=4, per_store=250, genome_len=4 << 20,
                                   n_sites=2048, n_sample=256, seed=args.seed + 5, reps=5)
@@ -2494,7 +2927,8 @@ def main() -> int:
     capres = phase_capture(dev, card, seed=args.seed + 13, reps=5)
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
-                                args.rounds, parent, parents)
+                                args.rounds, parent, parents, mesh)
+    mesh.close()
 
     def seed_row(name, source, replaces, res, launches, extra=None):
         return {"name": name, "route": "cuda", "source": f"lexicmap_tpu_torch/csrc/{source}",
@@ -2535,8 +2969,9 @@ def main() -> int:
                 "io_bytes", "parent")
         return {**{k: res[k] for k in keys if k in res}, "edge_shapes": edges, **more}
 
-    gs = eres["genome_search"]
-    main_locate_err = max([gs["main_path_err"]] + [r["max_abs_err"] for r in eres["shapes"]])
+    gs, mesh_run = eres["genome_search"], eres["sharded"]
+    main_locate_err = max([gs["main_path_err"], mesh_run["locate_main_path_err"]]
+                          + [r["max_abs_err"] for r in eres["shapes"]])
     kres_all = {**kres, "max_abs_err": max(kres["max_abs_err"], main_locate_err)}
     kres_all["equal"] = kres["equal"] and kres_all["max_abs_err"] == 0
     kernels = [
@@ -2545,7 +2980,9 @@ def main() -> int:
                  eres["launches"]["seed_locate_batch"],
                  locate_extra(kres, main_path_shapes=eres["shapes"],
                               main_path_err=main_locate_err,
-                              main_path_shape=gs["main_path_shape"])),
+                              main_path_shape=[{**sh, "path": "genome search"}
+                                               for sh in gs["main_path_shape"]]
+                              + mesh_run["locate_main_path_shape"])),
         seed_row("seed_locate", "seed_locate.cu", "lexicmap_tpu/parallel/pallas_kernels.py:79",
                  sres, eres["single_launches"], locate_extra(sres)),
         seed_row("seed_match", "seed_match.cu", "lexicmap_tpu/parallel/pallas_kernels.py:205",
@@ -2559,12 +2996,22 @@ def main() -> int:
                   {"pairs": wres7["pairs"], "bucket": wres7["bucket"], "cells": wres7["cells"],
                    "answered": wres7["answered"]}, eres["wfa_share"]),
         capture_row(capres, eres["build"]),
+        sharded_row("seed_match_shard", "lexicmap_tpu/parallel/sharded.py:41", shres,
+                    shres["launches"], shres["main_path_err"], shres["main_path_shape"],
+                    "torch.searchsorted x2 over the whole rows"),
+        sharded_row("shard_compact", "lexicmap_tpu/parallel/sharded.py:205", cpres,
+                    eres["sharded"]["launches"]["shard_compact"],
+                    eres["sharded"]["main_path_err"], eres["sharded"]["main_path_shape"],
+                    "torch.sort (stable) of the keys, the sort of JAX's step"),
     ]
     log(f"[summary] matcher {json.dumps(mres)}")
     log(f"[summary] phase4 {json.dumps(p4)}")
     log(f"[summary] phase7 chain1 {json.dumps(cres7)}")
     log(f"[summary] phase7 wfa {json.dumps(wres7)}")
     log(f"[summary] capture {json.dumps(capres)}")
+    log(f"[summary] sharded: seed_match_shard {json.dumps(shres)}; shard_compact "
+        f"{json.dumps(cpres)}; mesh engine "
+        f"{json.dumps({k: v for k, v in mesh_run.items() if k != 'launches'})}")
     log(f"[summary] index build {json.dumps({k: v for k, v in eres['build'].items() if k != 'db'})}"
         f"; genome search {json.dumps(eres['genome_search'])}")
     log(f"[summary] e2e q/min device {eres['dev_qpm']} device with chain1 + wfa "
@@ -2572,10 +3019,14 @@ def main() -> int:
         f"{json.dumps(eres['many_hit'])}; total {time.perf_counter() - t_all:.1f} s")
     on_path = ("seed_locate_batch", "pseudo_probe", "pseudo_chain", "chain1_forward",
                "wfa_batch")
+    mesh_path = ("seed_locate_batch", "shard_compact", "pseudo_probe", "pseudo_chain",
+                 "chain1_forward", "wfa_batch")
     if (not all(eres["launches"][n] for n in on_path) or not eres["single_launches"]
-            or not eres["build"]["capture_launches"]):
+            or not eres["build"]["capture_launches"] or not shres["launches"]
+            or not all(eres["sharded"]["launches"][n] for n in mesh_path)):
         raise AssertionError(f"a kernel of the path was not launched: {eres['launches']}, "
-                             f"capture {eres['build']['capture_launches']}")
+                             f"capture {eres['build']['capture_launches']}, seed_match_shard "
+                             f"{shres['launches']}, mesh engine {eres['sharded']['launches']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

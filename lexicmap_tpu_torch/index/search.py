@@ -228,16 +228,11 @@ class IndexSearcher:
 
         # optional batched device chainer (bit-exact forward DP with host
         # backtracking; ref: Chainer.Chain, lib-chaining.go:122-633); only
-        # the device engine's batches chain through it
+        # the device engine's batches chain through it (the mesh engine
+        # makes one on its mesh's device)
         self.device_chainer = None
         if self.opt.chain_engine == "device" and self.opt.engine == "device":
-            from ..parallel.chain_device import DeviceChainer
-
-            copt = self.opt.chaining_options()
-            self.device_chainer = DeviceChainer(
-                max_gap=copt.max_gap, min_score=copt.min_score,
-                max_dist=int(copt.max_distance), device=self.opt.device,
-            )
+            self.device_chainer = self.make_device_chainer(self.opt.device)
 
         # optional device seed matcher (device-resident packed index)
         self.device_matcher = None
@@ -1476,6 +1471,14 @@ class IndexSearcher:
             return []
 
         return self._phase4_assemble(qcodes, hits, debug=debug, t0=t0)
+
+    def make_device_chainer(self, device):
+        """A DeviceChainer with this search's chaining options on `device`."""
+        from ..parallel.chain_device import DeviceChainer
+
+        copt = self.opt.chaining_options()
+        return DeviceChainer(max_gap=copt.max_gap, min_score=copt.min_score,
+                             max_dist=int(copt.max_distance), device=device)
 
     def phase4_pool(self):
         """The threads that align a query's genomes (phases 5-6), shared by

@@ -89,6 +89,37 @@ def bucket_edges_for(counts: np.ndarray, cap: int | None = None) -> list[int]:
     return edges
 
 
+#: bytes of TPU VMEM the JAX matcher lets a row tile's uint32 blocks take;
+#: kept only because the tile rule below derives from it
+VMEM_BUDGET = 8 << 20
+
+
+def tile_for(E: int, tile_m: int) -> int:
+    """The JAX matcher's row tile for rows of E entries
+    (lexicmap_tpu/parallel/device_search.py::_tile_for).  The sharded
+    matcher pads a bucket's rows to a multiple of it, which sets the
+    bucket's row count and so its hit capacity: the port keeps the rule to
+    keep the same queries over capacity."""
+    return int(min(tile_m, max(8, (VMEM_BUDGET // (8 * E)) // 8 * 8)))
+
+
+def pack_bucket_rows(per_mask, ids: np.ndarray, k: int, E: int, mb_pad: int):
+    """Pack the whole masks `ids` into PAD_HI-padded [mb_pad, E] hi-word
+    rows (the sharded matcher's mask-granular packing).
+
+    Returns (hi u32 [mb_pad, E], cnt i32 [mb_pad], gids u32 [mb_pad], the
+    mask ids, 0xFFFFFFFF on the padding rows)."""
+    hi = np.full((mb_pad, E), PAD_HI, dtype=np.uint32)
+    cnt = np.zeros(mb_pad, dtype=np.int32)
+    for row, mi in enumerate(ids):
+        h = split_kmers_hi_lo(per_mask[mi], k)[0]
+        hi[row, : h.shape[0]] = h
+        cnt[row] = h.shape[0]
+    gids = np.full(mb_pad, PAD_HI, dtype=np.uint32)
+    gids[: ids.shape[0]] = ids.astype(np.uint32)
+    return hi, cnt, gids
+
+
 def pack_vrow_bucket(per_mask, vmask, vstart, vcnt, rows, k, E):
     """Pack chunk rows `rows` (indices into vmask/vstart/vcnt) into
     PAD_HI-padded [len(rows), E] hi-word rows.

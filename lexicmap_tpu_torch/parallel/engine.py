@@ -31,11 +31,22 @@ kernels flag (or one too long for them) is aligned by the host code inside
 phase 5.  Phases 5-6 of batch N overlap with phases 1-4 of batch N+1
 through `search_many`'s finish pool.
 
-Output is identical to the host engine: the device matcher returns exactly
-the host bisection's triples, the device pseudo-aligner exactly the host's
-chain rows, the device chainer exactly the host's forward DP and the device
-WFA exactly the host's op streams (or flags the item for the host), and
-everything downstream is the identical host code
+With a mesh (parallel/sharded.py), phase 2a runs through the mask-sharded
+ShardedSeedMatcher instead: the seed table split over the mesh's tp shards
+(L a rank, each one launch of the seed-locate kernel and one of the
+compaction kernel a bucket) and the hits gathered over the ranks.  Phases
+3-5 then run on the rank's own device, as the JAX package's multi-process
+workers run them (lexicmap_tpu/parallel/multiproc.py).  Where the JAX
+package spreads phases 3-5 over the devices of one process along dp
+(pseudo_device.py, wfa_device.py, chain_device.py there), a rank here
+holds one device and runs them there; the rows are the same either way.
+
+Output is identical to the host engine: the device matchers return exactly
+the host bisection's triples (the sharded one declines a query over its
+hit capacity, which then matches on the host), the device pseudo-aligner
+exactly the host's chain rows, the device chainer exactly the host's
+forward DP and the device WFA exactly the host's op streams (or flags the
+item for the host), and everything downstream is the identical host code
 (ref: lib-index-search.go:1154-2897 for the phase structure).
 """
 
@@ -52,13 +63,37 @@ from .pseudo_device import WORDS_OUT, DevicePseudoAligner
 from .resident import DeviceGenomeBlob, store_bytes
 
 
+def match_phase(idx, matcher, kmers: np.ndarray) -> list:
+    """Phase 2a for a [B, m] batch of masked query k-mers: each query's
+    device triples, or None where there is none (no matcher, a min prefix
+    over 16 bases, or the sharded matcher over its capacity); a None
+    query is matched by the host bisection."""
+    if matcher is None or idx.opt.min_prefix > 16:
+        return [None] * kmers.shape[0]
+    return matcher.match_batch(kmers, idx.opt.min_prefix)
+
+
 class DeviceSearchEngine:
-    def __init__(self, idx, hbm_budget: int | None = None):
+    def __init__(self, idx, hbm_budget: int | None = None, mesh=None):
         """hbm_budget: bytes the resident genome store may take (default
         `default_budget`, read from the card once the seed table is on
-        it)."""
+        it).  mesh: a parallel.sharded.Mesh; phase 2a then runs through a
+        ShardedSeedMatcher over it, and the engine's device stages run on
+        the mesh's device (with chain_engine "device", a DeviceChainer is
+        made there when idx has none).  Every rank of the mesh runs
+        phase 2a on the same batches (`prepare_batch`)."""
         self.idx = idx
-        self.matcher = idx.device_matcher
+        self.mesh = mesh
+        device = idx.opt.device
+        if mesh is None:
+            self.matcher = idx.device_matcher
+        else:
+            from .sharded import ShardedSeedMatcher
+
+            device = mesh.device
+            self.matcher = ShardedSeedMatcher(idx, mesh)
+            if idx.opt.chain_engine == "device" and idx.device_chainer is None:
+                idx.device_chainer = idx.make_device_chainer(device)
         copt = idx.opt.seqcompare_options().chaining
         self.pseudo = DevicePseudoAligner(
             band_base=copt.band_base,
@@ -66,7 +101,7 @@ class DeviceSearchEngine:
             max_gap=int(copt.max_gap),
             min_score=copt.min_score,
             min_align_len=copt.min_align_len,
-            device=idx.opt.device,
+            device=device,
         )
         if hbm_budget is None:
             hbm_budget = default_budget(self.pseudo.device)
@@ -85,10 +120,15 @@ class DeviceSearchEngine:
     # two-stage API so that search_many can overlap host phases 5-6 of
     # batch N with phases 1-4 of batch N+1
 
-    def prepare_batch(self, seqs: list[bytes]):
+    def prepare_batch(self, seqs: list[bytes], matched=None):
         """Phases 1-4: host masking, device seed matching, host posting
         gather and chaining, device pseudo-alignment.  Returns an opaque
-        state for finish_batch."""
+        state for finish_batch.
+
+        matched: phases 1-2a already run for these queries, {i: (masked,
+        dev_hits)} for every query i of k bases or more (the multi-process
+        search matches every query on every rank, then each rank takes
+        its own share of them here)."""
         idx = self.idx
         sopt = idx.opt.seqcompare_options()
         t0 = time.perf_counter()
@@ -99,16 +139,16 @@ class DeviceSearchEngine:
         if len(valid) > 32:
             raise ValueError("engine batches are capped at 32 queries")
 
-        masked = {i: idx._mask_query(codes[i]) for i in valid}
-        self.times["mask"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if self.matcher is not None and idx.opt.min_prefix <= 16:
-            batch = np.stack([masked[i][0] for i in valid])
-            dev = self.matcher.match_batch(batch, idx.opt.min_prefix)
-            dev_hits = {i: dev[b] for b, i in enumerate(valid)}
+        if matched is not None:
+            masked = {i: matched[i][0] for i in valid}
+            dev_hits = {i: matched[i][1] for i in valid}
         else:
-            dev_hits = {i: None for i in valid}
-        self.times["match"] += time.perf_counter() - t0
+            masked = {i: idx._mask_query(codes[i]) for i in valid}
+            self.times["mask"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dev_hits = match_phase(idx, self.matcher, np.stack([masked[i][0] for i in valid]))
+            dev_hits = dict(zip(valid, dev_hits))
+            self.times["match"] += time.perf_counter() - t0
         t0 = time.perf_counter()
 
         pg_of = {

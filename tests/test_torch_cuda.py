@@ -10,17 +10,24 @@ from chip_smoke import native_rows, same_prefix
 from torch_parity import (
     CHAIN1_PARAMS,
     CHAIN_PARAMS,
+    SHARD_CASES,
     capture_cases,
     chain1_csr,
     chain1_sets,
     chain_stress_windows,
     chain_tensors,
+    compact_case,
+    host_triples,
     make_edge_case,
     make_match_edge_case,
     phase4_tensors,
+    rows_of,
+    screening_case,
     seed_match_case,
     seed_match_replay,
     seed_match_torch,
+    shard_kernel_case,
+    sharded_db,
     to_torch,
     wfa_pairs,
     wfa_tensors,
@@ -502,3 +509,124 @@ def test_cuda_device_build_equals_host_build(cuda_device, tmp_path):
         trees.append(tree_bytes(out))
     assert CK.capture.launches == before + 3
     assert trees[0] == trees[1]
+
+
+# the sharded matcher's kernels: B11 (seed_match_shard) and B12's compaction
+# (shard_compact), and one NCCL rank holding four shards on the card
+
+
+def _on_card(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev) for a in arrays]
+
+
+def _shard_kernel_equals_plain(seeds, queries, k, p, dev):
+    from lexicmap_tpu_torch.kernels import seed_match_shard as MS
+
+    s, q = _on_card(dev, seeds, queries)
+    before = MS.seed_match_shard.launches
+    got = MS.seed_match_shard(s, q, k, p)
+    torch.cuda.synchronize()
+    assert MS.seed_match_shard.launches == before + 1
+    want = MS.seed_match_shard_plain(s, q, k, p)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SHARD_CASES)
+def test_cuda_seed_match_shard_edges_equal_plain(cuda_device, name):
+    _shard_kernel_equals_plain(*shard_kernel_case(name, seed=5), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, 33, 70])
+@pytest.mark.parametrize("M, E", [(1, 5), (300, 1000), (40_000, 8)])
+def test_cuda_seed_match_shard_shapes_equal_plain(cuda_device, B, M, E):
+    """Batches around a warp's 32 lanes (one lane a query), and more rows
+    than the kernel's grid has warps (40,000 > 4,096 blocks x 8)."""
+    rng = np.random.default_rng(B * M + E)
+    seeds = np.sort(rng.integers(1, 1 << 32, size=(M, E), dtype=np.uint32), axis=1)
+    queries = seeds[np.arange(M)[None, :], rng.integers(0, E, size=(B, M))]
+    queries[rng.random((B, M)) < 0.2] = 0
+    nh = _shard_kernel_equals_plain(seeds, queries, 16, 15, cuda_device)[0]
+    assert (nh > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.05, 0.6, 1.0])
+@pytest.mark.parametrize("H", [0, 1, 257, 1000])
+def test_cuda_shard_compact_equals_plain(cuda_device, H, rate):
+    from lexicmap_tpu_torch.kernels import shard_compact as SC
+
+    nh, e0, gids = (t.to(cuda_device) for t in compact_case(B=33, mb=1000, hit_rate=rate,
+                                                             seed=H, n_pad=24))
+    before = SC.shard_compact.launches
+    got = SC.shard_compact(nh, e0, gids, H)
+    torch.cuda.synchronize()
+    assert SC.shard_compact.launches == before + 1
+    want = SC.shard_compact_plain(nh, e0, gids, H)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [999, 1000, 1001])
+def test_cuda_shard_compact_capacity_at_the_rows(cuda_device, H):
+    """H at a bucket's row count (H = min(H_SHARD, mb_pad)): every row hit
+    gives n == mb, kept whole at H >= mb, over capacity at H = mb - 1;
+    written into a slab's row as the matcher does."""
+    from lexicmap_tpu_torch.kernels import shard_compact as SC
+
+    nh, e0, gids = (t.to(cuda_device) for t in compact_case(B=3, mb=1000, hit_rate=1.0,
+                                                             seed=9))
+    slab = torch.full((2, 3, 3 * H + 1), 7, dtype=torch.int32, device=cuda_device)
+    got = SC.shard_compact(nh, e0, gids, H, out=slab[1])
+    want = SC.shard_compact_plain(nh, e0, gids, H)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[3] == 1000).all() and (slab[0] == 7).all()
+    assert torch.equal(got[0][:, : min(H, 1000)], gids[None, : min(H, 1000)].expand(3, -1))
+
+
+@pytest.mark.cuda
+def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
+    """make_mesh(local_shards=4) on the card (NCCL, world size 1): the
+    sharded step's scores equal the plain twins' over the whole table, the
+    matcher's triples equal the host bisection's (four launches of each
+    kernel a bucket), and the mesh engine's rows the host engine's."""
+    from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
+    from lexicmap_tpu_torch.kernels import seed_match_shard as MS
+    from lexicmap_tpu_torch.kernels import shard_compact as SC
+    from lexicmap_tpu_torch.parallel import sharded as TS
+    from lexicmap_tpu_torch.parallel.engine import DeviceSearchEngine
+    from lexicmap_tpu_torch.utils.kmers import seq_to_codes
+
+    table, qarr = screening_case(tmp_path)
+    t, q = (torch.from_numpy(a.view(np.int32)) for a in (table, qarr))
+    want_scores = MS.seed_match_shard_plain(t, q, 16, 15)[2].numpy()
+    db, _, queries = sharded_db(tmp_path)
+    host = IndexSearcher(db, SearchOptions())
+    kmers = np.stack([host._mask_query(seq_to_codes(s))[0] for s in queries])
+    want_rows = [rows_of(host.search_bytes(s), f"q{i}") for i, s in enumerate(queries)]
+    with TS.make_mesh(local_shards=4, device="cuda") as mesh:
+        assert (mesh.dp, mesh.tp, mesh.device.type) == (1, 4, "cuda")
+        before = MS.seed_match_shard.launches
+        scores = TS.make_sharded_search_step(mesh, k=16, min_prefix=15)(
+            *TS.shard_arrays(mesh, table, qarr))
+        assert MS.seed_match_shard.launches == before + 4
+        assert np.array_equal(scores.cpu().numpy(), want_scores)
+
+        m = TS.ShardedSeedMatcher(host, mesh)
+        before = (SL.seed_locate_batch.launches, SC.shard_compact.launches)
+        got = m.match_batch(kmers, host.opt.min_prefix)
+        n = 4 * len(m.buckets)
+        assert (SL.seed_locate_batch.launches, SC.shard_compact.launches) == (
+            before[0] + n, before[1] + n)
+        for b, g in enumerate(got):
+            want = host_triples(host, kmers[b], host.opt.min_prefix)
+            assert g is not None and all(np.array_equal(x, y) for x, y in zip(g, want))
+
+        idx = IndexSearcher(db, SearchOptions(device="cuda", chain_engine="device",
+                                              wfa_engine="device"))
+        eng = DeviceSearchEngine(idx, mesh=mesh)
+        rows = [rows_of(r, f"q{i}") for i, r in
+                enumerate(eng.finish_batch(eng.prepare_batch(queries)))]
+        assert rows == want_rows and all(want_rows)

@@ -59,3 +59,13 @@ def test_no_jax_or_reference_import(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "lexicmap_tpu"), (path, n)
+
+
+@pytest.mark.parametrize("mod", ["lexicmap_tpu_torch.entry", "lexicmap_tpu_torch.parallel.sharded",
+                                 "lexicmap_tpu_torch.parallel.multiproc",
+                                 "lexicmap_tpu_torch.kernels.seed_match_shard",
+                                 "lexicmap_tpu_torch.kernels.shard_compact"])
+def test_sharded_modules_are_checked(mod):
+    """The sharded slice's modules are among those the checks above import
+    with jax blocked and parse for imports."""
+    assert mod in port_modules()

@@ -971,3 +971,129 @@ def capture_cases(seed=50):
     c = codes(5_000)
     out.append(("all excluded", m31, 31, c, np.ones(c.shape[0] - 30, dtype=bool)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded matcher's cases (tests/test_torch_sharded.py,
+# tests/test_torch_multiproc.py, tests/test_torch_cuda.py)
+
+
+def sharded_db(d):
+    """The 4-genome (40 kb), 512-mask index of
+    tests/test_parallel.py::test_sharded_full_pipeline_tsv_identical, built
+    with the port's `build_index` under `d`, and its four queries (two
+    exact windows, a mutated one, a chimera).  Returns (db, seqs, queries)."""
+    from lexicmap_tpu_torch.index.build import BuildOptions, build_index
+
+    rng = np.random.default_rng(11)
+    files, seqs = [], {}
+    for i in range(4):
+        seq = bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=40000))
+        path = d / f"G{i}.fasta"
+        with open(path, "wb") as fh:
+            fh.write(b">c0\n" + seq + b"\n")
+        seqs[f"G{i}"] = seq
+        files.append(str(path))
+    db = str(d / "g.lmt")
+    build_index(db, files, BuildOptions(k=31, n_masks=512, chunks=2))
+    alphabet = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q3 = bytearray(seqs["G1"][2000:4000])
+    for pos in rng.integers(0, len(q3), size=20):
+        q3[pos] = alphabet[rng.integers(0, 4)]
+    queries = [seqs["G0"][5000:7000], seqs["G2"][10000:11500], bytes(q3),
+               seqs["G3"][1000:2200] + seqs["G0"][30000:31000]]
+    return db, seqs, queries
+
+
+def screening_case(d):
+    """The hi-word table (256 masks, sorted rows padded with 0xFFFFFFFF) and
+    the 8 queries (two windows, four times) of
+    tests/test_parallel.py::test_sharded_screening_real_index, the index
+    built with the port's `build_index` under `d`.  Returns (table u32
+    [256, E], queries u32 [8, 256])."""
+    from lexicmap_tpu_torch.index.build import BuildOptions, build_index
+    from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
+    from lexicmap_tpu_torch.utils.kmers import seq_to_codes
+
+    rng = np.random.default_rng(9)
+    files, seqs = [], {}
+    for i in range(3):
+        seq = bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), size=30000))
+        path = d / f"S{i}.fasta"
+        with open(path, "wb") as fh:
+            fh.write(b">c0\n" + seq + b"\n")
+        seqs[f"S{i}"] = seq
+        files.append(str(path))
+    db = str(d / "s.lmt")
+    build_index(db, files, BuildOptions(k=31, n_masks=256, chunks=2))
+    idx = IndexSearcher(db, SearchOptions())
+    per_mask = []
+    for rdr in idx.chunks:
+        km = np.asarray(rdr.kmers)
+        off = np.asarray(rdr.mask_offsets)
+        for mi in range(rdr.mask_end - rdr.mask_begin):
+            per_mask.append(np.sort(SL.split_kmers_hi_lo(km[off[mi]: off[mi + 1]], 31)[0]))
+    E = max(((max(len(a) for a in per_mask) + 7) // 8) * 8, 8)
+    table = np.full((256, E), np.uint32(0xFFFFFFFF), dtype=np.uint32)
+    for i, a in enumerate(per_mask):
+        table[i, : a.shape[0]] = a
+    queries = []
+    for name in ["S0", "S2"]:
+        kmers, _ = idx._mask_query(seq_to_codes(seqs[name][4000:6000]))
+        h = SL.split_kmers_hi_lo(kmers, 31)[0]
+        h[kmers == 0] = 0
+        queries.append(h)
+    return table, np.stack(queries * 4)
+
+
+SHARD_CASES = ("random", "pad_all_T", "zero_queries", "E1", "e0_is_E", "k12")
+
+
+def shard_kernel_case(name, seed=0):
+    """Inputs of seed_match_shard (B11): (seeds u32 [M, E], rows sorted
+    over all E words; queries u32 [B, M]; k; p).
+      random: JAX's test (64 x 32, 4 queries drawn from the rows), with
+        mutated suffixes and empty lanes;
+      pad_all_T: rows padded with 0xFFFFFFFF and holding all-T prefixes,
+        queries whose range reaches 0xFFFFFFFF (the pad words count);
+      zero_queries: no query k-mer;
+      E1: rows of one word;
+      e0_is_E: full rows, queries above every word of their row;
+      k12: k = 12, p = 8 (the LCP's k - 16 term is negative)."""
+    rng = np.random.default_rng(seed)
+    k, p = (12, 8) if name == "k12" else (16, 12)
+    M, E, B = {"E1": (48, 1, 5), "pad_all_T": (40, 24, 6)}.get(name, (64, 32, 4))
+    top = 1 << 31 if name == "e0_is_E" else 1 << (2 * k)  # e0_is_E: room above the rows
+    seeds = np.sort(rng.integers(1, top, size=(M, E), dtype=np.uint32), axis=1)
+    queries = seeds[np.arange(M)[None, :], rng.integers(0, E, size=(B, M))]
+    queries ^= rng.integers(0, 1 << (2 * (k - p)), size=(B, M), dtype=np.uint32)
+    queries[rng.random((B, M)) < 0.15] = 0
+    if name == "pad_all_T":
+        cnt = rng.integers(0, E, size=M)
+        tail = np.uint32(0xFFFFFF00) + rng.integers(0, 0x100, size=(M, E), dtype=np.uint32)
+        seeds[:, E // 2:] = tail[:, E // 2:]
+        seeds = np.sort(seeds, axis=1)
+        seeds[np.arange(E)[None, :] >= cnt[:, None]] = 0xFFFFFFFF
+        queries[: B // 2] = np.uint32(0xFFFFFF00) + rng.integers(
+            0, 0x100, size=(B // 2, M), dtype=np.uint32)
+        queries[0, 0] = 0xFFFFFFFF
+    elif name == "zero_queries":
+        queries[:] = 0
+    elif name == "e0_is_E":
+        above = seeds[:, -1] | np.uint32((1 << (2 * (k - p))) - 1)  # q & ~suf above the row
+        queries[: B // 2] = above[None, :] + 1 + rng.integers(
+            0, 1000, size=(B // 2, M), dtype=np.uint32)
+    return seeds, queries, k, p
+
+
+def compact_case(B, mb, hit_rate, seed=0, n_pad=0):
+    """Inputs of shard_compact: nh, e0 int32 [B, mb] (about `hit_rate` of
+    the cells with hits; the last `n_pad` rows padding, never hit) and gids
+    int32 [mb] rising with the row, -1 on the padding."""
+    rng = np.random.default_rng(seed)
+    nh = np.where(rng.random((B, mb)) < hit_rate, rng.integers(1, 50, size=(B, mb)), 0)
+    nh[:, mb - n_pad:] = 0
+    e0 = rng.integers(0, 1 << 20, size=(B, mb))
+    gids = np.cumsum(rng.integers(1, 9, size=mb))
+    gids[mb - n_pad:] = -1
+    return tuple(torch.from_numpy(a.astype(np.int32)) for a in (nh, e0, gids))
