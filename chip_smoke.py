@@ -5,6 +5,7 @@
                           [--compare-source OLD/seed_locate.cu]
                           [--compare-source OLD/seed_match.cu]
                           [--compare-source OLD/chain1.cu] [--compare-source OLD/wfa.cu]
+                          [--compare-source OLD/sharded.cu]
 
 Phases, each of which raises on a wrong result (nothing falls back):
   1. environment: torch/CUDA versions and the card (nvidia-smi);
@@ -28,17 +29,21 @@ Phases, each of which raises on a wrong result (nothing falls back):
   4. DeviceSeedMatcher over a synthetic 20,000-mask x 10,240-entry seed
      table vs a numpy bisection oracle;
   4b. the sharded matcher on one NCCL rank with four local shards, over
-     phase 4's table: seed_match_shard (B11) through
-     make_sharded_search_step on its 16-mer hi words (rows with pad words,
-     all-T queries), then the entry's dry run (lexicmap_tpu_torch/entry.py)
-     on the card: the kernel == its plain version on every shard and on the
-     path's first two launches, n_hits, lcp and the scores == an int64
-     numpy count; ShardedSeedMatcher (B1 and shard_compact, B12, per
-     shard): queries over its hit capacity declined, the others' triples ==
-     DeviceSeedMatcher's and the bisection oracle's, the compaction ==
-     its plain version; times as called, on the device and plain, the
-     bound (B11: the sectors its bisections touch plus I/O), and the
-     library calls (torch.searchsorted x2, torch.sort);
+     phase 4's table: seed_match_shard (B11, one launch for the four
+     shards) through make_sharded_search_step on its 16-mer hi words (rows
+     with pad words, all-T queries), then the entry's dry run
+     (lexicmap_tpu_torch/entry.py) on the card: the kernel == its plain
+     version over the four shards, on every shard alone and on the path's
+     two launches, n_hits, lcp and the scores == an int64 numpy count;
+     ShardedSeedMatcher (B1 and shard_compact, B12, per shard): no query
+     declined, those over its hit capacity through the second compaction,
+     every query's triples == DeviceSeedMatcher's and the bisection
+     oracle's, the compaction == its plain version; times as called, on
+     the device and plain, the bound (B11: the fewer of the sectors its
+     bisections touch and those the kernel reads, plus I/O), and the
+     library calls (torch.searchsorted x2, torch.sort); with
+     --compare-source OLD/sharded.cu, the earlier tree's B11 (a launch a
+     shard) in turns with this one;
   5. phase 4 at real state size: a >= 1 GB resident genome blob (1,000
      genomes of 4 Mb) with mutated copies of 32 queries planted at 2,048
      window sites; pseudo_probe and pseudo_chain vs their plain versions
@@ -149,30 +154,56 @@ def device_ms(fn, name, reps: int = 20) -> tuple[float, str]:
     return sum(by.values()), "profiler"
 
 
+def _cuda_rows(fn, reps):
+    """[(kernel name, device us)] of the CUDA rows of `reps` calls of fn,
+    from one torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
 def device_ms_split(fn, names, reps: int = 20) -> dict:
     """{name: mean device ms of its kernel rows} over `reps` calls of fn,
     each name a substring of one kernel that fn launches (None where the
     profiler shows no row)."""
     import torch
-    from torch.autograd import DeviceType
 
     if not torch.cuda.is_available():
         return {nm: None for nm in names}
     fn()
     torch.cuda.synchronize()
     for _ in range(3):  # a trace now and then comes back without device rows: again
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        rows = _cuda_rows(fn, reps)
         out = {}
         for nm in names:
-            us = [e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and nm in e.name]
+            us = [t for name, t in rows if nm in name]
             out[nm] = sum(us) / len(us) / 1e3 if us else None
         if None not in out.values():
             break
     return out
+
+
+def device_ms_per_call(fn, names, reps: int = 20):
+    """Device ms a call of fn: the rows of every kernel whose name holds one
+    of `names`, summed over `reps` calls, over reps (None where the profiler
+    shows none, or there is no CUDA device)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device rows: again
+        us = [t for name, t in _cuda_rows(fn, reps) if any(nm in name for nm in names)]
+        if us:
+            return sum(us) / reps / 1e3
+    return None
 
 
 def sync(dev):
@@ -227,13 +258,13 @@ def seed_locate_case(dev, Mb, E, B, k, seed):
     return to_i32_bits(hi64).contiguous(), cnt, to_i32_bits(qh64).contiguous(), qv, hi64
 
 
-PARENT_SOURCES = ("seed_locate", "seed_match", "chain1", "wfa")
+PARENT_SOURCES = ("seed_locate", "seed_match", "chain1", "wfa", "sharded")
 
 
 def parent_build(paths):
     """Start nvcc on each earlier tree's csrc/seed_locate.cu, seed_match.cu,
-    chain1.cu or wfa.cu (same flags; headers beside it), beside the kernel
-    build; parent_load() waits for them."""
+    chain1.cu, wfa.cu or sharded.cu (same flags; headers beside it), beside
+    the kernel build; parent_load() waits for them."""
     from lexicmap_tpu_torch.kernels import build
 
     started = {}
@@ -274,6 +305,10 @@ def parent_load(started):
         if name == "seed_match":
             lib.seed_match.argtypes = [vp] * 9 + [ci, ci, ctypes.c_uint, ci, vp]
             lib.seed_match.restype = ci
+            continue
+        if name == "sharded":  # the entry of one shard a launch (no L)
+            lib.seed_match_shard.argtypes = [vp] * 6 + [ci] * 3 + [ctypes.c_uint, ci, vp]
+            lib.seed_match_shard.restype = ci
             continue
         lib.seed_locate_batch.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint, vp]
         lib.seed_locate_batch.restype = ci
@@ -1017,11 +1052,54 @@ def host_shard_count(hi, qh, k, p):
     return nh, lcp, (nh * lcp).sum(1)
 
 
-def phase_sharded(dev, card, state, seed, reps):
+def shard_in_turns(dev, lib, s_seeds, s_queries, p, out, reps):
+    """The earlier tree's B11 (--compare-source OLD/sharded.cu: a launch of
+    match_shard and score_f32 per shard, as its step called them, with the
+    scores added) in turns with this tree's one launch (earlier, new, new,
+    earlier): ms as called and device ms a call, every kernel row of the
+    call summed.  Both must give the same outputs."""
+    import torch
+
+    from lexicmap_tpu_torch.kernels import seed_match_shard as MS
+
+    L, M, E = s_seeds.shape
+    B = s_queries.shape[1]
+    suf = (1 << (2 * (16 - p))) - 1
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def earlier():
+        outs = []
+        for l in range(L):
+            o = torch.empty((2, B, M), dtype=torch.int32, device=dev)
+            acc = torch.empty(B, dtype=torch.int64, device=dev)
+            score = torch.empty(B, dtype=torch.float32, device=dev)
+            err = lib.seed_match_shard(s_seeds[l].data_ptr(), s_queries[l].data_ptr(),
+                                       o[0].data_ptr(), o[1].data_ptr(), acc.data_ptr(),
+                                       score.data_ptr(), B, M, E, suf, 16, stream)
+            if err:
+                raise RuntimeError(f"the earlier match_shard failed to launch ({err})")
+            outs.append((o, score))
+        return (torch.stack([o[0] for o, _ in outs]), torch.stack([o[1] for o, _ in outs]),
+                sum(sc for _, sc in outs))
+
+    def new():
+        return MS.seed_match_shard(s_seeds, s_queries, 16, p)
+
+    if int_err(earlier(), out):
+        raise AssertionError("the earlier match_shard and this tree's differ")
+    res = {"earlier": [], "new": [], "earlier_device": [], "new_device": []}
+    for key, fn in (("earlier", earlier), ("new", new), ("new", new), ("earlier", earlier)):
+        res[key].append(time_ms(fn, dev, reps))
+        res[key + "_device"].append(device_ms_per_call(fn, ("match_shard", "score_f32"), reps))
+    return res
+
+
+def phase_sharded(dev, card, state, seed, reps, parent=None):
     """B11 through make_sharded_search_step and B12 through
     ShardedSeedMatcher on a one-rank NCCL mesh with four local shards, over
-    phase 4's table; the entry's dry run on the card.  Returns (B11's
-    result, B12's result, the mesh)."""
+    phase 4's table; the entry's dry run on the card; with `parent` (the
+    earlier tree's sharded.cu), its B11 in turns with this one.  Returns
+    (B11's result, B12's result, the mesh)."""
     import numpy as np
     import torch
 
@@ -1070,53 +1148,57 @@ def phase_sharded(dev, card, state, seed, reps):
     finally:
         TS.seed_match_shard = real
     launches = launch_counts()  # ... and ends here
-    if dev.type == "cuda" and launches["seed_match_shard"] != 2 * L:
+    if dev.type == "cuda" and launches["seed_match_shard"] != 2:
         raise AssertionError(f"the step and the dry run launched seed_match_shard "
-                             f"{launches['seed_match_shard']} times, expected {2 * L}")
+                             f"{launches['seed_match_shard']} times, expected 2 (one each)")
     main_err, main_shape = 0, []
     for a, got in recorded:
         want = MS.seed_match_shard_plain(*a)
         err = int_err(got, want)
         if err or not all(torch.equal(x, y) for x, y in zip(got, want)):
             raise AssertionError(f"main path: seed_match_shard != plain (max abs err {err})")
-        main_shape.append({"B": int(a[1].shape[0]), "M": int(a[0].shape[0]),
-                           "E": int(a[0].shape[1]), "k": a[2], "p": a[3]})
+        main_err = max(main_err, err)
+        main_shape.append({"L": int(a[0].shape[0]), "B": int(a[1].shape[1]),
+                           "M": int(a[0].shape[1]), "E": int(a[0].shape[2]), "k": a[2],
+                           "p": a[3]})
     log(f"[sharded] main path, first {len(recorded)} seed_match_shard launches: kernel == "
         f"plain on {json.dumps(main_shape)}")
 
-    # every shard's kernel against its plain twin, and the whole against an
-    # int64 numpy count of the definition
+    # the rank's launch over its L shards and each shard's own launch
+    # against the plain twin, and the whole against an int64 numpy count of
+    # the definition
     saved = launch_counts()
-    outs = [MS.seed_match_shard(s_seeds[l], s_queries[l], 16, p) for l in range(L)]
-    err = 0
-    for l, got in enumerate(outs):
+    out = MS.seed_match_shard(s_seeds, s_queries, 16, p)
+    err = int_err(out, MS.seed_match_shard_plain(s_seeds, s_queries, 16, p))
+    for l in range(L):
+        got = MS.seed_match_shard(s_seeds[l], s_queries[l], 16, p)
         want = MS.seed_match_shard_plain(s_seeds[l], s_queries[l], 16, p)
-        err = max(err, int_err(got, want))
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"seed_match_shard != plain on shard {l}")
+        err = max(err, int_err(got, want), int_err(got[:2], (out[0][l], out[1][l])))
+    if err:
+        raise AssertionError(f"seed_match_shard != plain over the {L} shards (max abs err {err})")
     hn, hl, hs = host_shard_count(hi, qh, 16, p)
-    nh = torch.cat([o[0] for o in outs], 1).cpu().numpy()
-    lcp = torch.cat([o[1] for o in outs], 1).cpu().numpy()
+    nh = out[0].permute(1, 0, 2).reshape(B, M).cpu().numpy()
+    lcp = out[1].permute(1, 0, 2).reshape(B, M).cpu().numpy()
     sc = scores.cpu().numpy()
     if not (np.array_equal(nh, hn) and np.array_equal(lcp, hl) and
-            np.array_equal(sc.astype(np.int64), hs) and hs.max() < 1 << 24):
+            np.array_equal(sc.astype(np.int64), hs) and
+            np.array_equal(out[2].cpu().numpy(), sc) and hs.max() < 1 << 24):
         raise AssertionError("seed_match_shard / the step disagree with the int64 host count")
     if nh[0, 0] < E // 4 or nh[1, 1] < 64:
         raise AssertionError("the all-T queries must count the pad words")
-    log(f"[sharded] seed_match_shard: kernel == plain on {L} shards of {M // L} x {E}, "
-        f"n_hits, lcp and the step's scores == int64 host count ({int((nh > 0).sum())} cells "
-        f"with hits; largest score {float(sc.max())}, under 2^24)")
+    log(f"[sharded] seed_match_shard: kernel == plain in one launch over {L} shards of "
+        f"{M // L} x {E} and on each shard alone; n_hits, lcp and the step's scores == int64 "
+        f"host count ({int((nh > 0).sum())} cells with hits; largest score "
+        f"{float(sc.max())}, under 2^24)")
 
     def b11():
-        for l in range(L):
-            MS.seed_match_shard(s_seeds[l], s_queries[l], 16, p)
+        return MS.seed_match_shard(s_seeds, s_queries, 16, p)
 
     ms = time_ms(b11, dev, reps)
-    by = device_ms_split(b11, ("match_shard", "score_f32"), reps)
-    dev_ms = None if None in by.values() else L * sum(by.values())
+    by = device_ms_split(b11, ("match_shard",), reps)
+    dev_ms = by["match_shard"]
     step_ms = time_ms(lambda: step(s_seeds, s_queries), dev, reps)
-    plain_ms = time_ms(lambda: [MS.seed_match_shard_plain(s_seeds[l], s_queries[l], 16, p)
-                                for l in range(L)], dev, 2)
+    plain_ms = time_ms(lambda: MS.seed_match_shard_plain(s_seeds, s_queries, 16, p), dev, 2)
     hi64 = s_seeds.reshape(M, E).long() & 0xFFFFFFFF
     qs = s_queries.permute(1, 0, 2).reshape(B, M)
     q64 = qs.T.contiguous().long() & 0xFFFFFFFF
@@ -1134,23 +1216,32 @@ def phase_sharded(dev, card, state, seed, reps):
         hi64, torch.full((M,), E, dtype=torch.int32, device=dev), qs, qs != 0, p,
         rb_from_lb=False)
     del hi64, q64, lb, rb
-    io_bytes = B * M * 4 + 2 * B * M * 4 + B * 12
-    bound_ms, bound_by = locate_bound(sector_bytes, sector_bytes, probes, io_bytes)
+    rn, _, design = parity().shard_match_replay(s_seeds.reshape(M, E), qs, p)
+    if not np.array_equal(rn.cpu().numpy(), nh):
+        raise AssertionError("the torch replay of match_shard's search disagrees with the kernel")
+    design_bytes = design.numel() * SECTOR
+    io_bytes = B * M * 4 + 2 * B * M * 4 + B * 4
+    bound_ms, bound_by = locate_bound(sector_bytes, design_bytes, probes, io_bytes)
     b11res = {"M": M, "E": E, "B": B, "k": 16, "p": p, "L": L, "equal": True,
               "max_abs_err": max(err, main_err), "main_path_err": main_err,
               "main_path_shape": main_shape, "launches": launches["seed_match_shard"],
               "ms": ms, "device_ms": dev_ms, "device_ms_by": by, "step_ms": step_ms,
               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "sector_bytes": sector_bytes, "io_bytes": io_bytes,
-              "probes": probes, "table_bytes": M * E * 4, "largest_score": float(sc.max())}
-    log(f"[sharded] seed_match_shard x {L}: ms={ms:.4f} (device {dev_ms}, {json.dumps(by)}) "
+              "bound_by": bound_by, "sector_bytes": sector_bytes, "design_bytes": design_bytes,
+              "io_bytes": io_bytes, "probes": probes, "table_bytes": M * E * 4,
+              "largest_score": float(sc.max())}
+    if parent is not None:
+        b11res["parent"] = shard_in_turns(dev, parent, s_seeds, s_queries, p, out, reps)
+    log(f"[sharded] seed_match_shard, one launch for {L} shards: ms={ms:.4f} (device {dev_ms}) "
         f"step as called {step_ms:.4f} plain_ms={plain_ms:.2f} library_ms={library_ms:.4f} "
-        f"bound_ms={bound_ms:.4f} ({bound_by}; sectors {sector_bytes / 1e6:.1f} MB) [{card}]")
-    del s_seeds, s_queries, outs
+        f"bound_ms={bound_ms:.4f} ({bound_by}; bisections' sectors {sector_bytes / 1e6:.1f} MB, "
+        f"the design's {design_bytes / 1e6:.1f} MB); earlier kernel in turns "
+        f"{json.dumps(b11res.get('parent'))} [{card}]")
+    del s_seeds, s_queries, out
 
     # B12: ShardedSeedMatcher over the 31-mer table, a quarter of the
-    # queries drawn from one row in eight at random (kept under H), half
-    # from 90% of the rows (over H: declined), a quarter random
+    # queries drawn from one row in eight at random (under H), half from 90%
+    # of the rows (over H: through the second compaction), a quarter random
     q2 = q.copy()
     rows8 = rng.random(M) < 1 / 8
     drawn = kmers[off[:-1][None, :] + rng.integers(0, E, size=(B // 4, M))]
@@ -1168,34 +1259,32 @@ def phase_sharded(dev, card, state, seed, reps):
     bk = sm.buckets[0]
     H = sm.capacity(bk)
     got = sm.match_batch(q2, p)
+    second = dict(sm.stats)
     want = state["matcher"].match_batch(q2, p)
     suf64 = np.uint64((1 << (2 * (k - p))) - 1)
     bsel, msel = np.nonzero(q2 != 0)
     x = q2[bsel, msel]
     lo = segment_bisect(kmers, off[msel], off[msel + 1], x & ~suf64, "left")
     up = segment_bisect(kmers, off[msel], off[msel + 1], x | suf64, "right")
-    kept = per_shard_max = 0
+    over = most = 0
     for b in range(B):
         s = (bsel == b) & (up > lo)
         oracle = (msel[s], lo[s] - off[msel[s]], (up - lo)[s])
         fullest = int(np.bincount(oracle[0] % sm.tp, minlength=sm.tp).max())
-        if fullest > H:
-            if got[b] is not None:
-                raise AssertionError(f"query {b}: {fullest} hits on a shard over H = {H}, "
-                                     f"not declined")
-            continue
+        over += fullest > H
+        most = max(most, fullest)
         if got[b] is None or any(not (np.array_equal(g, o) and np.array_equal(g, w))
                                  for g, o, w in zip(got[b], oracle, want[b])):
             raise AssertionError(f"query {b}: sharded triples != DeviceSeedMatcher's / oracle")
-        kept += 1
-        per_shard_max = max(per_shard_max, fullest)
     declined = sum(g is None for g in got)
-    if declined < B // 2 or per_shard_max < H // 4:
-        raise AssertionError(f"expected >= {B // 2} queries declined and some kept with "
-                             f"hundreds of hits a shard: {declined} declined, {per_shard_max}")
-    log(f"[sharded] match_batch: {kept} queries == DeviceSeedMatcher's and the host "
-        f"bisection's (up to {per_shard_max} hits a shard kept, H = {H}), {declined} declined "
-        f"over H")
+    if (declined or over < B // 2 or second["second_pass_queries"] != over
+            or second["second_passes"] != 1):
+        raise AssertionError(f"expected none declined and >= {B // 2} queries through the "
+                             f"second compaction: {declined} declined, {over} over H = {H}, "
+                             f"the matcher's stats {second}")
+    log(f"[sharded] match_batch: all {B} queries == DeviceSeedMatcher's and the host "
+        f"bisection's, none declined; {over} over H = {H} (up to {most} hits a shard) through "
+        f"the second compaction, as the matcher reports ({json.dumps(second)})")
 
     # the compaction against its plain twin on shard 0's locate outputs
     sel = q2 != 0
@@ -1223,16 +1312,24 @@ def phase_sharded(dev, card, state, seed, reps):
     c_bytes_ms = c_bytes / HBM_BYTES_PER_S * 1e3
     c_ops_ms = 2 * nh0.numel() / FP32_OPS_PER_S * 1e3
     batch_ms = time_ms(lambda: sm.match_batch(q2, p), dev, 3, warmup=0)
+    # the same batch with its over-H half random: the first pass alone
+    q3 = q2.copy()
+    q3[: B // 2] = rng.integers(0, 1 << 62, size=(B // 2, M), dtype=np.uint64)
+    passes = sm.stats["second_passes"]
+    batch_first_ms = time_ms(lambda: sm.match_batch(q3, p), dev, 3, warmup=0)
+    if sm.stats["second_passes"] != passes:
+        raise AssertionError("the batch without over-H queries took a second compaction")
     for fn in kernel_fns():  # the comparisons' launches do not count
         fn.launches = saved[fn.__name__]
     b12res = {"B": B, "mb_pad": bk.mb_pad, "E": bk.E, "H": H, "tile": bk.tile, "equal": True,
               "max_abs_err": cerr, "hits_shard0": int((nh0 > 0).sum()),
-              "kept_queries": kept, "declined_queries": declined,
-              "most_hits_kept": per_shard_max, "ms": c_ms, "device_ms": c_dev,
+              "declined_queries": declined, "second_pass_queries": over,
+              "most_hits_a_shard": most, "ms": c_ms, "device_ms": c_dev,
               "device_ms_by": c_by, "plain_ms": c_plain, "library_ms": c_lib,
               "bound_ms": max(c_bytes_ms, c_ops_ms),
               "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
-              "bytes": c_bytes, "matcher_ms_per_batch": batch_ms, "init_s": init_s,
+              "bytes": c_bytes, "matcher_ms_per_batch": batch_ms,
+              "matcher_ms_first_pass_only": batch_first_ms, "init_s": init_s,
               "hbm_bytes": sm.hbm_bytes}
     log(f"[sharded] shard_compact at B={B}, rows={bk.mb_pad}, H={H}: kernel == plain; "
         f"{json.dumps({k_: v for k_, v in b12res.items() if 'ms' in k_})} [{card}]")
@@ -2639,11 +2736,11 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
     """The mesh engine (DeviceSearchEngine with a one-rank mesh of four
     shards; chain1 and the WFA on the card too) on the 200-genome index:
     rows equal to the host engine's, four launches of B1 and of the
-    compaction a batch, the first `n_check` launches of each equal to its
-    plain version on the same tensors; q/min in turns with the device engine; then the
-    multi-process search's launcher with one worker of four shards: its TSV
-    equal to the host rows."""
-    import numpy as np
+    compaction a bucket and batch (and four more of the compaction for each
+    bucket that the matcher compacts again), the first `n_check` launches
+    of each equal to its plain version on the same tensors; q/min in turns
+    with the device engine; then the multi-process search's launcher with
+    one worker of four shards: its TSV equal to the host rows."""
     import torch
 
     from lexicmap_tpu_torch.cli import TSV_HEADER
@@ -2651,8 +2748,7 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
     from lexicmap_tpu_torch.kernels import seed_locate as SL
     from lexicmap_tpu_torch.kernels import shard_compact as SC
     from lexicmap_tpu_torch.parallel import sharded as TS
-    from lexicmap_tpu_torch.parallel.engine import DeviceSearchEngine, match_phase
-    from lexicmap_tpu_torch.utils.kmers import seq_to_codes
+    from lexicmap_tpu_torch.parallel.engine import DeviceSearchEngine
 
     def run(eng, qs):
         out = []
@@ -2692,10 +2788,14 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
         raise AssertionError("mesh engine rows differ from the host rows")
     batches = -(-len(seqs) // 32)
     per = mesh.local_shards * len(meng.matcher.buckets) * batches
-    if dev.type == "cuda" and not (launches["seed_locate_batch"] == launches["shard_compact"]
-                                   == per and launches["chain1_forward"] == batches):
-        raise AssertionError(f"mesh engine launches {launches}, expected {per} of B1 and of "
-                             f"the compaction, {batches} of chain1")
+    second = dict(meng.matcher.stats)  # a query over H: its bucket compacted again
+    again = mesh.local_shards * second["second_passes"]
+    if dev.type == "cuda" and not (launches["seed_locate_batch"] == per
+                                   and launches["shard_compact"] == per + again
+                                   and launches["chain1_forward"] == batches):
+        raise AssertionError(f"mesh engine launches {launches}, expected {per} of B1 and "
+                             f"{per} + {again} of the compaction ({second}), {batches} of "
+                             f"chain1")
     for name, kept in recorded.items():
         if len(kept) != n_check:
             raise AssertionError(f"recorded {len(kept)} {name} launches, expected {n_check}")
@@ -2718,14 +2818,12 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
         locate_shape.append({"Mb": int(a[0].shape[0]), "E": int(a[0].shape[1]),
                              "B": int(a[2].shape[0]), "p": a[4], "path": "mesh engine"})
     log(f"[e2e] mesh engine ({meng.matcher.describe()}; init {init_s:.1f} s): rows == host "
-        f"rows; launches {json.dumps(launches)}; first {n_check} shard_compact launches == "
+        f"rows; launches {json.dumps(launches)}; matcher {json.dumps(second)}; first {n_check} shard_compact launches == "
         f"plain on {json.dumps(main_shape)}; first {n_check} seed_locate_batch launches == "
         f"plain on {json.dumps(locate_shape)}")
 
     # q/min in turns with the device engine (no claim)
     saved = launch_counts()
-    declined = sum(d is None for d in match_phase(midx, meng.matcher, np.stack(
-        [midx._mask_query(seq_to_codes(s.upper()))[0] for s in seqs[:32]])))
     dev_s, mesh_s = [], []
     for _ in range(rounds):
         for name in ("device", "mesh", "mesh", "device"):
@@ -2741,7 +2839,7 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
     n = len(seqs)
     res = {"launches": launches, "main_path_err": main_err, "main_path_shape": main_shape,
            "locate_main_path_err": locate_err, "locate_main_path_shape": locate_shape,
-           "init_s": init_s, "declined_of_32": declined,
+           "init_s": init_s, "matcher_stats": second,
            "mesh_qpm": [n / t * 60 for t in mesh_s], "device_qpm": [n / t * 60 for t in dev_s],
            "mesh_times": dict(meng.times), "hbm_bytes": meng.matcher.hbm_bytes}
     log(f"[e2e] q/min in turns: mesh engine {[round(x, 1) for x in res['mesh_qpm']]}, device "
@@ -2858,7 +2956,11 @@ def sharded_row(name, replaces, res, launches, main_err, main_shape, library):
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"], "library": library,
             "shape": {key: res[key] for key in ("B", "E", "p", "M", "L", "k", "mb_pad", "H")
-                      if key in res}}
+                      if key in res},
+            **{key: res[key] for key in ("sector_bytes", "design_bytes", "io_bytes", "bytes",
+                                         "step_ms", "parent", "matcher_ms_per_batch",
+                                         "matcher_ms_first_pass_only", "second_pass_queries")
+               if key in res}}
 
 
 def main() -> int:
@@ -2869,8 +2971,9 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5,
                     help="end-to-end timing rounds of (host, device, device, host) passes")
     ap.add_argument("--compare-source", metavar="CU", action="append", default=[],
-                    help="an earlier tree's csrc/seed_locate.cu, seed_match.cu, chain1.cu or "
-                         "wfa.cu (given once each; any header it includes beside it): build it "
+                    help="an earlier tree's csrc/seed_locate.cu, seed_match.cu, chain1.cu, "
+                         "wfa.cu or sharded.cu (given once each; any header it includes beside "
+                         "it): build it "
                          "too and time its kernels against this tree's, in turns, at the same "
                          "shapes")
     args = ap.parse_args()
@@ -2914,7 +3017,8 @@ def main() -> int:
     mres, mstate = phase_matcher(dev, card, M=20_000, E=10_240, B=32, p=15, seed=args.seed,
                                  reps=5)
     torch.cuda.empty_cache()
-    shres, cpres, mesh = phase_sharded(dev, card, mstate, seed=args.seed, reps=20)
+    shres, cpres, mesh = phase_sharded(dev, card, mstate, seed=args.seed, reps=20,
+                                       parent=parents.get("sharded"))
     del mstate
     torch.cuda.empty_cache()
     pres, cres, p4 = phase_pseudo(dev, card, n_stores=4, per_store=250, genome_len=4 << 20,

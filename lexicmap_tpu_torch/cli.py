@@ -83,6 +83,23 @@ def cmd_index(args) -> int:
     if (args.engine == "device" and args.device == "cuda"
             and no_cuda("run the device capture on the CPU, or --engine host")):
         return 1
+    if not args.quiet:
+        # parameter echo (ref: index.go:454-495 verbose run summary)
+        print(
+            "build parameters:\n"
+            f"  input: {len(files)} file(s)\n"
+            f"  k-mer size: {opt.k}, masks: {opt.n_masks}, seed: {opt.rand_seed}"
+            + (f", mask file: {opt.mask_file}" if opt.mask_file else "")
+            + "\n"
+            f"  batch size: {opt.batch_size}, seed chunks: {opt.chunks or 'auto'}, "
+            f"partitions: {opt.partitions}\n"
+            f"  max genome size: {opt.max_genome_size}, contig interval: {opt.contig_interval}\n"
+            f"  seed desert: max {opt.seed_max_desert}, in-desert dist {opt.seed_in_desert_dist}"
+            + (" (desert filling disabled)" if opt.disable_desert_filling else "")
+            + "\n"
+            f"  output: {args.out_dir}",
+            file=sys.stderr,
+        )
     t0 = time.time()
     info = build_index(args.out_dir, files, opt)
     if not args.quiet:

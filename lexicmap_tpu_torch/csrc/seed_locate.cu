@@ -184,38 +184,16 @@ locate_batch_sampled(const uint32_t* __restrict__ seed_hi, const int32_t* __rest
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m = blockIdx.x * ROWS + warp;
   if (m >= Mb) return;  // warp-uniform
-  uint32_t* piv = pivots[warp];
   const int cnt = min(max(seed_cnt[m], 0), E);
   const uint32_t* row = seed_hi + (int64_t)m * E;
-  const int s = cnt > SAMPLE ? (cnt + SAMPLE - 1) / SAMPLE : 1;  // stride of the sample
-  const int P = (cnt + s - 1) / s;  // pivots row[j*s], all j*s < cnt
-  {
-    uint32_t v[SAMPLE / 32];  // every pivot load issued before the first store
-#pragma unroll
-    for (int u = 0; u < SAMPLE / 32; ++u) {
-      const int j = u * 32 + lane;
-      if (j < P) v[u] = __ldg(row + (int64_t)j * s);
-    }
-#pragma unroll
-    for (int u = 0; u < SAMPLE / 32; ++u) {
-      const int j = u * 32 + lane;
-      if (j < P) piv[j] = v[u];
-    }
-  }
-  __syncwarp();
+  const Sample smp = stage_sample<SAMPLE>(row, cnt, lane, pivots[warp]);
   for (int b0 = 0; b0 < B; b0 += 32) {
     const int64_t q = (int64_t)(b0 + lane) * Mb + m;
     const bool in = b0 + lane < B;
     const uint32_t qhi = in ? query_hi[q] : 0u;
     const bool ok = in && query_valid[q];
-    const uint32_t lb = qhi & ~suf, rb = qhi | suf;
-    // c0 pivots are < lb, c1 are <= rb.  c0 == 0: e0 is 0.  Else e0 lies in
-    // [(c0-1)*s + 1, min(c0*s, cnt)]; the same for end with c1.
-    int c0 = 0, c1 = 0;
-    search_pair<false>(piv, lb, rb, c0, ok ? P : 0, c1, ok ? P : 0);
-    int e0 = c0 > 0 ? (c0 - 1) * s + 1 : 0, end = c1 > 0 ? (c1 - 1) * s + 1 : 0;
-    search_pair<true>(row, lb, rb, e0, c0 > 0 ? min(c0 * s, cnt) : 0, end,
-                      c1 > 0 ? min(c1 * s, cnt) : 0);
+    int e0, end;
+    sampled_bounds(row, pivots[warp], smp, cnt, qhi & ~suf, qhi | suf, ok, e0, end);
     if (in) {
       n_hits[q] = end - e0;
       e0_out[q] = e0;

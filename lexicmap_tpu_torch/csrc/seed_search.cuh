@@ -1,9 +1,10 @@
-// Device code shared by seed_locate.cu (B1, B2) and seed_match.cu (B3): the
-// paired bisection of a prefix range's two bounds, and B2's search of one
-// sorted row for one query over its heads and runs of RUN entries
-// (seed_locate.cu's note says why it has this shape; each kernel picks its
-// RUN).  kernels/build.py hashes this header into the name of every library
-// whose source includes it.
+// Device code shared by seed_locate.cu (B1, B2), seed_match.cu (B3) and
+// sharded.cu (B11): the paired bisection of a prefix range's two bounds;
+// B1's and B11's search of a sorted row through a sample of its pivots in
+// shared memory; and B2's search of one sorted row for one query over its
+// heads and runs of RUN entries (seed_locate.cu's note says why each has
+// its shape; each kernel picks its RUN).  kernels/build.py hashes this
+// header into the name of every library whose source includes it.
 
 #pragma once
 
@@ -41,6 +42,53 @@ __device__ __forceinline__ void search_pair(const uint32_t* __restrict__ s, uint
       if (v1 <= rb) lo1 = m1 + 1; else hi1 = m1;
     }
   }
+}
+
+// A row's sample, row[j * s] for j < P, with s = ceil(cnt / SAMPLE) (1
+// where cnt <= SAMPLE) and P = ceil(cnt / s): one warp stages it in `piv`
+// (SAMPLE words of shared memory), every load issued before the first
+// store, so the top levels cost one round trip.
+struct Sample {
+  int s, P;
+};
+
+template <int SAMPLE>
+__device__ __forceinline__ Sample stage_sample(const uint32_t* __restrict__ row, int cnt,
+                                               int lane, uint32_t* __restrict__ piv) {
+  static_assert(SAMPLE % 32 == 0, "a warp stages the sample");
+  const int s = cnt > SAMPLE ? (cnt + SAMPLE - 1) / SAMPLE : 1;
+  const int P = (cnt + s - 1) / s;
+  uint32_t v[SAMPLE / 32];
+#pragma unroll
+  for (int u = 0; u < SAMPLE / 32; ++u) {
+    const int j = u * 32 + lane;
+    if (j < P) v[u] = __ldg(row + (int64_t)j * s);
+  }
+#pragma unroll
+  for (int u = 0; u < SAMPLE / 32; ++u) {
+    const int j = u * 32 + lane;
+    if (j < P) piv[j] = v[u];
+  }
+  __syncwarp();
+  return {s, P};
+}
+
+// One query's range in a row sorted over [0, cnt) through its staged
+// sample: e0 the first entry >= lb, end the first > rb (both 0 where !ok).
+// lb and rb bisect the pivots, sharing their probes: c0 pivots are < lb
+// (e0 is 0 where c0 is 0, else in [(c0-1)*s + 1, min(c0*s, cnt)]), the same
+// for end with c1.  Then each bound's interval of at most s - 1 entries is
+// bisected in global memory, the two bounds' probes issued together.
+__device__ __forceinline__ void sampled_bounds(const uint32_t* __restrict__ row,
+                                               const uint32_t* __restrict__ piv, Sample smp,
+                                               int cnt, uint32_t lb, uint32_t rb, bool ok,
+                                               int& e0, int& end) {
+  int c0 = 0, c1 = 0;
+  search_pair<false>(piv, lb, rb, c0, ok ? smp.P : 0, c1, ok ? smp.P : 0);
+  e0 = c0 > 0 ? (c0 - 1) * smp.s + 1 : 0;
+  end = c1 > 0 ? (c1 - 1) * smp.s + 1 : 0;
+  search_pair<true>(row, lb, rb, e0, c0 > 0 ? min(c0 * smp.s, cnt) : 0, end,
+                    c1 > 0 ? min(c1 * smp.s, cnt) : 0);
 }
 
 // The run row[b .. b + RUN) whole: 16-byte loads where `vec` (the row

@@ -2,21 +2,23 @@
 //
 // match_shard replaces lexicmap_tpu/parallel/sharded.py::seed_match_shard
 // (B11; the bisection kernels.py::searchsorted_rows and the LCP
-// ::kmer_lcp_bases), fused with the per-query partial score of
-// make_sharded_search_step.  For a shard's k-mer rows seeds [M, E] (uint32,
-// k <= 16, each row sorted ascending over all E words, padding included)
-// and queries [B, M], with suf = 2^(2(k-p)) - 1:
+// ::kmer_lcp_bases), fused with the per-query score of
+// make_sharded_search_step, for all L local shards of a rank in one
+// launch.  For shard l's k-mer rows seeds[l] [M, E] (uint32, k <= 16, each
+// row sorted ascending over all E words, padding included) and queries[l]
+// [B, M], with suf = 2^(2(k-p)) - 1:
 //
-//     e0          = #{e < E : row[e] <  q & ~suf}   (left bisection)
-//     e1          = #{e < E : row[e] <= q |  suf}   (right bisection)
-//     n_hits[b,m] = q != 0 ? e1 - e0 : 0
-//     lcp[b,m]    = n_hits > 0 ? (clz32(row[min(e0, E-1)] ^ q) >> 1) + k - 16 : 0
-//     score[b]    = float32(sum over m of n_hits * lcp)
+//     e0            = #{e < E : row[e] <  q & ~suf}   (left bisection)
+//     e1            = #{e < E : row[e] <= q |  suf}   (right bisection)
+//     n_hits[l,b,m] = q != 0 ? e1 - e0 : 0
+//     lcp[l,b,m]    = n_hits > 0 ? (clz32(row[e0] ^ q) >> 1) + k - 16 : 0
+//     score[b]      = float32(sum over l, m of n_hits * lcp)
 //
-// The bisections run over the whole padded row, as the JAX version's do,
-// so a query whose range reaches 0xFFFFFFFF counts the pad words.  The
-// sum is exact in int64 (atomics on integers, so the same in every run),
-// converted to float32 once per query and shard.
+// (e0 < E wherever n_hits > 0, so row[e0] is JAX's row[min(e0, E-1)].)  The
+// bisections run over the whole padded row, as the JAX version's do, so a
+// query whose range reaches 0xFFFFFFFF counts the pad words.  The sum is
+// exact in int64 (atomics on integers, so the same in every run); the last
+// block to finish converts it to float32 once per query.
 //
 // compact_rows (shard_compact) replaces the body of
 // lexicmap_tpu/parallel/sharded.py::ShardedSeedMatcher._bucket_fn's step
@@ -28,90 +30,93 @@
 // [B, 3H + 1]: gid[H] | e0[H] | n_hits[H] | n; the slots from min(n, H) on
 // hold (0xFFFFFFFF, 0, 0).
 //
-// What bounds them on this card.  match_shard: two chains of ~log2(E)
-// dependent loads per (query, row), each a 32-byte sector, so the latency
-// of device memory, and the sectors the bisections touch (the bound the
-// smoke computes).  A warp serves one row and its lanes 32 queries: the
-// first probes of every lane are the same word (one sector for the warp),
-// and lanes part only where their keys do.  shard_compact: it reads two
-// int32 per (query, row) and writes 12 bytes per kept hit, so bytes; a
-// block per query scans its row in order (a ballot and a popcount per warp,
-// the warps' totals through shared memory).
+// What bounds them on this card.  match_shard is B1's search
+// (seed_locate.cu's note): a few compares per word read, so the scattered
+// 32-byte sectors the searches read, the chains of dependent loads hidden
+// behind the other warps.  The design is B1's sampled one, over the whole
+// padded row (cnt = E): a warp per row of any shard serves the row's B
+// queries 32 at a time; it stages SAMPLE pivots of the row in shared memory
+// in one round trip, each lane finds its query's pivot interval there and
+// bisects only that interval in global memory, lb and rb sharing their
+// probes while their intervals are one (seed_search.cuh).  The queries of a
+// row share the top levels, and the two bounds most of the rest.  Each
+// block sums its rows' products per query through shared memory, one
+// atomic a query a block.  shard_compact: it reads two int32 per (query,
+// row) and writes 12 bytes per kept hit, so bytes; a block per query scans
+// its row in order (a ballot and a popcount per warp, the warps' totals
+// through shared memory).
 //
 // Offsets are int64.
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+#include "seed_search.cuh"
 
 namespace {
 
-constexpr int MATCH_WARPS = 8;       // warps a block of match_shard
-constexpr int MATCH_MAX_BLOCKS = 4096;
+using namespace seed_search;
+
+constexpr int MATCH_ROWS = 8;         // rows (a warp each) a block of match_shard
+constexpr int SAMPLE = 32;            // pivots in a row's sample, B1's
 constexpr int COMPACT_THREADS = 256;  // one block a query
 constexpr int COMPACT_WARPS = COMPACT_THREADS / 32;
 constexpr uint32_t FULL = 0xFFFFFFFFu;
 
-// first e in [0, E) with row[e] >= x (strict) or row[e] > x (!strict), else E
-__device__ __forceinline__ int bisect(const uint32_t* __restrict__ row, int E, uint32_t x,
-                                      bool strict) {
-  int lo = 0, hi = E;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const uint32_t v = __ldg(row + mid);
-    if (strict ? v < x : v <= x) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(MATCH_WARPS * 32)
+// seeds [rows, E] with rows = L * M (shard l's row m at l * M + m), queries
+// and the outputs [L, B, M]; acc: B int64 sums, then the blocks' finish
+// count, all 0 at the launch.
+__global__ void __launch_bounds__(MATCH_ROWS * 32)
     match_shard(const uint32_t* __restrict__ seeds, const uint32_t* __restrict__ queries,
                 int32_t* __restrict__ n_hits, int32_t* __restrict__ lcp,
-                unsigned long long* __restrict__ acc, int B, int M, int E, uint32_t suf, int k) {
-  __shared__ long long part[MATCH_WARPS][32];
+                unsigned long long* __restrict__ acc, float* __restrict__ score, int64_t rows,
+                int B, int M, int E, uint32_t suf, int k) {
+  __shared__ uint32_t pivots[MATCH_ROWS][SAMPLE];
+  __shared__ long long part[MATCH_ROWS][32];
+  __shared__ bool last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t nwarps = (int64_t)gridDim.x * MATCH_WARPS;
+  const int64_t r = (int64_t)blockIdx.x * MATCH_ROWS + warp;
+  const bool live = r < rows;  // warp-uniform; a dead warp still meets the barriers
+  const int64_t l = live ? r / M : 0, m = live ? r - l * M : 0;
+  const uint32_t* row = seeds + r * E;
+  const Sample smp = stage_sample<SAMPLE>(row, live ? E : 0, lane, pivots[warp]);
   for (int b0 = 0; b0 < B; b0 += 32) {  // the same trips in every thread
     const int b = b0 + lane;
-    long long sum = 0;
-    if (b < B) {
-      for (int64_t m = (int64_t)blockIdx.x * MATCH_WARPS + warp; m < M; m += nwarps) {
-        const uint32_t* row = seeds + m * E;
-        const int64_t at = (int64_t)b * M + m;
-        const uint32_t q = queries[at];
-        const int e0 = bisect(row, E, q & ~suf, true);
-        const int e1 = bisect(row, E, q | suf, false);
-        const int nh = q != 0 ? e1 - e0 : 0;
-        int l = 0;
-        if (nh > 0) {
-          const uint32_t x = __ldg(row + min(e0, E - 1)) ^ q;
-          l = ((x == 0 ? 32 : __clz(x)) >> 1) + k - 16;
-        }
-        n_hits[at] = nh;
-        lcp[at] = l;
-        sum += (long long)nh * l;
+    long long c = 0;
+    if (live && b < B) {
+      const int64_t at = (l * B + b) * M + m;
+      const uint32_t q = queries[at];
+      int e0, end;
+      sampled_bounds(row, pivots[warp], smp, E, q & ~suf, q | suf, q != 0, e0, end);
+      const int nh = end - e0;
+      int lc = 0;
+      if (nh > 0) {
+        const uint32_t x = __ldg(row + e0) ^ q;
+        lc = ((x == 0 ? 32 : __clz(x)) >> 1) + k - 16;
       }
+      n_hits[at] = nh;
+      lcp[at] = lc;
+      c = (long long)nh * lc;
     }
-    part[warp][lane] = sum;
+    part[warp][lane] = c;
     __syncthreads();
     if (warp == 0 && b < B) {
       long long s = 0;
 #pragma unroll
-      for (int w = 0; w < MATCH_WARPS; ++w) s += part[w][lane];
+      for (int w = 0; w < MATCH_ROWS; ++w) s += part[w][lane];
       if (s != 0) atomicAdd(acc + b, (unsigned long long)s);
     }
-    __syncthreads();
+    __syncthreads();  // part is written again by the next chunk
   }
-}
-
-__global__ void score_f32(const unsigned long long* __restrict__ acc, float* __restrict__ score,
-                          int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) score[b] = (float)(long long)acc[b];
+  // the last block to finish converts every sum, once
+  __threadfence();
+  if (threadIdx.x == 0) last = atomicAdd(acc + B, 1ull) == gridDim.x - 1;
+  __syncthreads();
+  if (last) {
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
+      score[b] = (float)(long long)*(volatile unsigned long long*)(acc + b);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(COMPACT_THREADS)
@@ -158,24 +163,20 @@ __global__ void __launch_bounds__(COMPACT_THREADS)
 
 extern "C" {
 
-// Launches on `stream`; returns the first CUDA error of the calls, else 0.
-// acc is int64 scratch of B words.
+// B11 over L shards in one launch, on `stream`; returns the first CUDA
+// error of the calls, else 0.  acc is int64 scratch of B + 1 words.
 int seed_match_shard(const void* seeds, const void* queries, void* n_hits, void* lcp, void* acc,
-                     void* score, int B, int M, int E, unsigned int suf, int k, void* stream) {
+                     void* score, int L, int B, int M, int E, unsigned int suf, int k,
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int64_t rows = (int64_t)L * M;
   if (B == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)B * sizeof(unsigned long long), s);
+  if (rows == 0) return (int)cudaMemsetAsync(score, 0, (size_t)B * sizeof(float), s);
+  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)(B + 1) * sizeof(unsigned long long), s);
   if (err != cudaSuccess) return (int)err;
-  if (M > 0) {
-    int64_t blocks = ((int64_t)M + MATCH_WARPS - 1) / MATCH_WARPS;
-    if (blocks > MATCH_MAX_BLOCKS) blocks = MATCH_MAX_BLOCKS;
-    match_shard<<<(unsigned)blocks, MATCH_WARPS * 32, 0, s>>>(
-        (const uint32_t*)seeds, (const uint32_t*)queries, (int32_t*)n_hits, (int32_t*)lcp,
-        (unsigned long long*)acc, B, M, E, (uint32_t)suf, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  score_f32<<<(B + 255) / 256, 256, 0, s>>>((const unsigned long long*)acc, (float*)score, B);
+  match_shard<<<(unsigned)((rows + MATCH_ROWS - 1) / MATCH_ROWS), MATCH_ROWS * 32, 0, s>>>(
+      (const uint32_t*)seeds, (const uint32_t*)queries, (int32_t*)n_hits, (int32_t*)lcp,
+      (unsigned long long*)acc, (float*)score, rows, B, M, E, (uint32_t)suf, k);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,7 @@ after its seed-locate launch: given a shard's per-(query, row) n_hits and
 e0 (kernels/seed_locate.py::seed_locate_batch) and the rows' mask ids, for
 each query the rows with n_hits > 0 ordered by mask id, the first H of
 them as (gid, e0, n_hits), and n, the count of all of them (which may
-exceed H: the caller then declines the query).  Gids are int32 tensors that
+exceed H: the caller then compacts again at a larger H).  Gids are int32 tensors that
 hold the uint32 bits (0xFFFFFFFF, -1, on padding rows, whose n_hits is 0).
 
 The kernel compacts in row order, which is the order of the gids where

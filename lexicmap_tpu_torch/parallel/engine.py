@@ -42,8 +42,8 @@ package spreads phases 3-5 over the devices of one process along dp
 holds one device and runs them there; the rows are the same either way.
 
 Output is identical to the host engine: the device matchers return exactly
-the host bisection's triples (the sharded one declines a query over its
-hit capacity, which then matches on the host), the device pseudo-aligner
+the host bisection's triples (the sharded one compacts a bucket again
+where a query passes its hit capacity), the device pseudo-aligner
 exactly the host's chain rows, the device chainer exactly the host's
 forward DP and the device WFA exactly the host's op streams (or flags the
 item for the host), and everything downstream is the identical host code
@@ -65,9 +65,9 @@ from .resident import DeviceGenomeBlob, store_bytes
 
 def match_phase(idx, matcher, kmers: np.ndarray) -> list:
     """Phase 2a for a [B, m] batch of masked query k-mers: each query's
-    device triples, or None where there is none (no matcher, a min prefix
-    over 16 bases, or the sharded matcher over its capacity); a None
-    query is matched by the host bisection."""
+    device triples, or None where there is no device match (no matcher, or
+    a min prefix over 16 bases); a None query is matched by the host
+    bisection."""
     if matcher is None or idx.opt.min_prefix > 16:
         return [None] * kmers.shape[0]
     return matcher.match_batch(kmers, idx.opt.min_prefix)

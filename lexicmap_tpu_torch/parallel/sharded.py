@@ -9,11 +9,11 @@ process group, each rank holding `local_shards` (L) shards of the tp axis
 on its own device: tp = (ranks along tp) x L, and global shard t*L + l is
 local shard l of the rank at tp coordinate t.  One process with L shards
 is the mesh of one card; several processes (NCCL on CUDA, gloo on the CPU)
-spread the shards over the ranks' devices.  JAX's shard_map becomes a loop
-over the local shards (a kernel launch each) and a collective over the
-ranks: psum becomes all_reduce over the tp group, the tiled all_gather an
-all-gather of fixed-shape slabs over tp, then over dp, so that every rank
-holds every query's result.
+spread the shards over the ranks' devices.  JAX's shard_map becomes
+kernel launches over the local shards (the search step's one launch serves
+them all) and a collective over the ranks: psum becomes all_reduce over
+the tp group, the tiled all_gather an all-gather of fixed-shape slabs over
+tp, then over dp, so that every rank holds every query's result.
 
 Every rank calls the collective functions here (the search step,
 ShardedSeedMatcher.match_batch) on the same batches in the same order;
@@ -119,15 +119,12 @@ def make_sharded_search_step(mesh: Mesh, k: int = 31, min_prefix: int = 15):
     masks), on every rank.
 
     s_seeds int32 [L, M/tp, E] and s_queries int32 [L, B/dp, M/tp], this
-    rank's shards as `shard_arrays` cuts them.  Each local shard is one
-    seed_match_shard launch; the partial scores are summed over the local
-    shards and all-reduced over tp, then gathered over dp."""
+    rank's shards as `shard_arrays` cuts them.  One seed_match_shard launch
+    serves every local shard and sums the rank's partial scores; they are
+    all-reduced over tp, then gathered over dp."""
 
     def step(s_seeds, s_queries):
-        part = None
-        for l in range(mesh.local_shards):
-            score = seed_match_shard(s_seeds[l], s_queries[l], k, min_prefix)[2]
-            part = score if part is None else part + score
+        part = seed_match_shard(s_seeds, s_queries, k, min_prefix)[2]
         dist.all_reduce(part, op=dist.ReduceOp.SUM, group=mesh.tp_group)
         return mesh.gather(part, "dp")
 
@@ -198,15 +195,20 @@ class ShardedSeedMatcher:
     The layout is the JAX sharded matcher's: hi-word rows of whole masks in
     entry-count buckets, mask i on tp shard i % tp (round robin balances the
     repeat-heavy masks), each shard's rows padded to the JAX tile rule, and
-    per query, shard and bucket at most H = min(H_SHARD, rows) hits kept;
-    a query with more on any shard comes back None (the caller matches it
-    on the host).  Masks of more than SHARD_MAX_E entries stay on the host
-    tier.  Each local shard is one seed_locate_batch launch (B1) and one
-    shard_compact launch; the slabs of (gid, e0, n_hits) and counts are
-    gathered over tp, then dp.  Downstream (posting gather, chaining,
-    alignment) is the host code, so rows equal the host engine's."""
+    per query, shard and bucket H = min(H_SHARD, rows) hits compacted.
+    Masks of more than SHARD_MAX_E entries stay on the host tier.  Each
+    local shard is one seed_locate_batch launch (B1) and one shard_compact
+    launch; the slabs of (gid, e0, n_hits) and counts are gathered over tp,
+    then dp.  Where a query has more than H hits on a shard, the bucket is
+    compacted again from the same B1 outputs at the largest gathered count
+    (JAX's matcher declines such a query instead).  Downstream (posting
+    gather, chaining, alignment) is the host code, so rows equal the host
+    engine's.
 
-    #: per-(query, shard, bucket) compacted-hit capacity
+    stats: batches matched, buckets compacted a second time and the
+    queries that took their triples from such a pass."""
+
+    #: per-(query, shard, bucket) compacted-hit capacity of the first pass
     H_SHARD = 1536
 
     def __init__(self, index_searcher, mesh: Mesh):
@@ -216,6 +218,7 @@ class ShardedSeedMatcher:
         self.k = index_searcher.k
         self.m = index_searcher.mask_set.m
         self.tp, self.dp = mesh.tp, mesh.dp
+        self.stats = {"batches": 0, "second_passes": 0, "second_pass_queries": 0}
 
         per_mask = collect_per_mask_tables(index_searcher)
         if len(per_mask) != self.m:
@@ -270,11 +273,28 @@ class ShardedSeedMatcher:
     def capacity(self, bucket: ShardBucket) -> int:
         return min(self.H_SHARD, bucket.mb_pad)
 
+    def _compact_all(self, bk: ShardBucket, located, H: int) -> torch.Tensor:
+        """shard_compact of every local shard's B1 outputs at capacity H,
+        gathered over tp, then dp: int32 [dp * tp, bl, 3H + 1]."""
+        L, bl = self.mesh.local_shards, located[0][0].shape[0]
+        slab = torch.empty((L, bl, 3 * H + 1), dtype=torch.int32, device=self.device)
+        for l, (nh, e0) in enumerate(located):
+            shard_compact(nh, e0, bk.gids[l], H, out=slab[l])
+        return self.mesh.gather(self.mesh.gather(slab, "tp"), "dp")
+
     def match_batch(self, query_kmers_batch: np.ndarray, min_prefix: int):
         """query_kmers_batch [B, m] u64 (0 = no captured k-mer) -> per-query
-        (hit_masks, e0, n_hits) int64 triples sorted by mask, or None where
-        a shard held more than its capacity of hits.  Collective: every rank
-        calls it with the same B."""
+        (hit_masks, e0, n_hits) int64 triples sorted by mask.
+
+        Collective: every rank calls it with the same B.  The first pass
+        compacts each bucket at its capacity H and gathers the slabs.  A
+        bucket whose gathered counts hold an n > H is compacted again, from
+        the B1 outputs kept on the card, at H2 = the largest gathered n of
+        the bucket, and gathered again.  The gathered counts are the same on
+        every rank, so every rank decides the second pass alike, at the same
+        H2, and makes the same collectives: a decision from a rank's own
+        counts would let one rank skip a gather that another makes, and hang
+        the group."""
         mesh, L = self.mesh, self.mesh.local_shards
         B = query_kmers_batch.shape[0]
         b_pad = -(-B // self.dp) * self.dp
@@ -287,9 +307,8 @@ class ShardedSeedMatcher:
         mine = slice(mesh.dp_index * bl, (mesh.dp_index + 1) * bl)
         qh_mine, sel_mine = qh_full[mine], sel[mine]
 
-        pending = []
+        pending, located = [], []
         for bk in self.buckets:
-            H = self.capacity(bk)
             qh = np.zeros((L, bl, bk.mb_pad), dtype=np.uint32)
             qv = np.zeros((L, bl, bk.mb_pad), dtype=bool)
             for l, s in enumerate(mesh.local):
@@ -299,15 +318,30 @@ class ShardedSeedMatcher:
             count_h2d("sharded seed matching", qh, qv)
             qh_d = torch.from_numpy(qh.view(np.int32)).to(self.device)
             qv_d = torch.from_numpy(qv).to(self.device)
-            slab = torch.empty((L, bl, 3 * H + 1), dtype=torch.int32, device=self.device)
-            for l in range(L):
-                nh, e0 = seed_locate_batch(bk.hi[l], bk.cnt[l], qh_d[l], qv_d[l], min_prefix)
-                shard_compact(nh, e0, bk.gids[l], H, out=slab[l])
-            pending.append(mesh.gather(mesh.gather(slab, "tp"), "dp"))  # [dp * tp, bl, W]
+            located.append([seed_locate_batch(bk.hi[l], bk.cnt[l], qh_d[l], qv_d[l], min_prefix)
+                            for l in range(L)])
+            pending.append(self._compact_all(bk, located[-1], self.capacity(bk)))
         fetched = fetch_numpy("sharded seed matching", *pending) if pending else []
 
+        # the second pass, decided from the gathered counts alone
+        over = np.zeros(b_pad, dtype=bool)
+        again = []
+        for i, (bk, a) in enumerate(zip(self.buckets, fetched)):
+            H = (a.shape[2] - 1) // 3
+            n = a[..., 3 * H]  # [dp * tp, bl]
+            H2 = int(n.max()) if n.size else 0
+            if H2 > H:
+                over |= (n.reshape(self.dp, self.tp, bl) > H).any(1).reshape(-1)
+                again.append((i, self._compact_all(bk, located[i], H2)))
+        if again:
+            for (i, _), a in zip(again, fetch_numpy("sharded seed matching",
+                                                    *(g for _, g in again))):
+                fetched[i] = a
+        self.stats["batches"] += 1
+        self.stats["second_passes"] += len(again)
+        self.stats["second_pass_queries"] += int(over[:B].sum())
+
         per_query: list[list] = [[] for _ in range(B)]
-        overflow = np.zeros(B, dtype=bool)
         for a in fetched:
             W = a.shape[2]
             H = (W - 1) // 3
@@ -317,9 +351,7 @@ class ShardedSeedMatcher:
             for b in range(B):
                 for s in range(self.tp):
                     n = int(a[b, s, 3 * H])
-                    if n > H:
-                        overflow[b] = True
-                    elif n:
+                    if n:
                         per_query[b].append((keys[b, s, :n], a[b, s, H: H + n],
                                              a[b, s, 2 * H: 2 * H + n]))
 
@@ -338,9 +370,6 @@ class ShardedSeedMatcher:
 
         out = []
         for b in range(B):
-            if overflow[b]:
-                out.append(None)
-                continue
             parts = per_query[b] + [(np.array([m]), np.array([o]), np.array([n]))
                                     for m, o, n in host_extra[b]]
             hm, e0, nh = (np.concatenate([p[i] for p in parts]).astype(np.int64) if parts

@@ -141,6 +141,28 @@ def test_index_accepts_max_open_files(db, tmp_path):
     assert rc == 0 and (out / "info.json").exists()
 
 
+@pytest.mark.parametrize("extra", [(), ("-c", "2", "-b", "2", "--no-desert-filling")],
+                         ids=["defaults", "chunks_batch_no_desert"])
+def test_index_prints_jax_build_parameters(db, tmp_path, capsys, extra):
+    """`index` without --quiet prints the JAX CLI's "build parameters:"
+    block to stderr before the build: both CLIs' stderr are equal up to the
+    closing "indexed N genomes" line (the same output path for both)."""
+    out = str(tmp_path / "p.lmt")
+    argv = ["index", "-O", out, "-m", "64", "--force", *extra, *db[2]]
+    errs = []
+    for cli in (jcli, tcli):
+        assert cli.main(argv) == 0
+        errs.append(capsys.readouterr().err)
+    heads = [e.split("indexed 3 genomes")[0] for e in errs]
+    assert all(len(h) < len(e) for h, e in zip(heads, errs))
+    assert heads[0] == heads[1]
+    assert heads[0].startswith("build parameters:\n  input: 3 file(s)\n")
+    assert f"  output: {out}\n" in heads[0]
+    assert ("(desert filling disabled)" in heads[0]) == bool(extra)
+    assert tcli.main(["--quiet", *argv]) == 0
+    assert capsys.readouterr().err == ""
+
+
 @pytest.mark.parametrize("argv, warned", [
     (["--chain", "device"], "--chain device chains only the device engine's batches"),
     (["--wfa", "device"], "--wfa device aligns only for -a"),

@@ -11,6 +11,7 @@ from torch_parity import (
     CHAIN1_PARAMS,
     CHAIN_PARAMS,
     SHARD_CASES,
+    SHARD_STACK_KINDS,
     capture_cases,
     chain1_csr,
     chain1_sets,
@@ -27,6 +28,7 @@ from torch_parity import (
     seed_match_replay,
     seed_match_torch,
     shard_kernel_case,
+    shard_stack_case,
     sharded_db,
     to_torch,
     wfa_pairs,
@@ -553,6 +555,32 @@ def test_cuda_seed_match_shard_shapes_equal_plain(cuda_device, B, M, E):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, 33, 64])
+@pytest.mark.parametrize("L", [1, 4])
+@pytest.mark.parametrize("E", [1, 20, 45, 1000, 10240])
+def test_cuda_seed_match_shard_stacked_equals_plain(cuda_device, E, L, B):
+    """One launch over L shards ([L, M, E], [L, B, M]) against the plain
+    twin: E of one word, below and not a multiple of the 32-pivot sample,
+    above it, and the 10k table's row; B around a warp's 32 lanes."""
+    seeds, queries, k, p = shard_stack_case(L, B, 37, E, seed=1, p=12)
+    nh = _shard_kernel_equals_plain(seeds, queries, k, p, cuda_device)[0]
+    assert (nh > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SHARD_STACK_KINDS)
+@pytest.mark.parametrize("E", [1, 20, 333])
+def test_cuda_seed_match_shard_stacked_edges_equal_plain(cuda_device, kind, E):
+    """Rows all pad words, all-T queries that reach them, queries of 0,
+    at L = 4 and B = 33."""
+    seeds, queries, k, p = shard_stack_case(4, 33, 29, E, kind=kind, seed=2)
+    nh = _shard_kernel_equals_plain(seeds, queries, k, p, cuda_device)[0]
+    assert (nh > 0).any() == (kind != "zero_queries")
+    if kind == "pad_rows":  # a query drawn from a pad row counts every word
+        assert int(nh.max()) == E
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.05, 0.6, 1.0])
 @pytest.mark.parametrize("H", [0, 1, 257, 1000])
 def test_cuda_shard_compact_equals_plain(cuda_device, H, rate):
@@ -589,9 +617,10 @@ def test_cuda_shard_compact_capacity_at_the_rows(cuda_device, H):
 @pytest.mark.cuda
 def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
     """make_mesh(local_shards=4) on the card (NCCL, world size 1): the
-    sharded step's scores equal the plain twins' over the whole table, the
-    matcher's triples equal the host bisection's (four launches of each
-    kernel a bucket), and the mesh engine's rows the host engine's."""
+    sharded step's scores equal the plain twins' over the whole table (one
+    launch a step), the matcher's triples equal the host bisection's (four
+    launches of each kernel a bucket, and second compactions at a capacity
+    under the hits), and the mesh engine's rows the host engine's."""
     from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
     from lexicmap_tpu_torch.kernels import seed_match_shard as MS
     from lexicmap_tpu_torch.kernels import shard_compact as SC
@@ -608,11 +637,13 @@ def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
     want_rows = [rows_of(host.search_bytes(s), f"q{i}") for i, s in enumerate(queries)]
     with TS.make_mesh(local_shards=4, device="cuda") as mesh:
         assert (mesh.dp, mesh.tp, mesh.device.type) == (1, 4, "cuda")
-        before = MS.seed_match_shard.launches
-        scores = TS.make_sharded_search_step(mesh, k=16, min_prefix=15)(
-            *TS.shard_arrays(mesh, table, qarr))
-        assert MS.seed_match_shard.launches == before + 4
-        assert np.array_equal(scores.cpu().numpy(), want_scores)
+        step = TS.make_sharded_search_step(mesh, k=16, min_prefix=15)
+        args = TS.shard_arrays(mesh, table, qarr)
+        for _ in range(2):  # one launch a step, for the four shards
+            before = MS.seed_match_shard.launches
+            scores = step(*args)
+            assert MS.seed_match_shard.launches == before + 1
+            assert np.array_equal(scores.cpu().numpy(), want_scores)
 
         m = TS.ShardedSeedMatcher(host, mesh)
         before = (SL.seed_locate_batch.launches, SC.shard_compact.launches)
@@ -623,6 +654,13 @@ def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
         for b, g in enumerate(got):
             want = host_triples(host, kmers[b], host.opt.min_prefix)
             assert g is not None and all(np.array_equal(x, y) for x, y in zip(g, want))
+        m.H_SHARD = 4  # under most queries' hits on a shard: second passes
+        before = SC.shard_compact.launches
+        again = m.match_batch(kmers, host.opt.min_prefix)
+        assert m.stats["second_passes"] >= 1
+        assert SC.shard_compact.launches == before + n + 4 * m.stats["second_passes"]
+        for a, g in zip(again, got):
+            assert all(np.array_equal(x, y) for x, y in zip(a, g))
 
         idx = IndexSearcher(db, SearchOptions(device="cuda", chain_engine="device",
                                               wfa_engine="device"))

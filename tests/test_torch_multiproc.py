@@ -16,7 +16,7 @@ import pytest
 jax = pytest.importorskip("jax")
 
 from torch_dist import ROOT, rank_env, run_ranks
-from torch_parity import screening_case, sharded_db
+from torch_parity import host_triples, screening_case, sharded_db
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 from lexicmap_tpu.index.search import IndexSearcher as JaxSearcher
@@ -25,6 +25,7 @@ from lexicmap_tpu.parallel import sharded as JS
 from lexicmap_tpu_torch import cli as tcli
 from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
 from lexicmap_tpu_torch.parallel import multiproc
+from lexicmap_tpu_torch.parallel import sharded as TS
 from lexicmap_tpu_torch.utils.kmers import seq_to_codes
 
 
@@ -146,7 +147,9 @@ def test_step_dp2_across_ranks_equals_jax(tmp_path):
 def test_matcher_dp2_across_ranks_equals_jax(case, tmp_path, monkeypatch):
     """The matcher's triples on 4 gloo ranks with L = 2 against JAX's
     ShardedSeedMatcher on make_mesh(8), on a batch of 5 queries (padded to
-    dp), at a capacity that some queries overflow."""
+    dp), at a capacity that some queries overflow: JAX declines them, the
+    port's second pass keeps them, so every rank returns JAX's triples
+    where JAX keeps a query and the host bisection's where it declines."""
     db, _, _, qs = case
     idx = IndexSearcher(db, SearchOptions())
     kmers = np.stack([idx._mask_query(seq_to_codes(q))[0] for q in qs if len(q) >= 31])
@@ -159,8 +162,34 @@ def test_matcher_dp2_across_ranks_equals_jax(case, tmp_path, monkeypatch):
     assert any(w is None for w in want) and any(w is not None for w in want)
     res = run_ranks(tmp_path, 4, "matcher", local_shards=2, db=db, h_shard=h)
     for r in res:
-        assert len(r["out"]) == len(want)
-        for g, w in zip(r["out"], want):
-            assert (g is None) == (w is None)
-            if g is not None:
-                assert all(np.array_equal(a, b) for a, b in zip(g, w))
+        got = r["out"]["triples"]
+        assert len(got) == len(want)
+        assert r["out"]["stats"]["second_pass_queries"] == sum(w is None for w in want)
+        for b, (g, w) in enumerate(zip(got, want)):
+            ref = w if w is not None else host_triples(idx, kmers[b], 15)
+            assert g is not None and all(np.array_equal(x, y) for x, y in zip(g, ref))
+
+
+def test_matcher_second_pass_when_one_rank_overflows(case, tmp_path):
+    """2 gloo ranks with L = 1 (tp = 2) at a capacity that some query's
+    hits pass on one rank's shard and no query's on the other's: the
+    second pass is decided from the gathered counts, so both ranks run it
+    (and make its collectives) and return the host bisection's triples."""
+    db, _, _, qs = case
+    idx = IndexSearcher(db, SearchOptions())
+    kmers = np.stack([idx._mask_query(seq_to_codes(q))[0] for q in qs if len(q) >= 31])
+    np.save(tmp_path / "kmers.npy", kmers)
+    want = [host_triples(idx, km, idx.opt.min_prefix) for km in kmers]
+    with TS.make_mesh(local_shards=2, device="cpu") as mesh:  # the shards of 2 ranks x 1
+        buckets = TS.ShardedSeedMatcher(idx, mesh).buckets
+    most = [max(int(np.isin(w[0], bk.ids_per_shard[s]).sum()) for w in want for bk in buckets)
+            for s in range(2)]
+    hot = int(np.argmax(most))
+    assert most[hot] > most[1 - hot], most
+    res = run_ranks(tmp_path, 2, "matcher", local_shards=1, db=db, h_shard=most[1 - hot])
+    assert sorted(r["mesh"]["tp_rank"] for r in res) == [0, 1]
+    for r in res:
+        assert r["out"]["stats"]["second_passes"] >= 1
+        assert r["out"]["stats"]["second_pass_queries"] >= 1
+        for g, w in zip(r["out"]["triples"], want):
+            assert all(np.array_equal(x, y) for x, y in zip(g, w))

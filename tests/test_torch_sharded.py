@@ -19,8 +19,11 @@ from torch_parity import (
     SHARD_CASES,
     compact_case,
     rows_of,
+    SHARD_STACK_KINDS,
     screening_case,
     shard_kernel_case,
+    shard_match_replay,
+    shard_stack_case,
     sharded_db,
 )
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
@@ -86,12 +89,64 @@ def test_seed_match_shard_plain_equals_jax(name):
         assert (nh[queries != 0] >= 1).mean() > 0.9
 
 
+@pytest.mark.parametrize("name", SHARD_CASES)
+def test_seed_match_shard_stacked_plain_equals_jax_sum(name):
+    """A rank's L = 4 shards in one call ([L, M, E] seeds, [L, B, M]
+    queries, as shard_arrays lays them out): n_hits and lcp are JAX's
+    seed_match_shard on each shard, the score the exact sum of JAX's
+    per-shard products over every shard."""
+    seeds, queries, k, p = shard_kernel_case(name, seed=4)
+    L = 4
+    ml = seeds.shape[0] // L
+    fn = jax.jit(lambda s, q: JS.seed_match_shard(s, q, k, p))
+    parts = [[np.asarray(a) for a in fn(seeds[l * ml: (l + 1) * ml],
+                                       queries[:, l * ml: (l + 1) * ml])] for l in range(L)]
+    s3 = seeds[: L * ml].reshape(L, ml, -1)
+    q3 = queries[:, : L * ml].reshape(queries.shape[0], L, ml).transpose(1, 0, 2)
+    got = seed_match_shard(i32(s3), i32(q3), k, p)
+    assert got[0].shape == got[1].shape == (L, queries.shape[0], ml)
+    for l, (nh, lcp) in enumerate(parts):
+        assert np.array_equal(got[0][l].numpy(), nh) and np.array_equal(got[1][l].numpy(), lcp)
+    total = sum((nh.astype(np.int64) * lcp).sum(1) for nh, lcp in parts)
+    assert total.max() < 1 << 24
+    assert np.array_equal(got[2].numpy(), total.astype(np.float32))
+    # the 2-D call on one shard is the L = 1 case
+    one = seed_match_shard(i32(s3[:1]), i32(q3[:1]), k, p)
+    two = seed_match_shard(i32(s3[0]), i32(q3[0]), k, p)
+    assert all(torch.equal(a[0], b) for a, b in zip(one[:2], two[:2]))
+    assert torch.equal(one[2], two[2])
+
+
+@pytest.mark.parametrize("kind", SHARD_STACK_KINDS)
+@pytest.mark.parametrize("E", [1, 20, 100])
+def test_shard_match_replay_equals_plain(kind, E):
+    """The torch replay of match_shard's sampled search (which the smoke
+    counts B11's sectors with) gives the plain twin's n_hits, and its e0
+    the first word of each hit's range, on every shard."""
+    seeds, queries, k, p = shard_stack_case(4, 33, 29, E, kind=kind, seed=3, p=12)
+    nh, _, _ = seed_match_shard_plain(i32(seeds), i32(queries), k, p)
+    for l in range(4):
+        rn, re0, sectors = shard_match_replay(i32(seeds[l]), i32(queries[l]), p)
+        assert torch.equal(rn, nh[l])
+        hit = rn > 0
+        lb = torch.from_numpy(queries[l].astype(np.int64) & ~((1 << (2 * (k - p))) - 1))
+        words = torch.from_numpy(seeds[l].astype(np.int64))
+        first = torch.gather(words.expand(33, -1, -1), 2, re0.long().clamp(max=E - 1)[..., None])
+        assert (first[..., 0][hit] >= lb[hit]).all()
+        assert sectors.numel() <= -(-seeds[l].size // 8)
+
+
 def test_seed_match_shard_refuses_other_words():
     seeds, queries, k, p = shard_kernel_case("random")
     with pytest.raises(TypeError, match="int32"):
         seed_match_shard(torch.from_numpy(seeds.astype(np.int64)), i32(queries), k, p)
     with pytest.raises(ValueError, match="k <= 16"):
         seed_match_shard(i32(seeds), i32(queries), 31, 15)
+    with pytest.raises(ValueError, match="L >= 1"):
+        seed_match_shard(torch.zeros((0, 64, 32), dtype=torch.int32),
+                         torch.zeros((0, 4, 64), dtype=torch.int32), 16, 12)
+    with pytest.raises(ValueError, match="queries must be"):
+        seed_match_shard(i32(seeds).reshape(2, 32, 32), i32(queries).reshape(2, 32, 4), 16, 12)
 
 
 @pytest.mark.parametrize("H", [0, 1, 7, 100, 128, 150])
@@ -155,18 +210,26 @@ def capacity_splitting(jax_matcher, kmers, p):
     return h
 
 
-def same_triples(got, want):
+def kept_or_host(got, want, idx, kmers, p):
+    """JAX declines some queries and keeps others; the port returns
+    triples for every query: JAX's where JAX keeps one, the host
+    bisection's (tests/torch_parity.py::host_triples) where it declines."""
+    from torch_parity import host_triples
+
     assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert (g is None) == (w is None)
-        if g is not None:
-            assert all(np.array_equal(a, b) for a, b in zip(g, w))
+    assert any(w is None for w in want) and any(w is not None for w in want)
+    for b, (g, w) in enumerate(zip(got, want)):
+        assert g is not None
+        ref = w if w is not None else host_triples(idx, kmers[b], p)
+        assert all(np.array_equal(x, y) for x, y in zip(g, ref))
 
 
 def test_matcher_equals_jax_with_overflow(db, jax_mesh, monkeypatch):
     """ShardedSeedMatcher on one rank with L = 4 against JAX's on
-    make_mesh(8): the same triples per query, and None for the same
-    queries, H_SHARD set small on both so that some queries overflow."""
+    make_mesh(8), H_SHARD set small on both so that some queries overflow:
+    JAX declines those, the port compacts their buckets again at the
+    largest gathered count, so every query's triples are JAX's or, where
+    JAX declines, the host bisection's."""
     path, seqs, queries = db
     jidx = JaxSearcher(path, JaxOptions())
     idx = IndexSearcher(path, SearchOptions())
@@ -182,18 +245,15 @@ def test_matcher_equals_jax_with_overflow(db, jax_mesh, monkeypatch):
         got = m.match_batch(kmers, p)
         assert (SL.seed_locate_batch.launches, shard_compact.launches) == launches
         assert [m.capacity(b) for b in m.buckets] == [min(h, b.mb_pad) for b in m.buckets]
+        declined = sum(w is None for w in want)
+        assert m.stats["second_pass_queries"] == declined and m.stats["second_passes"] >= 1
         m.H_SHARD = 1 << 20  # over every bucket's rows: the capacity is the rows
         assert [m.capacity(b) for b in m.buckets] == [b.mb_pad for b in m.buckets]
         full = m.match_batch(kmers, p)
-    same_triples(got, want)
-    assert any(g is None for g in got) and any(g is not None for g in got)
-    # at full capacity nothing overflows, and every query's triples are the
-    # host bisection's (tests/torch_parity.py::host_triples)
-    from torch_parity import host_triples
-
-    for b, g in enumerate(full):
-        assert g is not None
-        assert all(np.array_equal(x, y) for x, y in zip(g, host_triples(idx, kmers[b], p)))
+        assert m.stats == {"batches": 2, "second_passes": m.stats["second_passes"],
+                           "second_pass_queries": declined}
+    kept_or_host(got, want, idx, kmers, p)
+    assert all(all(np.array_equal(x, y) for x, y in zip(f, g)) for f, g in zip(full, got))
 
 
 def test_shards_from_jax_matcher_round_trip(db, jax_mesh):

@@ -48,7 +48,7 @@ def task_matcher(workdir, mesh, db, h_shard):
     m = ShardedSeedMatcher(idx, mesh)
     m.H_SHARD = h_shard
     kmers = np.load(os.path.join(workdir, "kmers.npy"))
-    return m.match_batch(kmers, idx.opt.min_prefix)
+    return {"triples": m.match_batch(kmers, idx.opt.min_prefix), "stats": m.stats}
 
 
 TASKS = {"step": task_step, "matcher": task_matcher}

@@ -206,21 +206,17 @@ def locate_batch_replay(hi, cnt, qh, qv, p):
     """seed_locate_batch's search on int32-bit tensors (hi [Mb, E], cnt
     [Mb], qh [B, Mb], qv [B, Mb]).  Rows of E <= SMALL_MAX_E: [0, cnt)
     staged whole (16-byte loads when E % 4 == 0), the searches in it.
-    Larger rows: pivots row[j*s], s = ceil(cnt/SAMPLE) (1 if cnt <=
-    SAMPLE); c pivots on the left of a bound leave [(c-1)*s + 1, min(c*s,
-    cnt)) to bisect.  lb's and rb's bisections probe the same entry while
-    their intervals are one, so the union of their probes is what the kernel
-    reads.  Returns (n_hits, e0, sectors): the distinct table sector ids
-    read, for a 32-byte-aligned table."""
-    S = SL.SAMPLE
+    Larger rows: the sampled search (_sampled_search).  Returns (n_hits,
+    e0, sectors): the distinct table sector ids read, for a 32-byte-aligned
+    table."""
     Mb, E = hi.shape
     B, dev = qh.shape[0], hi.device
     flat = hi.reshape(-1).to(torch.int64) & _U32
     n = cnt.to(torch.int64).clamp(0, E)
     b_idx, m_idx, lb, rb = _bounds(qh, qv, p)
-    base, nm = m_idx * E, n[m_idx]
-    rows = torch.arange(Mb, device=dev)
     if E <= SL.SMALL_MAX_E:
+        base, nm = m_idx * E, n[m_idx]
+        rows = torch.arange(Mb, device=dev)
         words = (n + 3) // 4 * 4 if E % 4 == 0 else n
         w = int(words.max()) if Mb else 0
         i = torch.arange(w, device=dev)
@@ -228,6 +224,22 @@ def locate_batch_replay(hi, cnt, qh, qv, p):
         e0 = _bisect(flat, base, torch.zeros_like(nm), nm, lb, False)
         end = _bisect(flat, base, torch.zeros_like(nm), nm, rb, True)
         return (*_outputs(B, Mb, b_idx, m_idx, e0, end, dev), torch.unique(sectors))
+    e0, end, touched = _sampled_search(flat, n, b_idx, m_idx, lb, rb, B, E)
+    return (*_outputs(B, Mb, b_idx, m_idx, e0, end, dev), torch.unique(torch.cat(touched)))
+
+
+def _sampled_search(flat, n, b_idx, m_idx, lb, rb, B, E):
+    """seed_search.cuh's `stage_sample` and `sampled_bounds` over the rows
+    of `flat` (int64 words, rows of E), sorted over [0, n[m]): pivots
+    row[j*s], s = ceil(n/SAMPLE) (1 if n <= SAMPLE); c pivots on the left of
+    a bound leave [(c-1)*s + 1, min(c*s, n)) to bisect.  lb's and rb's
+    bisections probe the same entry while their intervals are one, so the
+    union of their probes is what the kernel reads.  Returns (e0, end) of
+    the (b_idx, m_idx) pairs and the list of sector-id tensors read."""
+    S = SL.SAMPLE
+    Mb, dev = n.shape[0], flat.device
+    rows = torch.arange(Mb, device=dev)
+    base, nm = m_idx * E, n[m_idx]
     s = torch.where(n > S, (n + S - 1) // S, 1)
     P = (n + s - 1) // s
     j = torch.arange(S, device=dev)
@@ -247,8 +259,24 @@ def locate_batch_replay(hi, cnt, qh, qv, p):
         hi_ = torch.where(c > 0, torch.minimum(c * sm, nm), 0)
         return _bisect(flat, base, lo, hi_, bound, le, touched)
 
-    e0, end = finish(lb, False), finish(rb, True)
-    return (*_outputs(B, Mb, b_idx, m_idx, e0, end, dev), torch.unique(torch.cat(touched)))
+    return finish(lb, False), finish(rb, True), touched
+
+
+def shard_match_replay(seeds, queries, p):
+    """match_shard's search (csrc/sharded.cu) on one shard's int32-bit
+    tensors (seeds [M, E], queries [B, M]): B1's sampled search over the
+    whole padded row (cnt = E) for every query != 0, then row[e0] of each
+    hit for its LCP.  Returns (n_hits, e0, sectors): the distinct table
+    sector ids read, for a 32-byte-aligned table."""
+    M, E = seeds.shape
+    B, dev = queries.shape[0], seeds.device
+    flat = seeds.reshape(-1).to(torch.int64) & _U32
+    n = torch.full((M,), E, dtype=torch.int64, device=dev)
+    b_idx, m_idx, lb, rb = _bounds(queries, queries != 0, p)
+    e0, end, touched = _sampled_search(flat, n, b_idx, m_idx, lb, rb, B, E)
+    hit = end > e0
+    touched.append((m_idx[hit] * E + e0[hit]) // 8)
+    return (*_outputs(B, M, b_idx, m_idx, e0, end, dev), torch.unique(torch.cat(touched)))
 
 
 def _single_runs(hi, cnt, qh, qv, p, touched, run):
@@ -1084,6 +1112,41 @@ def shard_kernel_case(name, seed=0):
         queries[: B // 2] = above[None, :] + 1 + rng.integers(
             0, 1000, size=(B // 2, M), dtype=np.uint32)
     return seeds, queries, k, p
+
+
+SHARD_STACK_KINDS = ("random", "pad_rows", "all_T", "zero_queries")
+
+
+def shard_stack_case(L, B, M, E, kind="random", seed=0, k=16, p=15):
+    """Inputs of seed_match_shard over a rank's L shards, as shard_arrays
+    lays them out: (seeds u32 [L, M, E], rows sorted over all E words;
+    queries u32 [L, B, M]; k; p).
+      random: random rows, queries drawn from them with mutated suffixes,
+        a fifth of them 0;
+      pad_rows: every third row all pad words (0xFFFFFFFF), the others
+        padded after a random count;
+      all_T: rows of all-T prefixes (0xFFFFFFxx) then pad words, and
+        all-T queries, whose ranges reach the pad words;
+      zero_queries: no query k-mer."""
+    rng = np.random.default_rng(seed * 7 + L * 1000 + B * 10 + E)
+    top = np.uint64(1) << np.uint64(2 * k)
+    seeds = np.sort(rng.integers(1, top, size=(L, M, E), dtype=np.uint64), axis=2).astype(np.uint32)
+    if kind in ("pad_rows", "all_T"):
+        if kind == "all_T":
+            seeds = np.sort(np.uint32(0xFFFFFF00) + rng.integers(
+                0, 0xF0, size=(L, M, E), dtype=np.uint32), axis=2)
+        cnt = rng.integers(0, E + 1, size=(L, M))
+        cnt[:, ::3] = 0 if kind == "pad_rows" else cnt[:, ::3]
+        seeds[np.arange(E)[None, None, :] >= cnt[:, :, None]] = 0xFFFFFFFF
+    pick = rng.integers(0, E, size=(L, B, M))
+    queries = np.take_along_axis(seeds, pick.transpose(0, 2, 1), axis=2).transpose(0, 2, 1)
+    queries = queries ^ rng.integers(0, 1 << (2 * (k - p)), size=(L, B, M), dtype=np.uint32)
+    if kind == "all_T":
+        queries = np.uint32(0xFFFFFF00) + rng.integers(0, 0x100, size=(L, B, M), dtype=np.uint32)
+    queries[rng.random((L, B, M)) < 0.2] = 0
+    if kind == "zero_queries":
+        queries[:] = 0
+    return np.ascontiguousarray(seeds), np.ascontiguousarray(queries), k, p
 
 
 def compact_case(B, mb, hit_rate, seed=0, n_pad=0):
