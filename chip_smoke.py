@@ -5,7 +5,7 @@
                           [--compare-source OLD/seed_locate.cu]
                           [--compare-source OLD/seed_match.cu]
                           [--compare-source OLD/chain1.cu] [--compare-source OLD/wfa.cu]
-                          [--compare-source OLD/sharded.cu]
+                          [--compare-source OLD/sharded.cu] [--compare-source OLD/capture.cu]
 
 Phases, each of which raises on a wrong result (nothing falls back):
   1. environment: torch/CUDA versions and the card (nvidia-smi);
@@ -35,15 +35,17 @@ Phases, each of which raises on a wrong result (nothing falls back):
      (lexicmap_tpu_torch/entry.py) on the card: the kernel == its plain
      version over the four shards, on every shard alone and on the path's
      two launches, n_hits, lcp and the scores == an int64 numpy count;
-     ShardedSeedMatcher (B1 and shard_compact, B12, per shard): no query
-     declined, those over its hit capacity through the second compaction,
+     ShardedSeedMatcher (B1 per shard, then shard_compact, B12, one launch
+     for the four shards): no query declined, those over its hit capacity
+     through the second compaction,
      every query's triples == DeviceSeedMatcher's and the bisection
      oracle's, the compaction == its plain version; times as called, on
      the device and plain, the bound (B11: the fewer of the sectors its
      bisections touch and those the kernel reads, plus I/O), and the
      library calls (torch.searchsorted x2, torch.sort); with
-     --compare-source OLD/sharded.cu, the earlier tree's B11 (a launch a
-     shard) in turns with this one;
+     --compare-source OLD/sharded.cu, the earlier tree's compaction (a
+     launch a shard, with the one-shard C signature) in turns with this
+     one;
   5. phase 4 at real state size: a >= 1 GB resident genome blob (1,000
      genomes of 4 Mb) with mutated copies of 32 queries planted at 2,048
      window sites; pseudo_probe and pseudo_chain vs their plain versions
@@ -67,9 +69,9 @@ Phases, each of which raises on a wrong result (nothing falls back):
      device` vs `--engine host` for two 1%-mutated indexed genomes against
      the device-built index (rows equal, the source genome first); then
      the mesh engine (DeviceSearchEngine over phase 4b's mesh, chain1 and
-     the WFA on the card too): rows equal, four B1 and four compaction
-     launches a batch, the compaction's first two launches == plain, q/min
-     in turns with the device engine; and `python -m
+     the WFA on the card too): rows equal, four B1 launches and one
+     compaction a bucket and batch, the compaction's first two launches ==
+     plain, q/min in turns with the device engine; and `python -m
      lexicmap_tpu_torch.parallel.multiproc --nprocs 1 --local-devices 4
      --twins device`: its TSV == the host rows;
   7. (run before 6) chain1 (B9) and the WFA (B8) vs their plain versions
@@ -85,10 +87,12 @@ Phases, each of which raises on a wrong result (nothing falls back):
   8. (run before 6) the LexicHash capture (B10) at the index default of
      20,000 masks on genomes of 4.19, 6, 12 and 20 Mb (MAX_GENOME_SIZE;
      one with a copied block and a mask's k-mer 12,000 times in tandem,
-     one of contigs with excluded intervals) and one shorter than k: the
-     kernel == its plain version == native capture_native, exactly; times
-     as called, on the device, plain, native and through the engine, and
-     the bound from each genome's bytes and operations.
+     one of contigs with excluded intervals), one of 550 kb (the size of
+     phase 6's genomes) and one shorter than k: the kernel == its plain
+     version == native capture_native, exactly; times as called, on the
+     device, plain, native and through the engine, and the bound from each
+     genome's bytes and operations; with --compare-source OLD/capture.cu,
+     the earlier tree's kernels in turns with this tree's on each genome.
 Then one `kernels` JSON line, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.  Exits non-zero without a result
 when there is no CUDA device or the package is not beside this script.
@@ -189,21 +193,23 @@ def device_ms_split(fn, names, reps: int = 20) -> dict:
     return out
 
 
-def device_ms_per_call(fn, names, reps: int = 20):
-    """Device ms a call of fn: the rows of every kernel whose name holds one
-    of `names`, summed over `reps` calls, over reps (None where the profiler
-    shows none, or there is no CUDA device)."""
+def device_ms_by_call(fn, names, reps: int = 20) -> dict:
+    """{name: device ms a call of fn of the kernel rows whose name holds
+    it} (summed over `reps` calls, over reps: a kernel launched L times a
+    call counts L times), from one trace; None where it shows no row."""
     import torch
 
     if not torch.cuda.is_available():
-        return None
+        return {nm: None for nm in names}
     fn()
     torch.cuda.synchronize()
     for _ in range(3):  # a trace now and then comes back without device rows: again
-        us = [t for name, t in _cuda_rows(fn, reps) if any(nm in name for nm in names)]
-        if us:
-            return sum(us) / reps / 1e3
-    return None
+        rows = _cuda_rows(fn, reps)
+        out = {nm: sum(t for name, t in rows if nm in name) / reps / 1e3 or None
+               for nm in names}
+        if None not in out.values():
+            break
+    return out
 
 
 def sync(dev):
@@ -258,13 +264,13 @@ def seed_locate_case(dev, Mb, E, B, k, seed):
     return to_i32_bits(hi64).contiguous(), cnt, to_i32_bits(qh64).contiguous(), qv, hi64
 
 
-PARENT_SOURCES = ("seed_locate", "seed_match", "chain1", "wfa", "sharded")
+PARENT_SOURCES = ("seed_locate", "seed_match", "chain1", "wfa", "sharded", "capture")
 
 
 def parent_build(paths):
     """Start nvcc on each earlier tree's csrc/seed_locate.cu, seed_match.cu,
-    chain1.cu, wfa.cu or sharded.cu (same flags; headers beside it), beside
-    the kernel build; parent_load() waits for them."""
+    chain1.cu, wfa.cu, sharded.cu or capture.cu (same flags; headers beside
+    it), beside the kernel build; parent_load() waits for them."""
     from lexicmap_tpu_torch.kernels import build
 
     started = {}
@@ -306,9 +312,18 @@ def parent_load(started):
             lib.seed_match.argtypes = [vp] * 9 + [ci, ci, ctypes.c_uint, ci, vp]
             lib.seed_match.restype = ci
             continue
-        if name == "sharded":  # the entry of one shard a launch (no L)
-            lib.seed_match_shard.argtypes = [vp] * 6 + [ci] * 3 + [ctypes.c_uint, ci, vp]
-            lib.seed_match_shard.restype = ci
+        if name == "sharded":  # the compaction of one shard a launch (no L)
+            lib.shard_compact.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+            lib.shard_compact.restype = ci
+            continue
+        if name == "capture":  # the C signatures of kernels/capture.py's
+            i64 = ctypes.c_int64
+            head = [vp, i64, vp, ci, ci, vp, ci, ci, vp]
+            lib.capture_count_winners.argtypes = head + [vp] * 3
+            lib.capture_write_winners.argtypes = head + [vp] * 9
+            for fn in (lib.capture_count_winners, lib.capture_write_winners,
+                       lib.capture_sort_cap):
+                fn.restype = ci
             continue
         lib.seed_locate_batch.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint, vp]
         lib.seed_locate_batch.restype = ci
@@ -402,6 +417,38 @@ def parent_wfa(lib, seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_le
     return ops, cnts, nops
 
 
+def parent_capture(lib, codes, exclude, table, masks, k, p):
+    """The earlier capture.cu (a thread per position, best [m] u64) as its
+    wrapper called it: two entries around the one wait for the total."""
+    import torch
+
+    dev, L, m = codes.device, codes.shape[0], masks.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    head = (codes.data_ptr(), L, 0 if exclude is None else exclude.data_ptr(), k, p,
+            table.data_ptr(), int(table.shape[0] == 1 << (2 * p)), m, masks.data_ptr())
+    work = torch.empty(28 * m, dtype=torch.uint8, device=dev)
+    best = work[: 8 * m]
+    cnt = work[8 * m: 16 * m].view(torch.int64)
+    off = work[16 * m: 24 * m].view(torch.int64)
+    cursor = work[24 * m:]
+    if lib.capture_count_winners(*head, best.data_ptr(), cnt.data_ptr(), stream):
+        raise RuntimeError("the earlier capture_count_winners failed to launch")
+    torch.cumsum(cnt, 0, out=off)
+    total, most = (int(v) for v in torch.stack([off[-1], cnt.max()]).cpu())
+    off.sub_(cnt)
+    out = torch.empty(16 * m + 4 * total, dtype=torch.uint8, device=dev)
+    kmers, counts = out[: 8 * m].view(torch.int64), out[8 * m: 16 * m].view(torch.int64)
+    pos = out[16 * m:].view(torch.int32)
+    scratch = torch.empty(total, dtype=torch.int32, device=dev) \
+        if most > lib.capture_sort_cap() else None
+    if lib.capture_write_winners(*head, best.data_ptr(), cnt.data_ptr(), off.data_ptr(),
+                                 cursor.data_ptr(), pos.data_ptr(), kmers.data_ptr(),
+                                 counts.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+                                 stream):
+        raise RuntimeError("the earlier capture_write_winners failed to launch")
+    return kmers, counts, pos
+
+
 def same_stage_outputs(a, b) -> bool:
     """chain1's four outputs equal (float32 bits), or the WFA's runs."""
     import torch
@@ -436,18 +483,20 @@ def int_err(got, want) -> float:
     return err
 
 
-def stage_in_turns(dev, parent_fn, new_fn, names, reps):
-    """An earlier chain1 or WFA against this tree's, in turns (parent, new,
-    new, parent), as called (CUDA events) and on the device (the profiler
-    rows of `names`, split by kernel).  Both must give the same outputs."""
-    if not same_stage_outputs(parent_fn(), new_fn()):
-        raise AssertionError(f"the earlier {names[0]} and this tree's differ")
+def split_in_turns(dev, parent_fn, new_fn, parent_names, new_names, reps, same=None):
+    """An earlier kernel's calls against this tree's in turns (parent, new,
+    new, parent): ms as called (CUDA events) and device ms a call, by
+    kernel name and summed.  Both give the same outputs (`same`, else
+    equal integers), or it raises."""
+    a, b = parent_fn(), new_fn()
+    if not (same(a, b) if same else int_err(a, b) == 0):
+        raise AssertionError(f"the earlier {parent_names[0]} and this tree's differ")
     out = {"parent": [], "new": [], "parent_device": [], "new_device": [],
            "parent_device_by": [], "new_device_by": []}
-    for key, fn in (("parent", parent_fn), ("new", new_fn), ("new", new_fn),
-                    ("parent", parent_fn)):
+    for key, fn, names in (("parent", parent_fn, parent_names), ("new", new_fn, new_names),
+                           ("new", new_fn, new_names), ("parent", parent_fn, parent_names)):
         out[key].append(time_ms(fn, dev, reps))
-        by = device_ms_split(fn, names, reps)
+        by = device_ms_by_call(fn, names, reps)
         out[key + "_device_by"].append(by)
         out[key + "_device"].append(None if None in by.values() else sum(by.values()))
     return out
@@ -1052,54 +1101,13 @@ def host_shard_count(hi, qh, k, p):
     return nh, lcp, (nh * lcp).sum(1)
 
 
-def shard_in_turns(dev, lib, s_seeds, s_queries, p, out, reps):
-    """The earlier tree's B11 (--compare-source OLD/sharded.cu: a launch of
-    match_shard and score_f32 per shard, as its step called them, with the
-    scores added) in turns with this tree's one launch (earlier, new, new,
-    earlier): ms as called and device ms a call, every kernel row of the
-    call summed.  Both must give the same outputs."""
-    import torch
-
-    from lexicmap_tpu_torch.kernels import seed_match_shard as MS
-
-    L, M, E = s_seeds.shape
-    B = s_queries.shape[1]
-    suf = (1 << (2 * (16 - p))) - 1
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def earlier():
-        outs = []
-        for l in range(L):
-            o = torch.empty((2, B, M), dtype=torch.int32, device=dev)
-            acc = torch.empty(B, dtype=torch.int64, device=dev)
-            score = torch.empty(B, dtype=torch.float32, device=dev)
-            err = lib.seed_match_shard(s_seeds[l].data_ptr(), s_queries[l].data_ptr(),
-                                       o[0].data_ptr(), o[1].data_ptr(), acc.data_ptr(),
-                                       score.data_ptr(), B, M, E, suf, 16, stream)
-            if err:
-                raise RuntimeError(f"the earlier match_shard failed to launch ({err})")
-            outs.append((o, score))
-        return (torch.stack([o[0] for o, _ in outs]), torch.stack([o[1] for o, _ in outs]),
-                sum(sc for _, sc in outs))
-
-    def new():
-        return MS.seed_match_shard(s_seeds, s_queries, 16, p)
-
-    if int_err(earlier(), out):
-        raise AssertionError("the earlier match_shard and this tree's differ")
-    res = {"earlier": [], "new": [], "earlier_device": [], "new_device": []}
-    for key, fn in (("earlier", earlier), ("new", new), ("new", new), ("earlier", earlier)):
-        res[key].append(time_ms(fn, dev, reps))
-        res[key + "_device"].append(device_ms_per_call(fn, ("match_shard", "score_f32"), reps))
-    return res
-
-
 def phase_sharded(dev, card, state, seed, reps, parent=None):
     """B11 through make_sharded_search_step and B12 through
     ShardedSeedMatcher on a one-rank NCCL mesh with four local shards, over
     phase 4's table; the entry's dry run on the card; with `parent` (the
-    earlier tree's sharded.cu), its B11 in turns with this one.  Returns
-    (B11's result, B12's result, the mesh)."""
+    earlier tree's sharded.cu), its compaction (a launch a shard) in turns
+    with this one's launch over the four.  Returns (B11's result, B12's
+    result, the mesh)."""
     import numpy as np
     import torch
 
@@ -1230,13 +1238,10 @@ def phase_sharded(dev, card, state, seed, reps, parent=None):
               "bound_by": bound_by, "sector_bytes": sector_bytes, "design_bytes": design_bytes,
               "io_bytes": io_bytes, "probes": probes, "table_bytes": M * E * 4,
               "largest_score": float(sc.max())}
-    if parent is not None:
-        b11res["parent"] = shard_in_turns(dev, parent, s_seeds, s_queries, p, out, reps)
     log(f"[sharded] seed_match_shard, one launch for {L} shards: ms={ms:.4f} (device {dev_ms}) "
         f"step as called {step_ms:.4f} plain_ms={plain_ms:.2f} library_ms={library_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by}; bisections' sectors {sector_bytes / 1e6:.1f} MB, "
-        f"the design's {design_bytes / 1e6:.1f} MB); earlier kernel in turns "
-        f"{json.dumps(b11res.get('parent'))} [{card}]")
+        f"the design's {design_bytes / 1e6:.1f} MB) [{card}]")
     del s_seeds, s_queries, out
 
     # B12: ShardedSeedMatcher over the 31-mer table, a quarter of the
@@ -1286,31 +1291,52 @@ def phase_sharded(dev, card, state, seed, reps, parent=None):
         f"bisection's, none declined; {over} over H = {H} (up to {most} hits a shard) through "
         f"the second compaction, as the matcher reports ({json.dumps(second)})")
 
-    # the compaction against its plain twin on shard 0's locate outputs
+    # the compaction of the four shards' locate outputs, stacked as the
+    # matcher stacks them, in one launch against its plain twin
     sel = q2 != 0
     qh_full = np.zeros((B, M), dtype=np.uint32)
     qh_full[sel] = split_kmers_hi_lo(q2[sel], k)[0]
-    ids = bk.ids_per_shard[0]
-    qh0 = np.zeros((B, bk.mb_pad), dtype=np.uint32)
-    qv0 = np.zeros((B, bk.mb_pad), dtype=bool)
-    qh0[:, : ids.shape[0]], qv0[:, : ids.shape[0]] = qh_full[:, ids], sel[:, ids]
-    qh0 = torch.from_numpy(qh0.view(np.int32)).to(dev)
-    qv0 = torch.from_numpy(qv0).to(dev)
-    nh0, e00 = seed_locate_batch(bk.hi[0], bk.cnt[0], qh0, qv0, p)
-    a = (nh0, e00, bk.gids[0], H)
+    qh4 = np.zeros((L, B, bk.mb_pad), dtype=np.uint32)
+    qv4 = np.zeros((L, B, bk.mb_pad), dtype=bool)
+    for l, sh in enumerate(mesh.local):
+        ids = bk.ids_per_shard[sh]
+        qh4[l, :, : ids.shape[0]], qv4[l, :, : ids.shape[0]] = qh_full[:, ids], sel[:, ids]
+    qh4 = torch.from_numpy(qh4.view(np.int32)).to(dev)
+    qv4 = torch.from_numpy(qv4).to(dev)
+    loc = torch.empty((2, L, B, bk.mb_pad), dtype=torch.int32, device=dev)
+    for l in range(L):
+        seed_locate_batch(bk.hi[l], bk.cnt[l], qh4[l], qv4[l], p, out=loc[:, l])
+    a = (loc[0], loc[1], bk.gids, H)
     cgot = SC.shard_compact(*a)
-    cwant = SC.shard_compact_plain(*a)
+    cwant = SC.shard_compact_all_plain(*a)
     cerr = int_err(cgot, cwant)
     if cerr or not all(torch.equal(x, y) for x, y in zip(cgot, cwant)):
         raise AssertionError(f"shard_compact != plain at the 10k shape (max abs err {cerr})")
-    keys = torch.where(nh0 > 0, bk.gids[0].long()[None, :] & 0xFFFFFFFF, 0xFFFFFFFF)
+    keys = torch.where(loc[0] > 0, bk.gids.long()[:, None, :] & 0xFFFFFFFF, 0xFFFFFFFF)
     c_ms = time_ms(lambda: SC.shard_compact(*a), dev, reps)
     c_dev, c_by = device_ms(lambda: SC.shard_compact(*a), "compact_rows", reps)
-    c_plain = time_ms(lambda: SC.shard_compact_plain(*a), dev, reps)
-    c_lib = time_ms(lambda: torch.sort(keys, dim=1, stable=True), dev, reps)
-    c_bytes = 2 * nh0.numel() * 4 + bk.mb_pad * 4 + B * (3 * H + 1) * 4
+    c_plain = time_ms(lambda: SC.shard_compact_all_plain(*a), dev, reps)
+    c_lib = time_ms(lambda: torch.sort(keys, dim=-1, stable=True), dev, reps)
+    c_bytes = 2 * loc[0].numel() * 4 + bk.gids.numel() * 4 + L * B * (3 * H + 1) * 4
     c_bytes_ms = c_bytes / HBM_BYTES_PER_S * 1e3
-    c_ops_ms = 2 * nh0.numel() / FP32_OPS_PER_S * 1e3
+    c_ops_ms = 2 * loc[0].numel() / FP32_OPS_PER_S * 1e3
+    c_parent = None
+    if parent is not None:
+        def earlier():  # its _compact_all: a launch a shard into the slab's rows
+            out = torch.empty((L, B, 3 * H + 1), dtype=torch.int32, device=dev)
+            for l in range(L):
+                if parent.shard_compact(loc[0, l].data_ptr(), loc[1, l].data_ptr(),
+                                        bk.gids[l].data_ptr(), out[l].data_ptr(), B, bk.mb_pad,
+                                        H, torch.cuda.current_stream().cuda_stream):
+                    raise RuntimeError("the earlier shard_compact failed to launch")
+            return (out,)
+
+        def new():
+            out = torch.empty((L, B, 3 * H + 1), dtype=torch.int32, device=dev)
+            SC.shard_compact(*a, out=out)
+            return (out,)
+
+        c_parent = split_in_turns(dev, earlier, new, ("compact_rows",), ("compact_rows",), reps)
     batch_ms = time_ms(lambda: sm.match_batch(q2, p), dev, 3, warmup=0)
     # the same batch with its over-H half random: the first pass alone
     q3 = q2.copy()
@@ -1321,8 +1347,9 @@ def phase_sharded(dev, card, state, seed, reps, parent=None):
         raise AssertionError("the batch without over-H queries took a second compaction")
     for fn in kernel_fns():  # the comparisons' launches do not count
         fn.launches = saved[fn.__name__]
-    b12res = {"B": B, "mb_pad": bk.mb_pad, "E": bk.E, "H": H, "tile": bk.tile, "equal": True,
-              "max_abs_err": cerr, "hits_shard0": int((nh0 > 0).sum()),
+    b12res = {"B": B, "L": L, "mb_pad": bk.mb_pad, "E": bk.E, "H": H, "tile": bk.tile,
+              "equal": True, "max_abs_err": cerr, "hits": int((loc[0] > 0).sum()),
+              "over_h": int((cgot[3] > H).sum()), "launches_per_bucket": 1,
               "declined_queries": declined, "second_pass_queries": over,
               "most_hits_a_shard": most, "ms": c_ms, "device_ms": c_dev,
               "device_ms_by": c_by, "plain_ms": c_plain, "library_ms": c_lib,
@@ -1330,9 +1357,11 @@ def phase_sharded(dev, card, state, seed, reps, parent=None):
               "bound_by": "bytes" if c_bytes_ms >= c_ops_ms else "operations",
               "bytes": c_bytes, "matcher_ms_per_batch": batch_ms,
               "matcher_ms_first_pass_only": batch_first_ms, "init_s": init_s,
-              "hbm_bytes": sm.hbm_bytes}
-    log(f"[sharded] shard_compact at B={B}, rows={bk.mb_pad}, H={H}: kernel == plain; "
-        f"{json.dumps({k_: v for k_, v in b12res.items() if 'ms' in k_})} [{card}]")
+              "hbm_bytes": sm.hbm_bytes, "parent": c_parent}
+    log(f"[sharded] shard_compact, one launch for {L} shards at B={B}, rows={bk.mb_pad}, "
+        f"H={H}: kernel == plain; "
+        f"{json.dumps({k_: v for k_, v in b12res.items() if 'ms' in k_})}; earlier "
+        f"compaction (a launch a shard) in turns {json.dumps(c_parent)} [{card}]")
     del sm, state["matcher"]
     return b11res, b12res, mesh
 
@@ -1880,9 +1909,10 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
     if c_dev is not None:
         chain_res["us_per_step"] = c_dev * 1e3 / chain_res["steps_longest"]
     if parents and "chain1" in parents:
-        chain_res["parent"] = stage_in_turns(
+        names = ("chain1_kernel",)
+        chain_res["parent"] = split_in_turns(
             dev, lambda: parent_chain1(parents["chain1"], *args),
-            lambda: C1.chain1_forward(*args), ("chain1_kernel",), reps)
+            lambda: C1.chain1_forward(*args), names, names, reps, same=same_stage_outputs)
         log(f"[phase7] chain1, the earlier kernel and this one in turns: "
             f"{json.dumps(chain_res['parent'])} [{card}]")
     log(f"[phase7] chain1 == plain == native DP (float32 bits, indices) on {len(sets)} sets, "
@@ -1977,9 +2007,11 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
         f"DeviceWFA.align_batch {batch_s * 1e3:.1f} ms in {dw.launches} launches, "
         f"{dw.stats} (made in {made_s:.1f} s); device ms by kernel {json.dumps(w_by)} [{card}]")
     if parents and "wfa" in parents:
-        wfa_res["parent"] = stage_in_turns(
+        names = ("wfa_forward", "wfa_traceback")
+        wfa_res["parent"] = split_in_turns(
             dev, lambda: parent_wfa(parents["wfa"], *wargs, S, W, S + 8),
-            lambda: WK.wfa_batch(*wargs, S, W, S + 8), ("wfa_forward", "wfa_traceback"), reps)
+            lambda: WK.wfa_batch(*wargs, S, W, S + 8), names, names, reps,
+            same=same_stage_outputs)
         log(f"[phase7] wfa, the earlier kernels and these in turns: "
             f"{json.dumps(wfa_res['parent'])} [{card}]")
     # comparison launches do not count
@@ -1995,7 +2027,10 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
 # phase 8: the LexicHash capture (B10) vs its plain version and native
 
 CAPTURE_OPS_PER_STRAND = 9  # rolling k-mer update, bucket lookup, xor, min, winner test
-CAPTURE_KERNELS = ("capture_min", "capture_count", "capture_scatter", "capture_finish")
+CAPTURE_KERNELS = ("capture_init", "capture_min", "capture_keys", "capture_count",
+                   "capture_scatter", "capture_finish")
+# the thread-per-position capture.cu's: memsets for its init, no keys
+PARENT_CAPTURE_KERNELS = ("capture_min", "capture_count", "capture_scatter", "capture_finish")
 
 
 def capture_genomes(seed, sizes, masks, k, interval=1000, copies=(50, 12_000)):
@@ -2037,14 +2072,17 @@ def capture_genomes(seed, sizes, masks, k, interval=1000, copies=(50, 12_000)):
     return out
 
 
-def phase_capture(dev, card, seed, reps, sizes=(4 << 20, 6_000_000, 12_000_000, 20_000_000),
-                  m=20_000, copies=(50, 12_000)):
+def phase_capture(dev, card, seed, reps,
+                  sizes=(4 << 20, 6_000_000, 12_000_000, 20_000_000, 550_000), m=20_000,
+                  copies=(50, 12_000), parent=None):
     """B10 at the index default (20,000 masks, p = 8) on genomes up to
-    MAX_GENOME_SIZE: the kernel == its plain version (on the card) == native
-    capture_native, exactly; times as called, on the device (its four
-    kernels' profiler rows), plain, native, through DeviceCaptureEngine as
-    the build calls it (upload and fetch included), and the bound from each
-    genome's bytes and operations.  sizes, m and copies cut it for a
+    MAX_GENOME_SIZE and one of the end-to-end build's size: the kernel ==
+    its plain version (on the card) == native capture_native, exactly;
+    times as called, on the device (its kernels' profiler rows), plain,
+    native, through DeviceCaptureEngine as the build calls it (upload and
+    fetch included), and the bound from each genome's bytes and operations;
+    with `parent` (an earlier tree's capture.cu), its kernels in turns with
+    this tree's on every genome.  sizes, m and copies cut it for a
     rehearsal on the CPU."""
     import numpy as np
     import torch
@@ -2112,6 +2150,10 @@ def phase_capture(dev, card, seed, reps, sizes=(4 << 20, 6_000_000, 12_000_000, 
              "bound_ms": max(b), "bound_by": "bytes" if b[0] >= b[1] else "operations",
              "bytes": n_bytes, "operations": 2 * valid * CAPTURE_OPS_PER_STRAND,
              "max_abs_err": err}
+        if parent is not None:
+            r["parent"] = split_in_turns(dev, lambda: parent_capture(parent, *args),
+                                         lambda: CK.capture(*args), PARENT_CAPTURE_KERNELS,
+                                         CAPTURE_KERNELS, reps)
         rows.append(r)
         log(f"[capture] {json.dumps(r)}: kernel == plain == native [{card}]")
         del got, want, c, e
@@ -2537,8 +2579,9 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             "device_ms": None if None in by.values() else sum(by.values()), "device_ms_by": by}
         if parents and name in parents:
             pfn = parent_chain1 if name == "chain1" else parent_wfa
-            main_shape[name]["parent"] = stage_in_turns(
-                dev, lambda: pfn(parents[name], *a, **kw), lambda: fn(*a, **kw), names, 20)
+            main_shape[name]["parent"] = split_in_turns(
+                dev, lambda: pfn(parents[name], *a, **kw), lambda: fn(*a, **kw), names, names, 20,
+                same=same_stage_outputs)
         if name == "chain1":
             got = real_chain1(*a, **kw)
             want = C1.chain1_forward_plain(*a[:8])
@@ -2735,9 +2778,9 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
                        rounds=2, n_check=2):
     """The mesh engine (DeviceSearchEngine with a one-rank mesh of four
     shards; chain1 and the WFA on the card too) on the 200-genome index:
-    rows equal to the host engine's, four launches of B1 and of the
-    compaction a bucket and batch (and four more of the compaction for each
-    bucket that the matcher compacts again), the first `n_check` launches
+    rows equal to the host engine's, four launches of B1 and one of the
+    compaction a bucket and batch (and one more for each bucket that the
+    matcher compacts again), the first `n_check` launches
     of each equal to its plain version on the same tensors; q/min in turns
     with the device engine; then the multi-process search's launcher with
     one worker of four shards: its TSV equal to the host rows."""
@@ -2787,26 +2830,27 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
     if rows(got, ids, seqs) != host_rows:
         raise AssertionError("mesh engine rows differ from the host rows")
     batches = -(-len(seqs) // 32)
-    per = mesh.local_shards * len(meng.matcher.buckets) * batches
+    per = len(meng.matcher.buckets) * batches  # compactions, one a bucket for the L shards
     second = dict(meng.matcher.stats)  # a query over H: its bucket compacted again
-    again = mesh.local_shards * second["second_passes"]
-    if dev.type == "cuda" and not (launches["seed_locate_batch"] == per
+    again = second["second_passes"]
+    if dev.type == "cuda" and not (launches["seed_locate_batch"] == mesh.local_shards * per
                                    and launches["shard_compact"] == per + again
                                    and launches["chain1_forward"] == batches):
-        raise AssertionError(f"mesh engine launches {launches}, expected {per} of B1 and "
-                             f"{per} + {again} of the compaction ({second}), {batches} of "
-                             f"chain1")
+        raise AssertionError(f"mesh engine launches {launches}, expected "
+                             f"{mesh.local_shards * per} of B1 and {per} + {again} of the "
+                             f"compaction ({second}), {batches} of chain1")
     for name, kept in recorded.items():
         if len(kept) != n_check:
             raise AssertionError(f"recorded {len(kept)} {name} launches, expected {n_check}")
     main_err, main_shape = 0, []
     for a, out in recorded.pop("shard_compact"):
-        want = SC.shard_compact_plain(*a)
+        want = SC.shard_compact_all_plain(*a)
         err = int_err(out, want)
         if err or not all(torch.equal(x, y) for x, y in zip(out, want)):
             raise AssertionError(f"main path: shard_compact != plain (max abs err {err})")
-        main_shape.append({"B": int(a[0].shape[0]), "rows": int(a[0].shape[1]), "H": a[3],
-                           "hits": int((a[0] > 0).sum()), "most": int(out[3].max())})
+        main_shape.append({"L": int(a[0].shape[0]), "B": int(a[0].shape[1]),
+                           "rows": int(a[0].shape[2]), "H": a[3], "hits": int((a[0] > 0).sum()),
+                           "most": int(out[3].max())})
     locate_err, locate_shape = 0, []
     for a, out in recorded.pop("seed_locate_batch"):  # B1 on the shard rows
         want = SL.seed_locate_batch_plain(*a)
@@ -2942,6 +2986,8 @@ def capture_row(rows, build):
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
             "library_ms": None, "library": "none: no PyTorch call computes a LexicHash capture",
             "device_ms": big["device_ms"], "device_ms_by": big["device_ms_by"],
+            "design": "a thread rolls both k-mers over a run of up to 32 positions; the bucket "
+                      "table staged in shared memory at p <= 8",
             "shape": {k: big[k] for k in ("bases", "masks", "p")}, "genomes": rows}
 
 
@@ -2959,7 +3005,8 @@ def sharded_row(name, replaces, res, launches, main_err, main_shape, library):
                       if key in res},
             **{key: res[key] for key in ("sector_bytes", "design_bytes", "io_bytes", "bytes",
                                          "step_ms", "parent", "matcher_ms_per_batch",
-                                         "matcher_ms_first_pass_only", "second_pass_queries")
+                                         "matcher_ms_first_pass_only", "second_pass_queries",
+                                         "launches_per_bucket")
                if key in res}}
 
 
@@ -3028,7 +3075,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cres7, wres7 = phase_chain_wfa(dev, card, seed=args.seed + 9, reps=10, parents=parents)
     torch.cuda.empty_cache()
-    capres = phase_capture(dev, card, seed=args.seed + 13, reps=5)
+    capres = phase_capture(dev, card, seed=args.seed + 13, reps=5, parent=parents.get("capture"))
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
                                 args.rounds, parent, parents, mesh)

@@ -26,9 +26,10 @@
 // n_hits > 0 ordered by mask id, the first H of them as (gid, e0, n_hits),
 // and n, the count of all of them.  A shard's gids rise with the row
 // (ShardedSeedMatcher checks it when it packs the rows), so a stable
-// compaction in row order is JAX's sort by gid.  Output row b of out
-// [B, 3H + 1]: gid[H] | e0[H] | n_hits[H] | n; the slots from min(n, H) on
-// hold (0xFFFFFFFF, 0, 0).
+// compaction in row order is JAX's sort by gid.  One launch covers a
+// rank's L local shards; output row (l, b) of out [L, B, 3H + 1]: gid[H] |
+// e0[H] | n_hits[H] | n; the slots from min(n, H) on hold (0xFFFFFFFF, 0,
+// 0).
 //
 // What bounds them on this card.  match_shard is B1's search
 // (seed_locate.cu's note): a few compares per word read, so the scattered
@@ -42,9 +43,11 @@
 // row share the top levels, and the two bounds most of the rest.  Each
 // block sums its rows' products per query through shared memory, one
 // atomic a query a block.  shard_compact: it reads two int32 per (query,
-// row) and writes 12 bytes per kept hit, so bytes; a block per query scans
-// its row in order (a ballot and a popcount per warp, the warps' totals
-// through shared memory).
+// row) and writes 12 bytes per kept hit, so bytes; one launch covers the L
+// local shards, a block per (query, shard), each warp a contiguous span of
+// the row: it counts its span's hits first (ballots, no barrier), then one
+// barrier gives each warp its offset and it writes its span (the row read
+// twice, the second time from L1).
 //
 // Offsets are int64.
 
@@ -58,7 +61,7 @@ using namespace seed_search;
 
 constexpr int MATCH_ROWS = 8;         // rows (a warp each) a block of match_shard
 constexpr int SAMPLE = 32;            // pivots in a row's sample, B1's
-constexpr int COMPACT_THREADS = 256;  // one block a query
+constexpr int COMPACT_THREADS = 256;  // one block a (query, shard)
 constexpr int COMPACT_WARPS = COMPACT_THREADS / 32;
 constexpr uint32_t FULL = 0xFFFFFFFFu;
 
@@ -119,44 +122,56 @@ __global__ void __launch_bounds__(MATCH_ROWS * 32)
   }
 }
 
+// Grid (B, L): block (b, l) compacts query b's row of shard l.  Its warps
+// take contiguous spans of the row, a multiple of 32 rows each: each warp
+// counts its span's hits (a ballot and a popcount per 32 rows, no barrier),
+// one barrier shares the warps' counts, then each warp writes its span's
+// hits in row order from its offset, stopping at H.  nh, e0 [L, B, mb],
+// gids [L, mb], out [L, B, 3H + 1].
 __global__ void __launch_bounds__(COMPACT_THREADS)
     compact_rows(const int32_t* __restrict__ nh, const int32_t* __restrict__ e0,
-                 const int32_t* __restrict__ gids, int32_t* __restrict__ out, int mb, int H) {
+                 const int32_t* __restrict__ gids, int32_t* __restrict__ out, int B, int mb,
+                 int H) {
   __shared__ int totals[COMPACT_WARPS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t b = blockIdx.x;
-  const int32_t* nh_b = nh + b * mb;
-  const int32_t* e0_b = e0 + b * mb;
-  int32_t* o = out + b * (3 * (int64_t)H + 1);
-  int base = 0;  // hits before this tile, the same in every thread
-  for (int r0 = 0; r0 < mb; r0 += COMPACT_THREADS) {
-    const int r = r0 + threadIdx.x;
-    const int n = r < mb ? nh_b[r] : 0;
-    const unsigned ballot = __ballot_sync(FULL, n > 0);
-    if (lane == 0) totals[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, tile = 0;
+  const int64_t row = (int64_t)blockIdx.y * B + blockIdx.x;
+  const int32_t* nh_b = nh + row * mb;
+  const int32_t* e0_b = e0 + row * mb;
+  const int32_t* g = gids + (int64_t)blockIdx.y * mb;
+  int32_t* o = out + row * (3 * (int64_t)H + 1);
+  const int span = (mb + COMPACT_THREADS - 1) / COMPACT_THREADS * 32;
+  const int r0 = warp * span;
+  const int r1 = min(r0 + span, mb);
+  int mine = 0;  // this warp's hits, the same in every lane
+#pragma unroll 4
+  for (int r = r0 + lane; r < r0 + span; r += 32)
+    mine += __popc(__ballot_sync(FULL, r < r1 && nh_b[r] > 0));
+  if (lane == 0) totals[warp] = mine;
+  __syncthreads();
+  int at = 0, n = 0;  // hits before this warp's span, and in the row
 #pragma unroll
-    for (int w = 0; w < COMPACT_WARPS; ++w) {
-      before += w < warp ? totals[w] : 0;
-      tile += totals[w];
-    }
-    const int pos = base + before + __popc(ballot & ((1u << lane) - 1u));
-    if (n > 0 && pos < H) {
-      o[pos] = gids[r];
-      o[H + pos] = e0_b[r];
-      o[2 * H + pos] = n;
-    }
-    base += tile;
-    __syncthreads();  // totals is written again by the next tile
+  for (int w = 0; w < COMPACT_WARPS; ++w) {
+    at += w < warp ? totals[w] : 0;
+    n += totals[w];
   }
-  for (int j = min(base, H) + threadIdx.x; j < H; j += COMPACT_THREADS) {
+  for (int r = r0 + lane; r < r0 + span && at < H; r += 32) {
+    const int v = r < r1 ? nh_b[r] : 0;
+    const unsigned ballot = __ballot_sync(FULL, v > 0);
+    const int pos = at + __popc(ballot & ((1u << lane) - 1u));
+    if (v > 0 && pos < H) {
+      o[pos] = g[r];
+      o[H + pos] = e0_b[r];
+      o[2 * H + pos] = v;
+    }
+    at += __popc(ballot);
+  }
+  for (int j = min(n, H) + threadIdx.x; j < H; j += COMPACT_THREADS) {
     o[j] = -1;
     o[H + j] = 0;
     o[2 * H + j] = 0;
   }
-  if (threadIdx.x == 0) o[3 * H] = base;
+  if (threadIdx.x == 0) o[3 * H] = n;
 }
 
 }  // namespace
@@ -180,11 +195,12 @@ int seed_match_shard(const void* seeds, const void* queries, void* n_hits, void*
   return (int)cudaGetLastError();
 }
 
-int shard_compact(const void* nh, const void* e0, const void* gids, void* out, int B, int mb,
-                  int H, void* stream) {
-  if (B == 0) return (int)cudaSuccess;
-  compact_rows<<<(unsigned)B, COMPACT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)nh, (const int32_t*)e0, (const int32_t*)gids, (int32_t*)out, mb, H);
+// B12's compaction of L shards in one launch, on `stream`.
+int shard_compact(const void* nh, const void* e0, const void* gids, void* out, int L, int B,
+                  int mb, int H, void* stream) {
+  if (L == 0 || B == 0) return (int)cudaSuccess;
+  compact_rows<<<dim3((unsigned)B, (unsigned)L), COMPACT_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)nh, (const int32_t*)e0, (const int32_t*)gids, (int32_t*)out, B, mb, H);
   return (int)cudaGetLastError();
 }
 

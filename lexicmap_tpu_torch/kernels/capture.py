@@ -156,6 +156,7 @@ def kernel_lib() -> ctypes.CDLL:
             "capture_count_winners": (head + [vp, vp, vp], i32),
             "capture_write_winners": (head + [vp] * 9, i32),
             "capture_sort_cap": ([], i32),
+            "capture_best_bytes": ([i32, i32], i64),
             "capture_error_string": ([i32], ctypes.c_char_p)})
     return _lib_handle
 
@@ -182,11 +183,12 @@ def capture(codes, exclude, table, masks, k: int, p: int):
     dense = int(_dense(table, p))
     ex = 0 if exclude is None else exclude.data_ptr()
     head = (codes.data_ptr(), L, ex, k, p, table.data_ptr(), dense, m, masks.data_ptr())
-    work = torch.empty(28 * m, dtype=torch.uint8, device=dev)
-    best = work[: 8 * m].view(torch.int64)
-    cnt = work[8 * m: 16 * m].view(torch.int64)
-    off = work[16 * m: 24 * m].view(torch.int64)
-    cursor = work[24 * m:]
+    nb = lib.capture_best_bytes(m, p)  # the (mask, best) pairs, then the uint16 table and keys
+    work = torch.empty(20 * m + nb, dtype=torch.uint8, device=dev)
+    cnt = work[: 8 * m].view(torch.int64)
+    off = work[8 * m: 16 * m].view(torch.int64)
+    best = work[16 * m: 16 * m + nb]
+    cursor = work[16 * m + nb:]
     err = _on_device(dev, lambda stream: lib.capture_count_winners(
         *head, best.data_ptr(), cnt.data_ptr(), stream))
     _raise_on(err, lib, "capture_count_winners")

@@ -180,23 +180,36 @@ def _raise_on(err: int, lib, name: str):
         raise RuntimeError(f"{name} launch failed: {lib.seed_locate_error_string(err).decode()}")
 
 
-def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int):
+def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int, out=None):
     """Per (query, row) >=p-prefix entry range of a sorted hi-word table.
 
     seed_hi int32 [Mb, E] (uint32 bits, rows sorted over [0, cnt), PAD_HI
     after), seed_cnt int32 [Mb], query_hi int32 [B, Mb], query_valid bool
-    [B, Mb]; 1 <= p <= 16.  Returns (n_hits, e0), both int32 [B, Mb].
+    [B, Mb]; 1 <= p <= 16; out: an optional int32 [2, B, Mb] to write into
+    (out[0] and out[1] each contiguous, as a slice of a stacked buffer is).
+    Returns (n_hits, e0), both int32 [B, Mb].
 
     CUDA tensors launch the kernel (`launches` counts the launches); CPU
     tensors run the plain version."""
     _check(seed_hi, seed_cnt, query_hi, query_valid)
     suf = suffix_mask(p)
+    (Mb, E), B = seed_hi.shape, query_hi.shape[0]
+    if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != (2, B, Mb)
+                            or out.device != seed_hi.device or not out[0].is_contiguous()
+                            or not out[1].is_contiguous()):
+        raise ValueError(f"out must be an int32 (2, {B}, {Mb}) tensor on {seed_hi.device} "
+                         f"whose two halves are contiguous")
     if seed_hi.device.type == "cpu":
-        return seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
+        got = seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
+        if out is None:
+            return got
+        out[0].copy_(got[0])
+        out[1].copy_(got[1])
+        return out[0], out[1]
     ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
                       query_valid=query_valid)
-    (Mb, E), B = seed_hi.shape, query_hi.shape[0]
-    out = torch.empty((2, B, Mb), dtype=torch.int32, device=seed_hi.device)
+    if out is None:
+        out = torch.empty((2, B, Mb), dtype=torch.int32, device=seed_hi.device)
     if B * Mb == 0:
         return out[0], out[1]
     lib = kernel_lib()

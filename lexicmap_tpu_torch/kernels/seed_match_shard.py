@@ -116,7 +116,7 @@ def seed_match_shard_plain(seeds, queries, k: int, min_prefix: int):
 _SIGNATURES = {
     "seed_match_shard": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "shard_compact": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "shard_compact": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                       ctypes.c_int),
     "sharded_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }

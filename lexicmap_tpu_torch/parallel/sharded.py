@@ -197,11 +197,12 @@ class ShardedSeedMatcher:
     repeat-heavy masks), each shard's rows padded to the JAX tile rule, and
     per query, shard and bucket H = min(H_SHARD, rows) hits compacted.
     Masks of more than SHARD_MAX_E entries stay on the host tier.  Each
-    local shard is one seed_locate_batch launch (B1) and one shard_compact
-    launch; the slabs of (gid, e0, n_hits) and counts are gathered over tp,
-    then dp.  Where a query has more than H hits on a shard, the bucket is
-    compacted again from the same B1 outputs at the largest gathered count
-    (JAX's matcher declines such a query instead).  Downstream (posting
+    local shard is one seed_locate_batch launch (B1) into one stacked
+    buffer, and a bucket one shard_compact launch over its L shards; the
+    slabs of (gid, e0, n_hits) and counts are gathered over tp, then dp.
+    Where a query has more than H hits on a shard, the bucket is compacted
+    again from the same B1 outputs at the largest gathered count (JAX's
+    matcher declines such a query instead).  Downstream (posting
     gather, chaining, alignment) is the host code, so rows equal the host
     engine's.
 
@@ -274,12 +275,12 @@ class ShardedSeedMatcher:
         return min(self.H_SHARD, bucket.mb_pad)
 
     def _compact_all(self, bk: ShardBucket, located, H: int) -> torch.Tensor:
-        """shard_compact of every local shard's B1 outputs at capacity H,
-        gathered over tp, then dp: int32 [dp * tp, bl, 3H + 1]."""
-        L, bl = self.mesh.local_shards, located[0][0].shape[0]
-        slab = torch.empty((L, bl, 3 * H + 1), dtype=torch.int32, device=self.device)
-        for l, (nh, e0) in enumerate(located):
-            shard_compact(nh, e0, bk.gids[l], H, out=slab[l])
+        """shard_compact of the local shards' stacked B1 outputs (int32 [2,
+        L, bl, mb_pad]) at capacity H, one launch, gathered over tp, then
+        dp: int32 [dp * tp, bl, 3H + 1]."""
+        slab = torch.empty((*located.shape[1:3], 3 * H + 1), dtype=torch.int32,
+                           device=self.device)
+        shard_compact(located[0], located[1], bk.gids, H, out=slab)
         return self.mesh.gather(self.mesh.gather(slab, "tp"), "dp")
 
     def match_batch(self, query_kmers_batch: np.ndarray, min_prefix: int):
@@ -318,8 +319,11 @@ class ShardedSeedMatcher:
             count_h2d("sharded seed matching", qh, qv)
             qh_d = torch.from_numpy(qh.view(np.int32)).to(self.device)
             qv_d = torch.from_numpy(qv).to(self.device)
-            located.append([seed_locate_batch(bk.hi[l], bk.cnt[l], qh_d[l], qv_d[l], min_prefix)
-                            for l in range(L)])
+            loc = torch.empty((2, L, bl, bk.mb_pad), dtype=torch.int32, device=self.device)
+            for l in range(L):
+                seed_locate_batch(bk.hi[l], bk.cnt[l], qh_d[l], qv_d[l], min_prefix,
+                                  out=loc[:, l])
+            located.append(loc)
             pending.append(self._compact_all(bk, located[-1], self.capacity(bk)))
         fetched = fetch_numpy("sharded seed matching", *pending) if pending else []
 

@@ -13,6 +13,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
+from torch_parity import capture_cases
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 from lexicmap_tpu.masks import MaskSet as JaxMaskSet
@@ -225,3 +226,15 @@ def test_cuda_without_a_card_raises(ms, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceCaptureEngine(ms)
+
+
+CAPTURE_CASES = capture_cases()
+
+
+@pytest.mark.parametrize("case", range(len(CAPTURE_CASES)),
+                         ids=[c[0] for c in CAPTURE_CASES])
+def test_capture_cases_equal_jax_and_native(case, small_slab):
+    """tests/torch_parity.py::capture_cases (the card's kernel tests run the
+    same genomes): the port's capture == native == the JAX engine's."""
+    _, masks, k, codes, exclude = CAPTURE_CASES[case]
+    check(MaskSet(masks, k), codes, exclude)

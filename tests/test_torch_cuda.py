@@ -597,6 +597,35 @@ def test_cuda_shard_compact_equals_plain(cuda_device, H, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mb, H", [(33, 7), (1000, 257), (5088, 1536)])
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_cuda_shard_compact_stacked_equals_plain(cuda_device, L, mb, H):
+    """One launch over L shards ([L, B, mb]) against shard_compact_all_plain:
+    row counts under, not a multiple of and at the 10k shape above the
+    block's warp spans (8 warps x a multiple of 32 rows), hit rates that put
+    some queries over H and leave others under it."""
+    from lexicmap_tpu_torch.kernels import shard_compact as SC
+
+    nh, e0, gids = (t.to(cuda_device) for t in compact_case(B=9, mb=mb, hit_rate=0.3,
+                                                             seed=L * mb, n_pad=5, L=L))
+    nh[:, 0] = 0  # a query without hits on every shard
+    nh[:, 1, : mb - 5] = 1  # one with every real row
+    nh[:, 2] = 0
+    nh[:, 2, : mb - 5: 11] = 2  # one with a hit in eleven rows: under H
+    before = SC.shard_compact.launches
+    got = SC.shard_compact(nh, e0, gids, H)
+    torch.cuda.synchronize()
+    assert SC.shard_compact.launches == before + 1
+    want = SC.shard_compact_all_plain(nh, e0, gids, H)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    n = got[3]
+    assert (n > H).any() and ((n <= H) & (n > 0)).any()
+    for l in range(L):  # each shard as the one-shard form's launch computes it
+        assert all(torch.equal(a[l], b) for a, b in zip(got, SC.shard_compact(
+            nh[l], e0[l], gids[l], H)))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H", [999, 1000, 1001])
 def test_cuda_shard_compact_capacity_at_the_rows(cuda_device, H):
     """H at a bucket's row count (H = min(H_SHARD, mb_pad)): every row hit
@@ -619,8 +648,9 @@ def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
     """make_mesh(local_shards=4) on the card (NCCL, world size 1): the
     sharded step's scores equal the plain twins' over the whole table (one
     launch a step), the matcher's triples equal the host bisection's (four
-    launches of each kernel a bucket, and second compactions at a capacity
-    under the hits), and the mesh engine's rows the host engine's."""
+    B1 launches a bucket and one compaction for the four shards, and
+    second compactions at a capacity under the hits), and the mesh
+    engine's rows the host engine's."""
     from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
     from lexicmap_tpu_torch.kernels import seed_match_shard as MS
     from lexicmap_tpu_torch.kernels import shard_compact as SC
@@ -648,9 +678,9 @@ def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
         m = TS.ShardedSeedMatcher(host, mesh)
         before = (SL.seed_locate_batch.launches, SC.shard_compact.launches)
         got = m.match_batch(kmers, host.opt.min_prefix)
-        n = 4 * len(m.buckets)
+        n = len(m.buckets)
         assert (SL.seed_locate_batch.launches, SC.shard_compact.launches) == (
-            before[0] + n, before[1] + n)
+            before[0] + 4 * n, before[1] + n)
         for b, g in enumerate(got):
             want = host_triples(host, kmers[b], host.opt.min_prefix)
             assert g is not None and all(np.array_equal(x, y) for x, y in zip(g, want))
@@ -658,7 +688,7 @@ def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
         before = SC.shard_compact.launches
         again = m.match_batch(kmers, host.opt.min_prefix)
         assert m.stats["second_passes"] >= 1
-        assert SC.shard_compact.launches == before + n + 4 * m.stats["second_passes"]
+        assert SC.shard_compact.launches == before + n + m.stats["second_passes"]
         for a, g in zip(again, got):
             assert all(np.array_equal(x, y) for x, y in zip(a, g))
 

@@ -37,7 +37,11 @@ from lexicmap_tpu_torch import entry as TE
 from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
 from lexicmap_tpu_torch.kernels import seed_locate as SL
 from lexicmap_tpu_torch.kernels.seed_match_shard import seed_match_shard, seed_match_shard_plain
-from lexicmap_tpu_torch.kernels.shard_compact import shard_compact, shard_compact_plain
+from lexicmap_tpu_torch.kernels.shard_compact import (
+    shard_compact,
+    shard_compact_all_plain,
+    shard_compact_plain,
+)
 from lexicmap_tpu_torch.parallel import sharded as TS
 from lexicmap_tpu_torch.parallel.engine import DeviceSearchEngine
 from lexicmap_tpu_torch.utils.kmers import seq_to_codes
@@ -173,6 +177,41 @@ def test_shard_compact_plain_equals_jax_sort(H):
     out = torch.full((5, 3 * H + 1), 7, dtype=torch.int32)
     views = shard_compact_plain(nh, e0, gids, H, out=out)
     assert all(torch.equal(a, b) for a, b in zip(views, (kk, ke, kn, n)))
+
+
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_shard_compact_stacked_plain_equals_jax_sort(L):
+    """The L-shard form ([L, B, mb], one launch on the card) against
+    jax.lax.sort shard by shard, and against L calls of the one-shard
+    shard_compact_plain; 45 rows, not a multiple of the kernel's warp
+    spans; H = 12, under some queries' hits and over others'."""
+    H = 12
+    nh, e0, gids = compact_case(B=4, mb=45, hit_rate=0.3, seed=L, n_pad=3, L=L)
+    nh[:, 0, :42] = 1  # a query over H on every shard
+    nh[:, 1] = 0  # one without hits
+    nh[:, 2] = 0
+    nh[:, 2, :42:11] = 2  # one under H
+    before = shard_compact.launches
+    kk, ke, kn, n = shard_compact(nh, e0, gids, H)
+    assert shard_compact.launches == before
+    assert kk.shape == (L, 4, H) and n.shape == (L, 4)
+    assert (n > H).any() and ((n <= H) & (n > 0)).any()
+    out = torch.full((L, 4, 3 * H + 1), 7, dtype=torch.int32)
+    views = shard_compact_all_plain(nh, e0, gids, H, out=out)
+    assert all(torch.equal(a, b) for a, b in zip(views, (kk, ke, kn, n)))
+    for l in range(L):
+        one = shard_compact_plain(nh[l], e0[l], gids[l], H)
+        assert all(torch.equal(a[l], b) for a, b in zip((kk, ke, kn, n), one))
+        keys = np.where(nh[l].numpy() > 0, gids[l].numpy().view(np.uint32)[None, :],
+                        np.uint32(0xFFFFFFFF))
+        sk, se, sn = (np.asarray(a) for a in jax.lax.sort(
+            (jnp.asarray(keys), jnp.asarray(e0[l].numpy()), jnp.asarray(nh[l].numpy())),
+            dimension=1, num_keys=1, is_stable=True))
+        c = torch.clamp(n[l], max=H)
+        for b in range(4):
+            assert np.array_equal(kk[l, b, : c[b]].numpy().view(np.uint32), sk[b, : c[b]])
+            assert np.array_equal(ke[l, b, : c[b]].numpy(), se[b, : c[b]])
+            assert np.array_equal(kn[l, b, : c[b]].numpy(), sn[b, : c[b]])
 
 
 def test_search_step_equals_jax(tmp_path, jax_mesh):

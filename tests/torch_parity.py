@@ -958,14 +958,30 @@ def mask_kmer_codes(mask, k):
     return np.array([(int(mask) >> (2 * (k - 1 - t))) & 3 for t in range(k)], dtype=np.uint8)
 
 
+#: csrc/capture.cu's RUN (positions a thread rolls its k-mers over) and
+#: the positions a block takes at a time: 512 x RUN with the table staged
+#: in shared memory, 256 x RUN (half of it) with the table in global memory
+CAPTURE_RUN, CAPTURE_CHUNK = 32, 512 * 32
+
+
 def capture_cases(seed=50):
     """Capture inputs at small size, as (name, masks uint64, k, codes,
-    exclude): a random genome; exclusions at both ends; k = 21 and 32; a
-    mask's own k-mer as a tandem repeat 20,000 times (more than two of the
-    kernel's SORT_CAP runs, so its slice is merged); a homopolymer, whose
-    k-mer wins at every position; a distinct prefix of 14 bases (the
-    bucket table's bisection); a genome of exactly k bases; every position
-    excluded."""
+    exclude): a random genome; exclusions at both ends; k = 21 and 32; an
+    odd number of masks (the kernel's scratch stays aligned); a mask's own
+    k-mer as a tandem repeat 20,000 times (over the kernel's SORT_CAP, so
+    its slice is radix-sorted); a homopolymer, whose k-mer wins at every
+    position; a distinct prefix of 14 bases (the bucket table's bisection)
+    and of 9 (a dense table too large for the kernel to stage in shared
+    memory); a genome of exactly k bases; every position excluded; k-mer
+    counts nk = L - k + 1 at 0, 1 and RUN - 1 past a multiple of CHUNK and
+    at CHUNK - 1 past one, their first k-mer a mask's and their last
+    k-mer's reverse complement another's; exclusion intervals that start
+    and end mid-run, one across a block's chunk, with masks' k-mers at and
+    beside their ends; a genome of 1.2 Mb.  The kernel's run is the
+    shortest of 8, 16 and 32 positions whose chunks fit one wave of the
+    card (csrc/capture.cu::run_for): on an H100 the tandem repeat takes
+    runs of 16, the 1.2 Mb genome and the distinct prefix of 9 runs of 32,
+    the others runs of 8."""
     from lexicmap_tpu_torch.masks import MaskSet
 
     rng = np.random.default_rng(seed)
@@ -982,6 +998,8 @@ def capture_cases(seed=50):
     out.append(("exclusions and a repeat", m31, 31, c, ex))
     for k in (21, 32):
         out.append((f"k={k}", MaskSet.generate(k, 256, 7).masks, k, codes(120_000), None))
+    out.append(("an odd number of masks", MaskSet.generate(31, 333, 3).masks, 31,
+                codes(90_000), None))
     c = codes(700_000)
     c[20_000: 20_000 + 20_000 * 31] = np.tile(mask_kmer_codes(m31[5], 31), 20_000)
     out.append(("tandem repeat of a mask's k-mer", m31, 31, c, None))
@@ -989,15 +1007,38 @@ def capture_cases(seed=50):
     homo = next(b for b in range(4)  # a base whose homopolymer k-mer has a mask's bucket
                 if ((m31 >> np.uint64(2 * (31 - p))) == np.uint64(int(str(b) * p, 4))).any())
     out.append(("homopolymer", m31, 31, np.full(300_000, homo, dtype=np.uint8), None))
-    sparse = rng.integers(0, 1 << 62, size=64, dtype=np.uint64)
-    sparse[1] = sparse[0] ^ np.uint64(1 << (2 * (31 - 13) - 1))
-    c = codes(80_000)
-    for i, mk in enumerate(np.sort(sparse)[:8]):
-        c[1_000 + 100 * i: 1_031 + 100 * i] = mask_kmer_codes(mk, 31)
-    out.append(("distinct prefix of 14", sparse, 31, c, None))
+    for p in (14, 9):  # the table bisected (4^14 entries), and dense in global memory
+        sparse = rng.integers(0, 1 << 62, size=64, dtype=np.uint64)
+        sparse[1] = sparse[0] ^ np.uint64(1 << (2 * (31 - p + 1) - 1))
+        # p = 9: nk = 31 past a multiple of 256 x RUN
+        c = codes(80_000 if p == 14 else 136 * 8192 + 31 + 30)
+        for i, mk in enumerate(np.sort(sparse)[:8]):
+            c[1_000 + 100 * i: 1_031 + 100 * i] = mask_kmer_codes(mk, 31)
+        c[-31:] = mask_kmer_codes(np.sort(sparse)[9], 31)
+        out.append((f"distinct prefix of {p}", sparse, 31, c, None))
     out.append(("exactly k bases", m31, 31, codes(31), None))
     c = codes(5_000)
     out.append(("all excluded", m31, 31, c, np.ones(c.shape[0] - 30, dtype=bool)))
+    R, C = CAPTURE_RUN, CAPTURE_CHUNK
+    for nk in (3 * C, 3 * C + 1, 3 * C + R - 1, 4 * C - 1):
+        c = codes(nk + 30)
+        c[:31] = mask_kmer_codes(m31[9], 31)
+        c[-31:] = 3 - mask_kmer_codes(m31[10], 31)[::-1]  # the rc k-mer of the last position
+        out.append((f"nk={nk}", m31, 31, c, None))
+    c = codes(3 * C + 1_000)
+    ex = np.zeros(c.shape[0] - 30, dtype=bool)
+    for (a, b), j in zip(((5, 27), (3 * R + 7, 9 * R + 13), (C - 17, C + 40),
+                          (2 * C + R, 2 * C + 3 * R)), range(20, 40, 4)):
+        ex[a:b] = True
+        for at, mk in ((a, j), (b - 1, j + 1), (b, j + 2)):  # excluded, excluded, kept
+            if at + 31 <= c.shape[0] and at - 31 >= 0:
+                c[at: at + 31] = mask_kmer_codes(m31[mk], 31)
+    out.append(("exclusions mid-run", m31, 31, c, ex))
+    c = codes(1_200_000)
+    c[700_000:710_000] = c[100_000:110_000]
+    ex = np.zeros(c.shape[0] - 30, dtype=bool)
+    ex[300_003:300_047] = ex[900_011:905_000] = True
+    out.append(("1.2 Mb", m31, 31, c, ex))
     return out
 
 
@@ -1149,14 +1190,16 @@ def shard_stack_case(L, B, M, E, kind="random", seed=0, k=16, p=15):
     return np.ascontiguousarray(seeds), np.ascontiguousarray(queries), k, p
 
 
-def compact_case(B, mb, hit_rate, seed=0, n_pad=0):
+def compact_case(B, mb, hit_rate, seed=0, n_pad=0, L=None):
     """Inputs of shard_compact: nh, e0 int32 [B, mb] (about `hit_rate` of
     the cells with hits; the last `n_pad` rows padding, never hit) and gids
-    int32 [mb] rising with the row, -1 on the padding."""
+    int32 [mb] rising with the row, -1 on the padding; with L, L such
+    shards stacked: [L, B, mb] and [L, mb]."""
     rng = np.random.default_rng(seed)
-    nh = np.where(rng.random((B, mb)) < hit_rate, rng.integers(1, 50, size=(B, mb)), 0)
-    nh[:, mb - n_pad:] = 0
-    e0 = rng.integers(0, 1 << 20, size=(B, mb))
-    gids = np.cumsum(rng.integers(1, 9, size=mb))
-    gids[mb - n_pad:] = -1
+    shape = (B, mb) if L is None else (L, B, mb)
+    nh = np.where(rng.random(shape) < hit_rate, rng.integers(1, 50, size=shape), 0)
+    nh[..., mb - n_pad:] = 0
+    e0 = rng.integers(0, 1 << 20, size=shape)
+    gids = np.cumsum(rng.integers(1, 9, size=(*shape[:-2], mb)), axis=-1)
+    gids[..., mb - n_pad:] = -1
     return tuple(torch.from_numpy(a.astype(np.int32)) for a in (nh, e0, gids))
