@@ -27,7 +27,8 @@ Phases, each of which raises on a wrong result (nothing falls back):
      seed-locate or seed-match kernel against this one in turns, at the same
      shapes (and, for seed_locate, the main path's);
   4. DeviceSeedMatcher over a synthetic 20,000-mask x 10,240-entry seed
-     table vs a numpy bisection oracle;
+     table vs a numpy bisection oracle, and the compaction after B1 (B4)
+     timed in its batch against its bound from bytes;
   4b. the sharded matcher on one NCCL rank with four local shards, over
      phase 4's table: seed_match_shard (B11, one launch for the four
      shards) through make_sharded_search_step on its 16-mer hi words (rows
@@ -93,6 +94,20 @@ Phases, each of which raises on a wrong result (nothing falls back):
      device, plain, native and through the engine, and the bound from each
      genome's bytes and operations; with --compare-source OLD/capture.cu,
      the earlier tree's kernels in turns with this tree's on each genome.
+  9. (run after 6, on its genomes, queries and index) utils: the first 16
+     genomes built with `index --engine device -b 8` (two batches, B10) and
+     with `--engine host`, the trees byte-identical (a cut: convert's
+     per-posting Python loops would add minutes at 200 genomes); `utils
+     export-index` of it and `utils import-index` of the export, timed, the
+     exported tree's files counted and digested; the cut's queries and the
+     many-hit set searched on the imported index with `search -a --engine
+     device` and with `--chain device --wfa device`, rows == the host
+     engine's on the cut, B1, the phase-4 pair, B9 and B8 launched; the
+     same after `utils reindex-seeds`; `utils 2blast` and `utils 2sam` of
+     the device TSV == of the host TSV; then TaxId-filtered `search
+     --engine device -T -G` on the 200-genome index (a synthetic taxdump of
+     two genera and four species) under a genus whitelist and a species
+     blacklist: rows == the host engine's, non-empty, every genome allowed.
 Then one `kernels` JSON line, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.  Exits non-zero without a result
 when there is no CUDA device or the package is not beside this script.
@@ -1063,10 +1078,50 @@ def phase_matcher(dev, card, M, E, B, p, seed, reps):
         f"hbm_bytes={matcher.hbm_bytes} [{card}]")
     if dev.type == "cuda" and launches != (1 + 2 * reps) * len(matcher.buckets):
         raise AssertionError(f"expected one launch per bucket per batch, saw {launches}")
+    comp = compaction_in_batch(dev, card, matcher, qh, sel, p, n_trip, reps * 4)
     res = {"hbm_bytes": matcher.hbm_bytes, "ms_per_batch": ms, "device_ms": dev_ms,
            "triples": n_trip,
-           "launches": launches, "init_s": init_s}
+           "launches": launches, "init_s": init_s, "compaction": comp}
     return res, {"kmers": kmers, "off": off, "q": q, "k": k, "matcher": matcher}
+
+
+def compaction_in_batch(dev, card, matcher, qh, sel, p, n_trip, reps):
+    """B4, the compaction after B1 in the matcher's batch (`compact_hits`,
+    the port's own path, which is the library call): its time as called
+    and on the device (every kernel row of a call: the comparison, the
+    nonzero and the gathers) on B1's outputs for this batch, against its
+    bound from bytes (the [B, Mb] int32 counts and e0 read once, the int64
+    triples written once).  Its triples must be the oracle's count."""
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
+    from lexicmap_tpu_torch.parallel.device_search import compact_hits
+
+    if len(matcher.buckets) != 1:
+        raise AssertionError("the smoke table must be one bucket")
+    bk = matcher.buckets[0]
+    qh_d = torch.from_numpy(qh.view(np.int32)).to(dev)
+    sel_d = torch.from_numpy(sel).to(dev)
+    saved = seed_locate_batch.launches
+    nh, e0 = seed_locate_batch(bk.hi, bk.cnt, qh_d.index_select(1, bk.gids),
+                               sel_d.index_select(1, bk.gids), p)
+    seed_locate_batch.launches = saved  # launches made to measure do not count
+
+    def call():
+        return compact_hits(nh, e0, bk.gids, bk.base)
+
+    trip = call()
+    if trip.shape[1] != n_trip:
+        raise AssertionError(f"compaction: {trip.shape[1]} triples, the oracle {n_trip}")
+    ms = time_ms(call, dev, reps)
+    device = device_ms_by_call(call, ("",), reps)[""]
+    nbytes = 2 * nh.numel() * nh.element_size() + trip.numel() * trip.element_size()
+    res = {"B": int(nh.shape[0]), "Mb": int(nh.shape[1]), "triples": int(trip.shape[1]),
+           "ms": ms, "device_ms": device, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"[matcher] B4 compaction in the batch: {json.dumps(res)} [{card}]")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -2771,7 +2826,8 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             "many_hit": {"rows": mrows, "windows": mwin, "seconds": many_s},
             "stage_qpm": stage_qpm, "stage_times": stage_times, "chain_share": chain_share,
             "wfa_share": wfa_share, "chainer_stats": cstats, "wfa_stats": wstats,
-            "stage_main_shapes": main_shape, "build": build, "genome_search": gres}
+            "stage_main_shapes": main_shape, "build": build, "genome_search": gres,
+            "inputs": (db, qrecs, many)}
 
 
 def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx, tmp, rows,
@@ -2969,6 +3025,202 @@ def check_main_path_shapes(dev, card, idx, kmers, parent=None):
 
 
 # --------------------------------------------------------------------------
+# phase 9: utils, on a cut of phase 6's genomes, and the TaxId filter on the
+# 200-genome index
+
+
+def write_taxdump(root, n_genomes):
+    """A synthetic NCBI taxdump (nodes.dmp: genera 10 and 20, species 11 and
+    12 under 10, 21 and 22 under 20) and a genome2taxid file that gives
+    genome gNNN the species (11, 12, 21, 22)[NNN % 4]."""
+    os.makedirs(root)
+    with open(os.path.join(root, "nodes.dmp"), "w") as fh:
+        fh.write("1\t|\t1\t|\tno rank\t|\n")
+        for genus in (10, 20):
+            fh.write(f"{genus}\t|\t1\t|\tgenus\t|\n")
+            for species in (genus + 1, genus + 2):
+                fh.write(f"{species}\t|\t{genus}\t|\tspecies\t|\n")
+    taxid = {f"g{gi:03d}": (11, 12, 21, 22)[gi % 4] for gi in range(n_genomes)}
+    path = os.path.join(root, "genome2taxid.tsv")
+    with open(path, "w") as fh:
+        fh.writelines(f"{g}\t{t}\n" for g, t in taxid.items())
+    return path, taxid
+
+
+def phase_utils(dev, card, tmp, db, n_genomes, qrecs, many, n_cut=16, batch=8):
+    """The `utils` commands as a user runs them (`cli.main`), on the first
+    `n_cut` of phase 6's genomes: built with `index --engine device -b
+    batch` (B10) and with `--engine host`, the trees byte-identical;
+    `utils export-index` of the device-built cut, then `utils import-index`
+    of the export, the imported seeds and masks those of the cut; the cut's
+    queries and the many-hit set searched on the imported index with
+    `search -a --engine device` and with `--chain device --wfa device`,
+    rows equal to the host engine's on the cut, each run's kernels launched;
+    again after `utils reindex-seeds` on a copy of it; `utils 2blast` and
+    `utils 2sam` of the device TSV equal to theirs of the host TSV; then
+    `search --engine device -T -G` on phase 6's index `db` under a genus
+    whitelist and a species blacklist: rows equal to the host engine's,
+    non-empty, every genome one the filter allows."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+
+    from lexicmap_tpu_torch import cli
+
+    def run(argv, what):
+        """cli.main(argv) with its stdout kept: (seconds, stdout); raises
+        unless it exits 0."""
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"[utils] {what} exited {rc}")
+        return time.perf_counter() - t0, buf.getvalue()
+
+    def rows(path):
+        with open(path) as fh:
+            return fh.read().splitlines()[1:]
+
+    def write_queries(path, recs):
+        with open(path, "wb") as fh:
+            for qid, s in recs:
+                fh.write(f">{qid}\n".encode() + s + b"\n")
+        return path
+
+    def searched(what, argv, path, want, need):
+        """Device search of `argv` into `path`: its rows == `want`, each
+        kernel of `need` launched; returns (seconds, launches)."""
+        reset_launches()  # the path's run starts here
+        s, _ = run([*argv, "-o", path], what)
+        launches = launch_counts()  # ... and ends here
+        if rows(path) != want:
+            raise AssertionError(f"[utils] {what}: rows differ from the host engine's")
+        if dev.type == "cuda" and not all(launches[n] for n in need):
+            raise AssertionError(f"[utils] {what}: a kernel of the path was not launched: "
+                                 f"{launches}")
+        return s, {n: launches[n] for n in need}
+
+    res = {"genomes": n_cut, "of": n_genomes}
+    cut = os.path.join(tmp, "cut")
+    gdir = os.path.join(cut, "genomes")
+    os.makedirs(gdir)
+    for gi in range(n_cut):
+        shutil.copy(os.path.join(tmp, "genomes", f"g{gi:03d}.fasta"), gdir)
+    log(f"[utils] the cut: {n_cut} of {n_genomes} genomes, in {-(-n_cut // batch)} batches "
+        f"(export-index and import-index loop in Python over every posting)")
+
+    # 1. the cut built on the card and on the host
+    dev_db, host_db = os.path.join(cut, "dev.lmt"), os.path.join(cut, "host.lmt")
+    reset_launches()
+    res["build_device_s"], _ = run(["--quiet", "index", "-I", gdir, "-O", dev_db, "-b",
+                                    str(batch), "--engine", "device", "--device", str(dev)],
+                                   "index --engine device")
+    res["capture_launches"] = launch_counts()["capture"]
+    res["build_host_s"], _ = run(["--quiet", "index", "-I", gdir, "-O", host_db, "-b",
+                                  str(batch), "--engine", "host"], "index --engine host")
+    if tree_bytes(dev_db) != tree_bytes(host_db):
+        raise AssertionError("[utils] the cut's device build differs from its host build")
+    if dev.type == "cuda" and res["capture_launches"] != n_cut:
+        raise AssertionError(f"[utils] the cut's device build launched capture "
+                             f"{res['capture_launches']} times, expected {n_cut}")
+
+    # 2. the round trip through the reference format
+    ref, imp = os.path.join(cut, "ref.lmi"), os.path.join(cut, "imported.lmt")
+    res["export_s"], _ = run(["utils", "export-index", "-d", dev_db, "-O", ref], "export-index")
+    res["import_s"], _ = run(["utils", "import-index", "-d", ref, "-O", imp], "import-index")
+    exported = tree_bytes(ref)
+    digest = hashlib.sha256()
+    for name in sorted(exported):
+        digest.update(name.encode() + b"\0" + exported[name])
+    res["exported_files"], res["exported_sha256"] = len(exported), digest.hexdigest()
+    orig, back = tree_bytes(dev_db), tree_bytes(imp)
+    bad = [n for n in orig if (n.startswith("seeds") or n == "masks.bin") and orig[n] != back[n]]
+    if bad:
+        raise AssertionError(f"[utils] the imported index differs from the cut in {bad[:5]}")
+    res["round_trip_s_at_all"] = (res["export_s"] + res["import_s"]) * n_genomes / n_cut
+    log(f"[utils] export-index {res['export_s']:.2f} s ({len(exported)} files, sha256 "
+        f"{res['exported_sha256']}), import-index {res['import_s']:.2f} s (both ~linear in "
+        f"the postings: ~{res['round_trip_s_at_all']:.0f} s at all {n_genomes} genomes); the "
+        f"imported seeds and masks == the cut's [{card}]")
+
+    # 3. the imported index searched on the card
+    cut_q = [(qid, s) for qid, s in qrecs if int(qid.rsplit("g", 1)[1]) < n_cut]
+    qpath = write_queries(os.path.join(cut, "q.fasta"), cut_q + list(many))
+    host_tsv = os.path.join(cut, "host.tsv")
+    res["host_search_s"], _ = run(["search", "--quiet", "-d", dev_db, qpath, "-o", host_tsv,
+                                   "-a", "--engine", "host"], "search --engine host")
+    want = rows(host_tsv)
+    hit = {r.split("\t")[0] for r in want}
+    if not cut_q or not all(qid in hit for qid, _ in cut_q):
+        raise AssertionError(f"[utils] a query of the cut has no host rows: {cut_q and hit}")
+    base = ["search", "--quiet", "-d", imp, qpath, "-a", "--engine", "device", "--device",
+            str(dev)]
+    on_path = ["seed_locate_batch", "pseudo_probe", "pseudo_chain"]
+    dev_tsv = os.path.join(cut, "device.tsv")
+    res["device_search_s"], res["device_launches"] = searched(
+        "search --engine device on the imported index", base, dev_tsv, want, on_path)
+    res["stages_search_s"], res["stages_launches"] = searched(
+        "search --chain device --wfa device on the imported index",
+        base + ["--chain", "device", "--wfa", "device"], os.path.join(cut, "stages.tsv"), want,
+        on_path + ["chain1_forward", "wfa_batch"])
+    res["queries"], res["rows"] = len(cut_q) + len(many), len(want)
+    res["many_hit_queries_with_rows"] = len({q for q, _ in many} & hit)
+    log(f"[utils] imported index, {res['queries']} queries ({len(cut_q)} of the cut, "
+        f"{res['many_hit_queries_with_rows']} many-hit with rows): device rows == host rows "
+        f"({len(want)} rows); launches {json.dumps(res['device_launches'])}, with --chain "
+        f"device --wfa device {json.dumps(res['stages_launches'])}")
+
+    # 4. reindex-seeds on a copy of the imported index
+    reindexed = os.path.join(cut, "reindexed.lmt")
+    shutil.copytree(imp, reindexed)
+    res["reindex_s"], _ = run(["utils", "reindex-seeds", "-d", reindexed], "reindex-seeds")
+    base[3] = reindexed
+    res["reindexed_search_s"], _ = searched(
+        "search --engine device after reindex-seeds", base, os.path.join(cut, "re.tsv"),
+        want, on_path)
+
+    # 5. the TSV tools on the device engine's TSV and the host engine's
+    for tool in ("2blast", "2sam"):
+        out = [os.path.join(cut, f"{tool}.{n}") for n in ("device", "host")]
+        for tsv, o in zip((dev_tsv, host_tsv), out):
+            run(["utils", tool, tsv, "-o", o], f"utils {tool}")
+        with open(out[0], "rb") as a, open(out[1], "rb") as b:
+            got, ref_out = a.read(), b.read()
+        if got != ref_out or len(got) < 1000:
+            raise AssertionError(f"[utils] {tool} of the device TSV != of the host TSV")
+        res[f"{tool}_bytes"] = len(got)
+    log(f"[utils] reindex-seeds {res['reindex_s']:.2f} s, device rows after it == host rows; "
+        f"2blast and 2sam of the device TSV == of the host TSV ({res['2blast_bytes']} and "
+        f"{res['2sam_bytes']} bytes)")
+
+    # 6. the TaxId filter on the card, on phase 6's index
+    g2t, taxid = write_taxdump(os.path.join(tmp, "taxdump"), n_genomes)
+    tq = write_queries(os.path.join(tmp, "tq.fasta"), list(qrecs) + list(many))
+    res["taxid"] = {}
+    for label, flags, allowed in (("genus 10 whitelist", ["-t", "10"], {11, 12}),
+                                  ("species 21 blacklist", ["-t", "-21"], {11, 12, 22})):
+        argv = ["search", "--quiet", "-d", db, tq, "-T", os.path.dirname(g2t), "-G", g2t,
+                *flags]
+        host_out = os.path.join(tmp, "taxid_host.tsv")
+        host_s, _ = run([*argv, "-o", host_out, "--engine", "host"], f"{label}, host")
+        want = rows(host_out)
+        genomes = {r.split("\t")[3] for r in want}
+        if not want or not all(taxid[g] in allowed for g in genomes):
+            raise AssertionError(f"[utils] {label}: {len(want)} host rows, genomes "
+                                 f"{sorted(genomes)[:8]}")
+        dev_s, launches = searched(f"{label}, device engine",
+                                   [*argv, "--engine", "device", "--device", str(dev)],
+                                   os.path.join(tmp, "taxid_device.tsv"), want, on_path)
+        res["taxid"][label] = {"rows": len(want), "genomes": len(genomes), "host_s": host_s,
+                               "device_s": dev_s, "launches": launches}
+        log(f"[utils] TaxId {label}: device rows == host rows ({len(want)} rows over "
+            f"{len(genomes)} genomes, all allowed); launches {json.dumps(launches)}")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 def capture_row(rows, build):
@@ -3079,6 +3331,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="lexicmap_smoke_") as tmp:
         eres = phase_end_to_end(dev, card, args.genomes, args.queries, args.seed, tmp,
                                 args.rounds, parent, parents, mesh)
+        t0 = time.perf_counter()
+        db, qrecs, many = eres.pop("inputs")
+        ures = phase_utils(dev, card, tmp, db, args.genomes, qrecs, many)
+        ures["seconds"] = time.perf_counter() - t0
     mesh.close()
 
     def seed_row(name, source, replaces, res, launches, extra=None):
@@ -3165,6 +3421,7 @@ def main() -> int:
         f"{json.dumps({k: v for k, v in mesh_run.items() if k != 'launches'})}")
     log(f"[summary] index build {json.dumps({k: v for k, v in eres['build'].items() if k != 'db'})}"
         f"; genome search {json.dumps(eres['genome_search'])}")
+    log(f"[summary] utils {json.dumps(ures)}")
     log(f"[summary] e2e q/min device {eres['dev_qpm']} device with chain1 + wfa "
         f"{eres['stage_qpm']} host {eres['host_qpm']}; many-hit "
         f"{json.dumps(eres['many_hit'])}; total {time.perf_counter() - t_all:.1f} s")

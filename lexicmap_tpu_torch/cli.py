@@ -1,9 +1,12 @@
-"""Command-line interface of the port: `index`, `search` and `genome
-search / pair / compare`.
+"""Command-line interface of the port: `index`, `search`, `genome
+search / pair / compare`, `utils` (16 subcommands, `cli_utils.py`) and
+`autocompletion`.
 
     python -m lexicmap_tpu_torch.cli index -O db.lmt genomes/*.fa.gz
     python -m lexicmap_tpu_torch.cli search -d db.lmt q.fasta -o out.tsv
     python -m lexicmap_tpu_torch.cli genome search -d db.lmt g.fasta --engine device
+    python -m lexicmap_tpu_torch.cli utils export-index -d db.lmt -O ref.lmi
+    python -m lexicmap_tpu_torch.cli autocompletion --shell bash
 
 `index --engine device` captures each genome's seeds on the GPU through
 the CUDA capture kernels (`--device cpu`: their plain PyTorch twin).
@@ -380,6 +383,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version", version=f"lexicmap-tpu-torch {__version__}")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    pa = sub.add_parser(
+        "autocompletion",
+        help="print a shell completion script (ref: autocomplete.go)",
+    )
+    pa.add_argument("--shell", default="bash", choices=["bash", "zsh", "fish"])
+    pa.set_defaults(func=cmd_autocompletion)
+
     pi = sub.add_parser("index", help="build an index from genome files")
     pi.add_argument("files", nargs="*", help="input FASTA/Q files")
     pi.add_argument("-I", "--in-dir", default="")
@@ -495,7 +505,9 @@ def build_parser() -> argparse.ArgumentParser:
     ps.set_defaults(func=cmd_search)
 
     from .cli_genome import register_genome
+    from .cli_utils import register_utils
 
+    register_utils(sub)
     register_genome(sub)
     return p
 
@@ -518,6 +530,80 @@ class _TeeStream:
 
     def __getattr__(self, name):
         return getattr(self._a, name)
+
+
+def _walk_parser_actions(parser):
+    """(subcommand path, option strings) pairs for completion generation."""
+    out = {"": []}
+    for a in parser._actions:
+        if isinstance(a, argparse._SubParsersAction):
+            for name, sp in a.choices.items():
+                for path, opts in _walk_parser_actions(sp).items():
+                    out[(name + " " + path).strip()] = opts
+        else:
+            out[""].extend(a.option_strings)
+    return out
+
+
+def cmd_autocompletion(args) -> int:
+    """Emit a completion script for the requested shell.
+
+    Mirrors `lexicmap autocompletion` (ref: autocomplete.go:32-99), generated
+    from the port's argparse tree instead of Cobra.
+    """
+    tree = _walk_parser_actions(build_parser())
+    # group: path -> subcommands at that level, and path -> flags
+    subs: dict[str, list[str]] = {}
+    for path in tree:
+        if not path:
+            continue
+        parts = path.split()
+        parent = " ".join(parts[:-1])
+        subs.setdefault(parent, []).append(parts[-1])
+    if args.shell == "bash":
+        # case patterns must be UNQUOTED for globs to match; spaces in
+        # multi-word paths are replaced by '*'; deeper paths first so that
+        # e.g. "genome search" wins over "search"
+        def _depth_first(items):
+            return sorted(items, key=lambda kv: (len(kv[0].split()), kv[0]), reverse=True)
+
+        cases = []
+        for parent, names in _depth_first(subs.items()):
+            pat = "*" if not parent else "*" + parent.replace(" ", "*") + "*"
+            cases.append(f'        {pat}) words="{" ".join(sorted(set(names)))}" ;;')
+        flag_cases = []
+        for path, opts in _depth_first(tree.items()):
+            if not path or not opts:
+                continue
+            pat = "*" + path.replace(" ", "*") + "*"
+            flag_cases.append(
+                f'        {pat}) flags="{" ".join(sorted(set(opts)))}" ;;'
+            )
+        print(f"""# bash completion for lexicmap-tpu-torch; source this file
+_lexicmap_tpu_torch() {{
+    local cur words flags
+    cur="${{COMP_WORDS[COMP_CWORD]}}"
+    words="" flags=""
+    case "${{COMP_WORDS[*]}}" in
+{chr(10).join(flag_cases)}
+    esac
+    case "${{COMP_WORDS[*]}}" in
+{chr(10).join(cases)}
+    esac
+    if [[ "$cur" == -* ]]; then
+        COMPREPLY=($(compgen -W "$flags" -- "$cur"))
+    else
+        COMPREPLY=($(compgen -W "$words" -- "$cur"))
+    fi
+}}
+complete -o default -F _lexicmap_tpu_torch lexicmap-tpu-torch""")
+    elif args.shell == "zsh":
+        print("# zsh: use bashcompinit\nautoload -U +X bashcompinit && bashcompinit")
+        print("# then source the bash script: lexicmap-tpu-torch autocompletion --shell bash")
+    else:
+        names = sorted(set(n for ns in subs.values() for n in ns))
+        print(f"complete -c lexicmap-tpu-torch -a \"{' '.join(names)}\"")
+    return 0
 
 
 def main(argv=None) -> int:

@@ -169,6 +169,22 @@ def tables_from_jax_matcher(jax_matcher) -> list[SeedBucket]:
     return out
 
 
+def compact_hits(nh: torch.Tensor, e0: torch.Tensor, gids: torch.Tensor,
+                 base: torch.Tensor) -> torch.Tensor:
+    """The compaction after B1 (JAX's `_bucket_fn` tail): int64 [4, n] of
+    (query, mask, e0, n_hits) for the (query, row) pairs of one bucket's
+    int32 [B, Mb] outputs with hits, row-major, so that each query's triples
+    are contiguous; the row's mask id from `gids`, e0 made mask-global with
+    `base`."""
+    b_idx, r_idx = torch.nonzero(nh > 0, as_tuple=True)
+    return torch.stack([
+        b_idx,
+        gids[r_idx],
+        e0[b_idx, r_idx].to(torch.int64) + base[r_idx],
+        nh[b_idx, r_idx].to(torch.int64),
+    ])
+
+
 class DeviceSeedMatcher:
     def __init__(self, index_searcher, device=None, hbm_budget: int | None = None):
         """device: "cuda" (default) or "cpu" (the kernel's plain twin).
@@ -281,15 +297,7 @@ class DeviceSeedMatcher:
                 nh, e0 = nh[None], e0[None]
             else:
                 nh, e0 = seed_locate_batch(bk.hi, bk.cnt, qh_b, qv_b, min_prefix)
-            # compaction: the (query, row) pairs with hits, row-major, so
-            # each query's triples are contiguous; e0 made mask-global
-            b_idx, r_idx = torch.nonzero(nh > 0, as_tuple=True)
-            parts.append(torch.stack([
-                b_idx,
-                bk.gids[r_idx],
-                e0[b_idx, r_idx].to(torch.int64) + bk.base[r_idx],
-                nh[b_idx, r_idx].to(torch.int64),
-            ]))
+            parts.append(compact_hits(nh, e0, bk.gids, bk.base))
         if not parts:
             return np.empty((4, 0), dtype=np.int64)
         out = torch.cat(parts, dim=1).cpu().numpy()

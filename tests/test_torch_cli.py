@@ -1,7 +1,11 @@
 """The port's CLI against the JAX package's: every argv line the JAX
 parser accepts for `search` and `index` (root --quiet / --log, --wfa,
---chain, --engine auto, index --max-open-files) parses under the port's
-parser too, and the new flags do what they say on the CPU."""
+--chain, --engine auto, index --max-open-files), `genome`, `utils` and
+`autocompletion` parses under the port's parser too, the completion script
+has the JAX script's subcommand paths, and the new flags do what they say
+on the CPU."""
+
+import re
 
 import pytest
 
@@ -32,6 +36,23 @@ ARGV = [
     ["genome", "search", "--engine", "device", "-d", "db", "-o", "o.tsv", "g.fa"],
     ["genome", "pair", "-d", "db", "-m", "256", "-f", "0.1"],
     ["genome", "compare", "a.fa", "b.fa", "-o", "o.tsv"],
+    ["autocompletion", "--shell", "bash"],
+    ["utils", "masks", "-d", "db", "-o", "m.tsv", "--mask", "3"],
+    ["utils", "kmers", "-d", "db", "-m", "2", "-f"],
+    ["utils", "genomes", "-d", "db", "-e"],
+    ["utils", "genome-seqs", "-d", "db", "-n", "g1", "-o", "g.fa"],
+    ["utils", "genome-details", "-d", "db", "-a"],
+    ["utils", "subseq", "-d", "db", "-n", "g1", "-s", "c0", "-r", "1:100", "-R", "-U", "5"],
+    ["utils", "merge-search-results", "a.tsv", "b.tsv", "-q", "q1", "-o", "m.tsv"],
+    ["utils", "edit-genome-ids", "-d", "db", "-p", "^G", "-r", "g", "--dry-run"],
+    ["utils", "recount-bases", "-d", "db"],
+    ["utils", "reindex-seeds", "-d", "db", "--partitions", "512"],
+    ["utils", "remerge", "-d", "db"],
+    ["utils", "seed-pos", "-d", "db", "--histogram", "-O", "plots"],
+    ["utils", "2blast", "r.tsv", "-w", "50", "-g", "kv.tsv"],
+    ["utils", "import-index", "-d", "ref.lmi", "-O", "o.lmt", "-M", "masks.tsv"],
+    ["utils", "export-index", "-d", "db", "-O", "ref.lmi"],
+    ["utils", "2sam", "r.tsv", "--no-x", "-o", "r.sam"],
 ]
 
 
@@ -42,7 +63,9 @@ def test_argv_parses_under_both_parsers(argv):
     assert t.cmd == j.cmd
     # the default engine differs on purpose (the port's is device)
     keys = ("wfa", "chain", "log", "max_open_files", "genome_cmd", "masks", "min_mask_fraction",
-            "out_file", "files") + (("engine",) if "--engine" in argv else ())
+            "out_file", "files", "utils_cmd", "shell", "index", "out_dir", "mask_file", "mask",
+            "histogram", "plot_dir", "no_x", "line_width", "partitions", "up_stream",
+            "revcom") + (("engine",) if "--engine" in argv else ())
     for key in keys:
         if hasattr(j, key):
             assert getattr(t, key) == getattr(j, key), key
@@ -229,3 +252,46 @@ def test_genome_search_engine_device_refused_without_cuda(db, tmp_path, monkeypa
                       "device", db[2][0]]) == 1
     err = capsys.readouterr().err
     assert "no CUDA device" in err and "--device cpu" in err and not o.exists()
+
+
+def completion(cli, shell, capsys):
+    assert cli.main(["autocompletion", "--shell", shell]) == 0
+    return capsys.readouterr().out
+
+
+def script_cases(script, var):
+    """{case pattern: its words} of the bash script's `var="..."` cases."""
+    return {pat: val.split() for pat, val in
+            re.findall(rf'^ +(\S+)\) {var}="([^"]*)" ;;$', script, re.M)}
+
+
+@pytest.mark.parametrize("shell", ["bash", "zsh", "fish"])
+def test_autocompletion_like_jax(capsys, shell):
+    """The port's script is the JAX script with `lexicmap-tpu` renamed: the
+    same subcommand paths, in the same order; in bash each subcommand's
+    case lists every flag of the port's own parser for it."""
+    def rename(s):
+        return s.replace("lexicmap-tpu", "lexicmap-tpu-torch").replace(
+            "_lexicmap_tpu", "_lexicmap_tpu_torch")
+
+    want = rename(completion(jcli, shell, capsys))
+    got = completion(tcli, shell, capsys)
+    if shell != "bash":
+        assert got == want and "lexicmap-tpu-torch" in got
+        if shell == "fish":
+            assert {"2blast", "autocompletion", "utils"} <= set(got.replace('"', " ").split())
+        return
+    words = script_cases(got, "words")
+    assert words == script_cases(want, "words")
+    assert "utils" in words["*"] and "export-index" in words["*utils*"]
+    flags = script_cases(got, "flags")
+    assert list(flags) == list(script_cases(want, "flags"))
+    case = re.compile(r"^ +\S+\) (words|flags)=")
+    assert ([s for s in got.splitlines() if not case.match(s)]
+            == [s for s in want.splitlines() if not case.match(s)])
+    tree = tcli._walk_parser_actions(tcli.build_parser())
+    paths = [p for p, opts in tree.items() if p and opts]
+    assert len(paths) == len(flags) > 20
+    for path in paths:
+        assert flags["*" + path.replace(" ", "*") + "*"] == sorted(set(tree[path])), path
+    assert "--device" in flags["*search*"] and "--plot-dir" in flags["*utils*seed-pos*"]

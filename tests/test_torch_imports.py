@@ -69,3 +69,13 @@ def test_sharded_modules_are_checked(mod):
     """The sharded slice's modules are among those the checks above import
     with jax blocked and parse for imports."""
     assert mod in port_modules()
+
+
+@pytest.mark.parametrize("mod", ["lexicmap_tpu_torch.cli_utils",
+                                 "lexicmap_tpu_torch.index.convert",
+                                 "lexicmap_tpu_torch.index.refformat"])
+def test_utils_modules_are_checked(mod):
+    """The utils slice's modules (the `utils` subcommands and the .lmi
+    conversion, the port's own copies) are among those the checks above
+    import with jax blocked and parse for imports."""
+    assert mod in port_modules()
