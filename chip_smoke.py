@@ -27,8 +27,18 @@ Phases, each of which raises on a wrong result (nothing falls back):
      seed-locate or seed-match kernel against this one in turns, at the same
      shapes (and, for seed_locate, the main path's);
   4. DeviceSeedMatcher over a synthetic 20,000-mask x 10,240-entry seed
-     table vs a numpy bisection oracle, and the compaction after B1 (B4)
-     timed in its batch against its bound from bytes;
+     table vs a numpy bisection oracle; the compaction after B1 (B4,
+     seed_compact, one launch for all buckets) on the batch's stacked B1
+     outputs == its plain version == the oracle, timed as called, on the
+     device, plain and against the library calls (torch.nonzero and
+     gathers a bucket, torch.sort of one int64 key), its bound from the
+     bytes the run's data needs; match_batch's time split (k-mer split,
+     device part, fetch, host tail) for this tree's path and the parent's
+     (a host np.lexsort and merge after torch.nonzero a bucket), in turns;
+     then a second table of 2,000 masks, one in sixteen over E_CAP =
+     16,384 entries with 15-base prefix blocks across its chunk
+     boundaries, so that chunk runs cross buckets: triples == the oracle,
+     B4 == plain there too;
   4b. the sharded matcher on one NCCL rank with four local shards, over
      phase 4's table: seed_match_shard (B11, one launch for the four
      shards) through make_sharded_search_step on its 16-mer hi words (rows
@@ -58,7 +68,9 @@ Phases, each of which raises on a wrong result (nothing falls back):
      16 genomes each) searched with the device engine (phases 2a and 4 on
      the card) and with the host engine: rows equal, every q_from_gNNN
      top-hits gNNN, every batch launched each kernel the expected number of
-     times, >= 90% of the windows answered on the card; in turns with it,
+     times (B1 a bucket, B4 once), >= 90% of the windows answered on the
+     card; B1 and B4 on the first batch's real queries == plain, and
+     match_batch's split there, this tree's path and the parent's in turns; in turns with it,
      the device engine with `--chain device --wfa device` (chain1 once per
      batch, the WFA at least once): rows equal, >= 90% of the genomes
      chained and of the WFA spans aligned on the card, both kernels equal
@@ -1027,7 +1039,8 @@ def phase_matcher(dev, card, M, E, B, p, seed, reps):
     import numpy as np
     import torch
 
-    from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch, split_kmers_hi_lo
+    from lexicmap_tpu_torch.kernels.seed_compact import seed_compact
+    from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
     from lexicmap_tpu_torch.parallel.device_search import DeviceSeedMatcher
 
     k = 31
@@ -1050,77 +1063,304 @@ def phase_matcher(dev, card, M, E, B, p, seed, reps):
     q[: B // 2] = (drawn ^ mut)[: B // 2]  # same >=p-base prefix, mutated suffix
     q[rng.random((B, M)) < 0.1] = 0  # masks that captured nothing
 
-    launches0 = seed_locate_batch.launches
+    launches0 = (seed_locate_batch.launches, seed_compact.launches)
     got = matcher.match_batch(q, p)
     ms = time_ms(lambda: matcher.match_batch(q, p), dev, reps, warmup=0)
-    # the device part alone: upload, kernel, compaction, fetch of the triples
-    sel = q != 0
-    qh = np.zeros(q.shape, dtype=np.uint32)
-    qh[sel] = split_kmers_hi_lo(q[sel], k)[0]
-    dev_ms = time_ms(lambda: matcher._device_hits(qh, sel, p), dev, reps, warmup=0)
-    launches = seed_locate_batch.launches - launches0
+    # the device part alone: upload, B1, the compaction with its one wait
+    # for the offsets; not the fetch of the triples
+    qh, sel = matcher.query_words(q)
+    dev_ms = time_ms(lambda: matcher.device_hits(qh, sel, p), dev, reps, warmup=0)
+    launches = seed_locate_batch.launches - launches0[0]
+    compactions = seed_compact.launches - launches0[1]
+
+    want = oracle_triples(kmers, off, q, k, p)
+    check_triples(got, want, "matcher")
+    n_trip = sum(w[0].shape[0] for w in want)
+    log(f"[matcher] {B} queries x {M} masks: triples == numpy bisection oracle "
+        f"({n_trip} triples); {ms:.3f} ms/batch, of which {dev_ms:.3f} ms upload + "
+        f"B1 + compaction (its wait for the offsets); {launches} B1 and {compactions} B4 "
+        f"launches for {1 + 2 * reps} batches, hbm_bytes={matcher.hbm_bytes} [{card}]")
+    if dev.type == "cuda" and (launches != (1 + 2 * reps) * len(matcher.buckets)
+                               or compactions != 1 + 2 * reps):
+        raise AssertionError(f"expected one B1 launch per bucket and one compaction per "
+                             f"batch, saw {launches} and {compactions}")
+    comp = compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps * 4)
+    split = tail_split(dev, card, matcher, q, p, reps * 2, "10k shape")
+    res = {"hbm_bytes": matcher.hbm_bytes, "ms_per_batch": ms, "device_ms": dev_ms,
+           "triples": n_trip, "launches": launches, "compactions": compactions,
+           "init_s": init_s, "compaction": comp, "tail_split": split}
+    return res, {"kmers": kmers, "off": off, "q": q, "k": k, "matcher": matcher}
+
+
+def oracle_triples(kmers, off, q, k, p):
+    """Each query's (mask, e0, n_hits) by a numpy bisection of each mask's
+    sorted entries kmers[off[m]:off[m+1]], in mask order."""
+    import numpy as np
 
     suf = np.uint64((1 << (2 * (k - p))) - 1)
     bsel, msel = np.nonzero(q != 0)
     x = q[bsel, msel]
     lo = segment_bisect(kmers, off[msel], off[msel + 1], x & ~suf, "left")
     hi = segment_bisect(kmers, off[msel], off[msel + 1], x | suf, "right")
-    n_trip = 0
-    for b in range(B):
+    out = []
+    for b in range(q.shape[0]):
         s = (bsel == b) & (hi > lo)
-        want = (msel[s], lo[s] - off[msel[s]], (hi - lo)[s])
-        if got[b] is None or any(not np.array_equal(a, w) for a, w in zip(got[b], want)):
-            raise AssertionError(f"matcher triples of query {b} differ from the bisection oracle")
-        n_trip += want[0].shape[0]
-    log(f"[matcher] {B} queries x {M} masks: triples == numpy bisection oracle "
-        f"({n_trip} triples); {ms:.3f} ms/batch, of which {dev_ms:.3f} ms upload + "
-        f"kernel + compaction + fetch; {launches} launches for {1 + 2 * reps} batches, "
-        f"hbm_bytes={matcher.hbm_bytes} [{card}]")
-    if dev.type == "cuda" and launches != (1 + 2 * reps) * len(matcher.buckets):
-        raise AssertionError(f"expected one launch per bucket per batch, saw {launches}")
-    comp = compaction_in_batch(dev, card, matcher, qh, sel, p, n_trip, reps * 4)
-    res = {"hbm_bytes": matcher.hbm_bytes, "ms_per_batch": ms, "device_ms": dev_ms,
-           "triples": n_trip,
-           "launches": launches, "init_s": init_s, "compaction": comp}
-    return res, {"kmers": kmers, "off": off, "q": q, "k": k, "matcher": matcher}
+        out.append((msel[s], lo[s] - off[msel[s]], (hi - lo)[s]))
+    return out
 
 
-def compaction_in_batch(dev, card, matcher, qh, sel, p, n_trip, reps):
-    """B4, the compaction after B1 in the matcher's batch (`compact_hits`,
-    the port's own path, which is the library call): its time as called
-    and on the device (every kernel row of a call: the comparison, the
-    nonzero and the gathers) on B1's outputs for this batch, against its
-    bound from bytes (the [B, Mb] int32 counts and e0 read once, the int64
-    triples written once).  Its triples must be the oracle's count."""
+def check_triples(got, want, what):
+    import numpy as np
+
+    for b, (g, w) in enumerate(zip(got, want)):
+        if g is None or any(not np.array_equal(a, x) for a, x in zip(g, w)):
+            raise AssertionError(f"{what}: triples of query {b} differ from the bisection oracle")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} queries, the oracle {len(want)}")
+
+
+def nonzero_rows(nh, e0, bk):
+    """int64 [4, n] (query, mask, e0 + base, n_hits) of one bucket's hit
+    (query, row) pairs, by torch.nonzero and gathers: the port's compaction
+    before B4 had a kernel."""
+    import torch
+
+    b_idx, r_idx = torch.nonzero(nh > 0, as_tuple=True)
+    return torch.stack([b_idx, bk.gids[r_idx], e0[b_idx, r_idx].to(torch.int64) + bk.base[r_idx],
+                        nh[b_idx, r_idx].to(torch.int64)])
+
+
+def library_compaction(matcher, stacked, B):
+    """The library calls for B4's function: nonzero_rows a bucket, then
+    torch.sort of one int64 (query, mask, e0) key and the gathers.  Gives
+    the unmerged hit rows, in the order of seed_compact's triples."""
+    import torch
+
+    starts = matcher.order.starts.tolist()
+    t = torch.cat([nonzero_rows(*stacked[2 * B * s0: 2 * B * s1].view(2, B, s1 - s0), bk)
+                   for bk, s0, s1 in zip(matcher.buckets, starts[:-1], starts[1:])], dim=1)
+    key = (t[0] * matcher.m + t[1]) * (matcher.total_entries + 1) + t[2]
+    return t[:, torch.sort(key).indices]
+
+
+def compact_bytes(stacked, B, order, T):
+    """The bytes B4's function must move on these inputs: every n_hits read
+    (through the row order, all of them), the 32-byte sectors holding the
+    e0 of a hit and the gid and base of a row with a hit in any query, the
+    triples and offsets written.  Returns (bytes, the row order's own perm
+    and cont bytes)."""
+    import numpy as np
+
+    st = stacked.cpu().numpy()
+    starts = order.starts.tolist()
+    R = starts[-1]
+    ordered_at = np.argsort(order.perm.cpu().numpy())  # global row -> ordered row
+    e0_sectors, rows_hit = [], np.zeros(R, dtype=bool)
+    for s0, s1 in zip(starts[:-1], starts[1:]):
+        mb = s1 - s0
+        b, r = np.nonzero(st[2 * B * s0: 2 * B * s0 + B * mb].reshape(B, mb) > 0)
+        e0_sectors.append((2 * B * s0 + B * mb + b * mb + r) * 4 // SECTOR)
+        rows_hit[ordered_at[s0 + r]] = True
+    e0_sectors = np.unique(np.concatenate(e0_sectors)) if e0_sectors else np.zeros(0)
+    row_sectors = np.unique(np.nonzero(rows_hit)[0] * 8 // SECTOR)
+    nbytes = (B * R * 4 + (e0_sectors.shape[0] + 2 * row_sectors.shape[0]) * SECTOR
+              + T * 24 + (B + 1) * 8)
+    return nbytes, R * 5
+
+
+def compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps, label="10k shape"):
+    """B4 (seed_compact) on B1's outputs of the matcher's batch, all its
+    buckets in one stacked buffer: the kernel == its plain version == the
+    bisection oracle's triples, exactly.  Its time as called (the count
+    pass, the one wait for the offsets, the write pass) and on the device
+    (the two kernels' profiler rows), the plain version's, the library
+    call's (library_compaction; on the device, every kernel row of a call),
+    the bound from the bytes this run's data needs (compact_bytes)."""
+    import numpy as np
+
+    from lexicmap_tpu_torch.kernels.seed_compact import seed_compact, seed_compact_plain
+    from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
+
+    B = qh.shape[0]
+    saved = (seed_locate_batch.launches, seed_compact.launches)
+    stacked = matcher.locate_all(qh, sel, p)
+    order = matcher.order
+
+    def call():
+        return seed_compact(stacked, B, order)
+
+    off, trip = call()
+    poff, ptrip = seed_compact_plain(stacked, B, order)
+    got = [tuple(a) for a in np.split(trip.cpu().numpy(), off.numpy()[1:-1], axis=1)]
+    err = int_err((off, trip), (poff, ptrip))
+    if err:
+        raise AssertionError(f"B4 at the {label}: kernel != plain (max abs err {err})")
+    check_triples(got, want, f"B4 at the {label}")
+    ms = time_ms(call, dev, reps)
+    by = device_ms_split(call, ("compact_count", "compact_write"), reps)
+    lib = library_compaction(matcher, stacked, B)
+    if lib.shape[1] < trip.shape[1] or not np.array_equal(
+            np.unique(lib[1].cpu().numpy()), np.unique(trip[0].cpu().numpy())):
+        raise AssertionError(f"B4 at the {label}: the library call's rows disagree")
+    nbytes, design = compact_bytes(stacked, B, order, trip.shape[1])
+    res = {"B": B, "R": int(order.perm.shape[0]), "buckets": len(matcher.buckets),
+           "triples": int(trip.shape[1]), "hit_rows": int(lib.shape[1]),
+           "equal": True, "max_abs_err": err, "ms": ms,
+           "device_ms": None if None in by.values() else sum(by.values()),
+           "device_ms_by": by,
+           "plain_ms": time_ms(lambda: seed_compact_plain(stacked, B, order), dev, 3),
+           "library_ms": time_ms(lambda: library_compaction(matcher, stacked, B), dev, reps),
+           "library_device_ms": device_ms_by_call(
+               lambda: library_compaction(matcher, stacked, B), ("",), reps)[""],
+           "bytes": nbytes, "design_bytes": design,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    seed_locate_batch.launches, seed_compact.launches = saved  # measuring does not count
+    log(f"[matcher] B4 at the {label}: kernel == plain == oracle; {json.dumps(res)} [{card}]")
+    return res
+
+
+def tail_split(dev, card, matcher, q, p, reps, label):
+    """match_batch's time split into the k-mer split (query_words), the
+    device part (upload, B1 and the compaction, up to its result on the
+    card), the fetch of the triples and the host tail, for this tree's path
+    and the parent's (B1 a bucket, torch.nonzero and gathers a bucket, one
+    fetch, then the host's np.lexsort and per-query merge, sort_merge),
+    run in turns (parent, this, this, parent); both == match_batch's
+    triples.  Host clock, the card synchronised after each part."""
     import numpy as np
     import torch
 
+    from lexicmap_tpu_torch.kernels.seed_compact import seed_compact
     from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
-    from lexicmap_tpu_torch.parallel.device_search import compact_hits
+    from lexicmap_tpu_torch.parallel.device_search import sort_merge
 
-    if len(matcher.buckets) != 1:
-        raise AssertionError("the smoke table must be one bucket")
-    bk = matcher.buckets[0]
-    qh_d = torch.from_numpy(qh.view(np.int32)).to(dev)
-    sel_d = torch.from_numpy(sel).to(dev)
-    saved = seed_locate_batch.launches
-    nh, e0 = seed_locate_batch(bk.hi, bk.cnt, qh_d.index_select(1, bk.gids),
-                               sel_d.index_select(1, bk.gids), p)
-    seed_locate_batch.launches = saved  # launches made to measure do not count
+    B = q.shape[0]
+    want = matcher.match_batch(q, p)
+    saved = (seed_locate_batch.launches, seed_compact.launches)
 
-    def call():
-        return compact_hits(nh, e0, bk.gids, bk.base)
+    def parent():
+        t = [time.perf_counter()]
+        qh, sel = matcher.query_words(q)
+        t.append(time.perf_counter())
+        qh_d = torch.from_numpy(qh.view(np.int32)).to(dev)
+        sel_d = torch.from_numpy(sel).to(dev)
+        out = torch.cat([nonzero_rows(*seed_locate_batch(
+            bk.hi, bk.cnt, qh_d.index_select(1, bk.gids), sel_d.index_select(1, bk.gids), p),
+            bk) for bk in matcher.buckets], dim=1)
+        sync(dev)
+        t.append(time.perf_counter())
+        qb, hm, e0, nh = out.cpu().numpy()
+        t.append(time.perf_counter())
+        res = sort_merge(B, qb, hm, e0, nh)
+        t.append(time.perf_counter())
+        return res, np.diff(t) * 1e3
 
-    trip = call()
-    if trip.shape[1] != n_trip:
-        raise AssertionError(f"compaction: {trip.shape[1]} triples, the oracle {n_trip}")
-    ms = time_ms(call, dev, reps)
-    device = device_ms_by_call(call, ("",), reps)[""]
-    nbytes = 2 * nh.numel() * nh.element_size() + trip.numel() * trip.element_size()
-    res = {"B": int(nh.shape[0]), "Mb": int(nh.shape[1]), "triples": int(trip.shape[1]),
-           "ms": ms, "device_ms": device, "bytes": nbytes,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    log(f"[matcher] B4 compaction in the batch: {json.dumps(res)} [{card}]")
+    def this():
+        t = [time.perf_counter()]
+        qh, sel = matcher.query_words(q)
+        t.append(time.perf_counter())
+        offsets, triples = matcher.device_hits(qh, sel, p)
+        sync(dev)
+        t.append(time.perf_counter())
+        hm, e0, nh = triples.cpu().numpy()
+        t.append(time.perf_counter())
+        off = offsets.numpy()
+        res = [(hm[s:e], e0[s:e], nh[s:e]) for s, e in zip(off[:-1], off[1:])]
+        t.append(time.perf_counter())
+        return res, np.diff(t) * 1e3
+
+    times = {"parent": [], "this": []}
+    for name in ("parent", "this") + ("this", "parent", "parent", "this") * max(1, reps // 2):
+        got, ms = (parent if name == "parent" else this)()
+        times[name].append(ms)
+        if any(not np.array_equal(a, w) for g, x in zip(got, want) for a, w in zip(g, x)):
+            raise AssertionError(f"tail split ({label}): the {name} path's triples differ")
+    seed_locate_batch.launches, seed_compact.launches = saved
+    parts = ("split", "device", "fetch", "tail")
+    res = {"label": label, "B": B, "triples": sum(w[0].shape[0] for w in want), "runs": {
+        name: {part: float(np.mean(np.array(ts)[1:, i])) for i, part in enumerate(parts)}
+        for name, ts in times.items()}}  # the first run of each is warm-up
+    for name in times:
+        res["runs"][name]["total"] = sum(res["runs"][name].values())
+    log(f"[matcher] match_batch split, {label} (ms, mean of {len(times['this']) - 1} in "
+        f"turns): {json.dumps(res)} [{card}]")
+    return res
+
+
+def phase_matcher_chunked(dev, card, seed, reps, M=2000, B=32, p=15, counts=(2000, 14_001),
+                          big_max=60_001):
+    """The matcher over masks of 2,000-14,000 entries and, for one in
+    sixteen, 16,385-60,000 (over E_CAP = 16,384, so column-chunked, the
+    last chunk mostly in a smaller bucket), with a block of entries sharing
+    one 15-base prefix across each chunk boundary of those masks, and 8
+    queries carrying those prefixes: hits whose chunk runs cross buckets.
+    match_batch == the bisection oracle, and B4 there as at the 10k shape.
+    (A rehearsal on the CPU shrinks M, `counts`, `big_max` and DS.E_CAP.)"""
+    import numpy as np
+
+    from lexicmap_tpu_torch.kernels.seed_compact import seed_compact
+    from lexicmap_tpu_torch.kernels.seed_locate import seed_locate_batch
+    from lexicmap_tpu_torch.parallel import device_search as DS
+
+    k = 31
+    rng = np.random.default_rng(seed + 17)
+    cap = DS.E_CAP
+    counts = rng.integers(*counts, M)
+    big = rng.random(M) < 1 / 16
+    counts[big] = rng.integers(cap + 1, big_max, int(big.sum()))
+    off = np.zeros(M + 1, dtype=np.int64)
+    np.cumsum(counts, out=off[1:])
+    kmers = rng.integers(1, 1 << 62, size=int(off[-1]), dtype=np.uint64)
+    planted = []  # (mask, the 15-base prefix's k-mer)
+    for m in range(M):
+        row = np.sort(kmers[off[m]: off[m + 1]])
+        for edge in range(cap, int(counts[m]), cap):
+            a = edge - int(rng.integers(cap // 300 + 1, cap // 8))
+            b = edge + int(rng.integers(cap // 300 + 1, cap // 8))
+            b = min(b, int(counts[m]))
+            top = row[a] >> np.uint64(32)
+            row[a:b] = (top << np.uint64(32)) | rng.integers(0, 1 << 32, size=b - a,
+                                                              dtype=np.uint64)
+            planted.append((m, top << np.uint64(32)))
+            row.sort()
+        kmers[off[m]: off[m + 1]] = row
+    matcher = DS.DeviceSeedMatcher(_StandIn(kmers, off, k), device=dev)
+    if matcher.host_rows or len(matcher.buckets) < 2:
+        raise AssertionError(f"chunked table: {matcher.describe()}")
+    q = kmers[off[:-1][None, :] + rng.integers(0, 1 << 40, size=(B, M)) % counts[None, :]]
+    q ^= rng.integers(0, 1 << (2 * (k - p)), size=(B, M), dtype=np.uint64)
+    q[B // 2:] = rng.integers(1, 1 << 62, size=(B - B // 2, M), dtype=np.uint64)
+    for i, (m, pre) in enumerate(planted):
+        q[i % 8, m] = pre | np.uint64(i)
+    q[rng.random((B, M)) < 0.1] = 0
+    saved = (seed_locate_batch.launches, seed_compact.launches)
+    got = matcher.match_batch(q, p)
+    want = oracle_triples(kmers, off, q, k, p)
+    check_triples(got, want, "chunked matcher")
+    # triples made of chunk rows of more than one bucket
+    o = matcher.order
+    bucket = np.searchsorted(o.starts.cpu().numpy(), o.perm.cpu().numpy(), "right") - 1
+    gid, base = o.gid.cpu().numpy(), o.base.cpu().numpy()
+    row_of = {(int(g), int(b)): i for i, (g, b) in enumerate(zip(gid, base))}
+    across = rows = 0
+    for hm, e0, nh in got:
+        for g, s, n in zip(hm.tolist(), e0.tolist(), nh.tolist()):
+            first, last = s // cap * cap, (s + n - 1) // cap * cap
+            if first != last:
+                rows += 1
+                bks = {bucket[row_of[(g, c)]] for c in range(first, last + 1, cap)}
+                across += len(bks) > 1
+    if not across:
+        raise AssertionError("chunked table: no chunk run crossed buckets")
+    seed_locate_batch.launches, seed_compact.launches = saved
+    qh, sel = matcher.query_words(q)
+    comp = compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps * 4,
+                               "chunked table")
+    res = {"masks": M, "chunked_masks": int(big.sum()), "rows": int(o.perm.shape[0]),
+           "buckets": [b.E for b in matcher.buckets], "triples": comp["triples"],
+           "runs_over_chunks": rows, "runs_across_buckets": across, "compaction": comp}
+    log(f"[matcher] chunked table ({matcher.describe()}): triples == numpy bisection oracle, "
+        f"{rows} triples over several chunk rows, {across} across buckets [{card}]")
     return res
 
 
@@ -2264,13 +2504,13 @@ def write_genomes(root, n_genomes, n_queries, seed, n_many=32, many_in=16):
 
 def kernel_fns():
     from lexicmap_tpu_torch.kernels import (
-        capture, chain1, pseudo_align, seed_locate, seed_match, seed_match_shard, shard_compact,
-        wfa)
+        capture, chain1, pseudo_align, seed_compact, seed_locate, seed_match, seed_match_shard,
+        shard_compact, wfa)
 
     return (seed_locate.seed_locate_batch, seed_locate.seed_locate, seed_match.seed_match,
             pseudo_align.pseudo_probe, pseudo_align.pseudo_chain, chain1.chain1_forward,
             wfa.wfa_batch, capture.capture, seed_match_shard.seed_match_shard,
-            shard_compact.shard_compact)
+            shard_compact.shard_compact, seed_compact.seed_compact)
 
 
 def reset_launches():
@@ -2393,8 +2633,8 @@ def genome_search(dev, card, tmp, db, genome_files, seed, n_check=4):
 
     real_kernel, recorded = DS.seed_locate_batch, []
 
-    def recording_kernel(*a):
-        out = real_kernel(*a)
+    def recording_kernel(*a, **kw):
+        out = real_kernel(*a, **kw)
         if len(recorded) < n_check:  # the main path's inputs and outputs, kept
             recorded.append((a, tuple(x.clone() for x in out)))
         return out
@@ -2709,6 +2949,10 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             raise AssertionError(f"the main path launched seed_locate_batch "
                                  f"{launches['seed_locate_batch']} times, expected "
                                  f"{batches * n_buckets} (one per bucket per batch)")
+        if launches["seed_compact"] != batches:
+            raise AssertionError(f"the main path launched seed_compact "
+                                 f"{launches['seed_compact']} times, expected {batches} (one "
+                                 f"per batch)")
         # each batch has windows, fewer than W_CHUNK: one launch of each
         if per_batch >= W_CHUNK or not (launches["pseudo_probe"] == launches["pseudo_chain"]
                                         == batches):
@@ -2772,19 +3016,25 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
 
     # the kernel vs its plain version at the shapes the main path gives it
     batch = np.stack([dev_idx._mask_query(seq_to_codes(s.upper()))[0] for s in seqs[:32]])
-    shapes = check_main_path_shapes(dev, card, dev_idx, batch, parent)
+    shapes, compact_shapes = check_main_path_shapes(dev, card, dev_idx, batch, parent)
+    # match_batch's split on this batch of real queries (a realistic density)
+    split = tail_split(dev, card, dev_idx.device_matcher, batch, dev_idx.opt.min_prefix, 20,
+                       "200-genome batch")
 
     # single-query search with the device matcher: seed_locate (B2) per bucket
     reset_launches()  # the single-query path's run starts here
     one = [dev_idx.search(seq_to_codes(s.upper())) for s in seqs[:8]]
-    single_launches = launch_counts()["seed_locate"]  # ... and ends here
+    single = launch_counts()  # ... and ends here
+    single_launches, single_compactions = single["seed_locate"], single["seed_compact"]
     if rows(one, ids[:8], seqs[:8]) != host_rows[:8]:
         raise AssertionError("single-query search rows differ from the host rows")
-    if dev.type == "cuda" and single_launches != 8 * n_buckets:
+    if dev.type == "cuda" and (single_launches != 8 * n_buckets or single_compactions != 8):
         raise AssertionError(f"single-query search launched seed_locate {single_launches} "
-                             f"times, expected {8 * n_buckets}")
+                             f"times and seed_compact {single_compactions}, expected "
+                             f"{8 * n_buckets} and 8")
     log(f"[e2e] single-query search x 8: rows == host rows; seed_locate launches "
-        f"{single_launches} (8 queries x {n_buckets} buckets)")
+        f"{single_launches} (8 queries x {n_buckets} buckets), seed_compact "
+        f"{single_compactions}")
 
     # the CLI, as a user runs it: same TSV as the host engine's rows
     out = os.path.join(tmp, "dev.tsv")
@@ -2799,6 +3049,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         raise AssertionError("cli search --engine device TSV differs from the host rows")
     cli_launches = launch_counts()
     if dev.type == "cuda" and not (cli_launches["seed_locate_batch"]
+                                   and cli_launches["seed_compact"]
                                    and cli_launches["pseudo_probe"]):
         raise AssertionError(f"cli search launched {cli_launches}")
     log(f"[e2e] cli search --engine device: TSV == host rows ({len(tsv)} rows); "
@@ -2817,10 +3068,12 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         f"launches {json.dumps(cli_launches)}")
     sharded = sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx, tmp,
                                  rows)
-    return {"sharded": sharded, "launches": launches, "single_launches": single_launches, "dev_qpm": dev_qpm,
+    return {"sharded": sharded, "launches": launches, "single_launches": single_launches,
+            "single_compactions": single_compactions, "tail_split": split, "dev_qpm": dev_qpm,
             "host_qpm": host_qpm, "times": times, "pseudo_ms_per_batch": ptimes_batch,
             "rows": sum(map(len, dev_rows)),
-            "shapes": shapes, "hbm_bytes": dev_idx.device_matcher.hbm_bytes,
+            "shapes": shapes, "compact_shapes": compact_shapes,
+            "hbm_bytes": dev_idx.device_matcher.hbm_bytes,
             "main_path_err": main_err,
             "device_share": device_share, "windows_per_batch": per_batch,
             "many_hit": {"rows": mrows, "windows": mwin, "seconds": many_s},
@@ -2974,10 +3227,12 @@ def check_main_path_shapes(dev, card, idx, kmers, parent=None):
     seed_locate_batch on the batch and seed_locate on its first query
     against their plain versions, their times as called and on the device
     (the kernels' profiler rows), the design's sectors, and the earlier
-    tree's kernel in turns."""
+    tree's kernel in turns; then seed_compact on the batch's stacked
+    outputs (and the first query's) against its plain version."""
     import numpy as np
     import torch
 
+    from lexicmap_tpu_torch.kernels.seed_compact import seed_compact, seed_compact_plain
     from lexicmap_tpu_torch.kernels.seed_locate import (
         seed_locate, seed_locate_batch, seed_locate_batch_plain, split_kmers_hi_lo)
 
@@ -3019,9 +3274,26 @@ def check_main_path_shapes(dev, card, idx, kmers, parent=None):
                 "locate", "locate_single")
         out.append(r)
         log(f"[e2e] main-path bucket {json.dumps(r)}: kernels == plain [{card}]")
+    # B4 on the same batch, all buckets in its one launch, and at B = 1
+    saved_compact = seed_compact.launches
+    compact = []
+    for b in (slice(None), slice(0, 1)):
+        stacked = m.locate_all(qh[b], sel[b], p)
+        B = int(qh[b].shape[0])
+        got = seed_compact(stacked, B, m.order)
+        err = int_err(got, seed_compact_plain(stacked, B, m.order))
+        if err:
+            raise AssertionError(f"seed_compact != plain on the main path's batch (B = {B})")
+        compact.append({"B": B, "R": int(m.order.perm.shape[0]), "buckets": len(m.buckets),
+                        "triples": int(got[1].shape[1]), "equal": True, "max_abs_err": err,
+                        "ms": time_ms(lambda: seed_compact(stacked, B, m.order), dev, 20),
+                        "device_ms": device_ms(lambda: seed_compact(stacked, B, m.order),
+                                               ("compact_count", "compact_write"))[0]})
+    log(f"[e2e] main-path B4 {json.dumps(compact)}: kernel == plain [{card}]")
     # comparison launches do not count
     seed_locate_batch.launches, seed_locate.launches = saved
-    return out
+    seed_compact.launches = saved_compact
+    return out, compact
 
 
 # --------------------------------------------------------------------------
@@ -3157,7 +3429,7 @@ def phase_utils(dev, card, tmp, db, n_genomes, qrecs, many, n_cut=16, batch=8):
         raise AssertionError(f"[utils] a query of the cut has no host rows: {cut_q and hit}")
     base = ["search", "--quiet", "-d", imp, qpath, "-a", "--engine", "device", "--device",
             str(dev)]
-    on_path = ["seed_locate_batch", "pseudo_probe", "pseudo_chain"]
+    on_path = ["seed_locate_batch", "seed_compact", "pseudo_probe", "pseudo_chain"]
     dev_tsv = os.path.join(cut, "device.tsv")
     res["device_search_s"], res["device_launches"] = searched(
         "search --engine device on the imported index", base, dev_tsv, want, on_path)
@@ -3262,6 +3534,31 @@ def sharded_row(name, replaces, res, launches, main_err, main_shape, library):
                if key in res}}
 
 
+def compact_row(mres, eres):
+    """The kernels line's B4 row: the numbers at the 10k shape, launches
+    from phase 6's main path (and the single-query path's), the chunked
+    table's and the main path's checks, match_batch's split before and
+    after at both densities."""
+    comp, chunked = mres["compaction"], mres["chunked"]["compaction"]
+    err = max([comp["max_abs_err"], chunked["max_abs_err"]]
+              + [r["max_abs_err"] for r in eres["compact_shapes"]])
+    return {"name": "seed_compact", "route": "cuda",
+            "source": "lexicmap_tpu_torch/csrc/seed_compact.cu",
+            "replaces": "lexicmap_tpu/parallel/device_search.py:263",
+            "launches": eres["launches"]["seed_compact"], "equal": err == 0, "max_abs_err": err,
+            "ms": comp["ms"], "device_ms": comp["device_ms"], "device_ms_by": comp["device_ms_by"],
+            "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"], "bound_by": "bytes",
+            "library_ms": comp["library_ms"], "library_device_ms": comp["library_device_ms"],
+            "library": "torch.nonzero and gathers a bucket, then torch.sort of one int64 "
+                       "(query, mask, e0) key",
+            "shape": {k: comp[k] for k in ("B", "R", "buckets", "triples", "hit_rows")},
+            "bytes": comp["bytes"], "design_bytes": comp["design_bytes"],
+            "single_launches": eres["single_compactions"], "chunked_table": chunked,
+            "main_path_shape": eres["compact_shapes"],
+            "tail_split": {"10k shape": mres["tail_split"]["runs"],
+                           "200-genome batch": eres["tail_split"]["runs"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -3299,7 +3596,7 @@ def main() -> int:
     t0 = time.perf_counter()
     started = parent_build(args.compare_source)
     libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa", "capture",
-                        "sharded"])
+                        "sharded", "seed_compact"])
     parents = parent_load(started)  # {source name: the earlier tree's library}
     parent = parents.get("seed_locate")
     log(f"[build] {len(libs) + len(parents)} kernel sources built with nvcc in parallel in "
@@ -3315,6 +3612,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mres, mstate = phase_matcher(dev, card, M=20_000, E=10_240, B=32, p=15, seed=args.seed,
                                  reps=5)
+    torch.cuda.empty_cache()
+    mres["chunked"] = phase_matcher_chunked(dev, card, seed=args.seed, reps=5)
     torch.cuda.empty_cache()
     shres, cpres, mesh = phase_sharded(dev, card, mstate, seed=args.seed, reps=20,
                                        parent=parents.get("sharded"))
@@ -3410,6 +3709,7 @@ def main() -> int:
                     eres["sharded"]["launches"]["shard_compact"],
                     eres["sharded"]["main_path_err"], eres["sharded"]["main_path_shape"],
                     "torch.sort (stable) of the keys, the sort of JAX's step"),
+        compact_row(mres, eres),
     ]
     log(f"[summary] matcher {json.dumps(mres)}")
     log(f"[summary] phase4 {json.dumps(p4)}")
@@ -3425,11 +3725,12 @@ def main() -> int:
     log(f"[summary] e2e q/min device {eres['dev_qpm']} device with chain1 + wfa "
         f"{eres['stage_qpm']} host {eres['host_qpm']}; many-hit "
         f"{json.dumps(eres['many_hit'])}; total {time.perf_counter() - t_all:.1f} s")
-    on_path = ("seed_locate_batch", "pseudo_probe", "pseudo_chain", "chain1_forward",
-               "wfa_batch")
+    on_path = ("seed_locate_batch", "seed_compact", "pseudo_probe", "pseudo_chain",
+               "chain1_forward", "wfa_batch")
     mesh_path = ("seed_locate_batch", "shard_compact", "pseudo_probe", "pseudo_chain",
                  "chain1_forward", "wfa_batch")
     if (not all(eres["launches"][n] for n in on_path) or not eres["single_launches"]
+            or not eres["single_compactions"]
             or not eres["build"]["capture_launches"] or not shres["launches"]
             or not all(eres["sharded"]["launches"][n] for n in mesh_path)):
         raise AssertionError(f"a kernel of the path was not launched: {eres['launches']}, "

@@ -180,6 +180,20 @@ def _raise_on(err: int, lib, name: str):
         raise RuntimeError(f"{name} launch failed: {lib.seed_locate_error_string(err).decode()}")
 
 
+def _check_out(out, shape, device):
+    if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != shape
+                            or out.device != device or not out[0].is_contiguous()
+                            or not out[1].is_contiguous()):
+        raise ValueError(f"out must be an int32 {shape} tensor on {device} "
+                         f"whose two halves are contiguous")
+
+
+def _copy_out(out, got):
+    out[0].copy_(got[0])
+    out[1].copy_(got[1])
+    return out[0], out[1]
+
+
 def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int, out=None):
     """Per (query, row) >=p-prefix entry range of a sorted hi-word table.
 
@@ -194,18 +208,10 @@ def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int, out=None
     _check(seed_hi, seed_cnt, query_hi, query_valid)
     suf = suffix_mask(p)
     (Mb, E), B = seed_hi.shape, query_hi.shape[0]
-    if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != (2, B, Mb)
-                            or out.device != seed_hi.device or not out[0].is_contiguous()
-                            or not out[1].is_contiguous()):
-        raise ValueError(f"out must be an int32 (2, {B}, {Mb}) tensor on {seed_hi.device} "
-                         f"whose two halves are contiguous")
+    _check_out(out, (2, B, Mb), seed_hi.device)
     if seed_hi.device.type == "cpu":
         got = seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
-        if out is None:
-            return got
-        out[0].copy_(got[0])
-        out[1].copy_(got[1])
-        return out[0], out[1]
+        return got if out is None else _copy_out(out, got)
     ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
                       query_valid=query_valid)
     if out is None:
@@ -229,9 +235,10 @@ def seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p: int):
     return nh[0], e0[0]
 
 
-def seed_locate(seed_hi, seed_cnt, query_hi, query_valid, p: int):
+def seed_locate(seed_hi, seed_cnt, query_hi, query_valid, p: int, out=None):
     """Per-row >=p-prefix entry range of a sorted hi-word table for ONE
-    query: query_hi int32 [Mb], query_valid bool [Mb]; otherwise as
+    query: query_hi int32 [Mb], query_valid bool [Mb]; out: an optional
+    int32 [2, Mb] whose two halves are contiguous; otherwise as
     `seed_locate_batch`.  Returns (n_hits, e0), both int32 [Mb].
 
     CUDA tensors launch the single-query kernel (`launches` counts them);
@@ -239,12 +246,15 @@ def seed_locate(seed_hi, seed_cnt, query_hi, query_valid, p: int):
     _check_table(seed_hi, seed_cnt)
     _check_queries(seed_hi, query_hi, query_valid, (seed_hi.shape[0],))
     suf = suffix_mask(p)
+    Mb, E = seed_hi.shape
+    _check_out(out, (2, Mb), seed_hi.device)
     if seed_hi.device.type == "cpu":
-        return seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
+        got = seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
+        return got if out is None else _copy_out(out, got)
     ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
                       query_valid=query_valid)
-    Mb, E = seed_hi.shape
-    out = torch.empty((2, Mb), dtype=torch.int32, device=seed_hi.device)
+    if out is None:
+        out = torch.empty((2, Mb), dtype=torch.int32, device=seed_hi.device)
     if Mb == 0:
         return out[0], out[1]
     lib = kernel_lib()

@@ -4,10 +4,13 @@ DeviceSeedMatcher packs the columnar seed index into device-resident
 [rows, entries] hi-word tables and answers each query batch's per-mask
 >=p-prefix range queries with one launch of the CUDA seed-locate kernel
 (kernels/seed_locate.py) per bucket.  The kernel returns (n_hits, e0) per
-(query, row); single-query `match` launches the same kernel at B = 1
-(kernels/seed_locate.py::seed_locate).  PyTorch tensor code compacts the
-rows with hits into (mask, e0, n_hits) triples on the device, shared by
-both, and the host gathers the matched
+(query, row), each bucket's into its block of one stacked buffer;
+single-query `match` launches the single-query kernel instead
+(kernels/seed_locate.py::seed_locate).  One launch of the compaction kernel
+(kernels/seed_compact.py) then turns the whole batch's outputs into each
+query's (mask, e0, n_hits) triples, in (mask, e0) order with chunk runs
+merged, through a row order fixed when the rows are packed; the host reads
+the per-query offsets, fetches the triples once and gathers the matched
 entries/postings from the columnar store — results are identical to the
 host path.
 
@@ -16,8 +19,9 @@ Layout (the same as the JAX matcher's, lexicmap_tpu/parallel/device_search.py):
     range lives entirely in the top 32 bits, and the host computes exact
     LCPs on the gathered entries anyway.
   - masks with more than E_CAP entries are COLUMN-CHUNKED into rows of
-    <= E_CAP contiguous entries; a range hit spanning chunk rows comes back
-    as several triples with contiguous ranges, which match_batch merges.
+    <= E_CAP contiguous entries; a range hit spanning chunk rows hits each
+    of them with contiguous ranges, which the compaction merges into one
+    triple (and match_batch, where the host tier holds some of the rows).
   - rows are grouped into entry-count BUCKETS from the count distribution's
     quantiles, each its own [rows, E] table, so device memory is ~sum(count)
     rather than rows * max(count).
@@ -38,6 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels.seed_compact import row_order, seed_compact
 from ..kernels.seed_locate import PAD_HI, seed_locate, seed_locate_batch, split_kmers_hi_lo
 from . import count_d2h, count_h2d, resolve_device
 from .pseudo_device import WORKING_BYTES
@@ -169,20 +174,28 @@ def tables_from_jax_matcher(jax_matcher) -> list[SeedBucket]:
     return out
 
 
-def compact_hits(nh: torch.Tensor, e0: torch.Tensor, gids: torch.Tensor,
-                 base: torch.Tensor) -> torch.Tensor:
-    """The compaction after B1 (JAX's `_bucket_fn` tail): int64 [4, n] of
-    (query, mask, e0, n_hits) for the (query, row) pairs of one bucket's
-    int32 [B, Mb] outputs with hits, row-major, so that each query's triples
-    are contiguous; the row's mask id from `gids`, e0 made mask-global with
-    `base`."""
-    b_idx, r_idx = torch.nonzero(nh > 0, as_tuple=True)
-    return torch.stack([
-        b_idx,
-        gids[r_idx],
-        e0[b_idx, r_idx].to(torch.int64) + base[r_idx],
-        nh[b_idx, r_idx].to(torch.int64),
-    ])
+def sort_merge(B: int, qb, hm_all, e0_all, nh_all):
+    """Per query b < B, its triples (those with qb == b) sorted by (mask,
+    e0), a run of one mask's triples with contiguous [e0, e0 + n) merged
+    into one (a prefix range across column-chunk boundaries), so that
+    downstream sees the host path's one-triple-per-mask shape.  The matcher
+    joins its host tier's triples to the device's with it."""
+    order = np.lexsort((e0_all, hm_all, qb))
+    qb, hm_all, e0_all, nh_all = qb[order], hm_all[order], e0_all[order], nh_all[order]
+    bounds = np.searchsorted(qb, np.arange(B + 1))
+    out = []
+    for b in range(B):
+        s, t = bounds[b], bounds[b + 1]
+        hm, e0, nh = hm_all[s:t], e0_all[s:t], nh_all[s:t]
+        if hm.shape[0] > 1:
+            new_run = np.empty(hm.shape[0], dtype=bool)
+            new_run[0] = True
+            new_run[1:] = (hm[1:] != hm[:-1]) | (e0[1:] != e0[:-1] + nh[:-1])
+            if not new_run.all():
+                starts = np.nonzero(new_run)[0]
+                hm, e0, nh = hm[starts], e0[starts], np.add.reduceat(nh, starts)
+        out.append((hm.astype(np.int64), e0.astype(np.int64), nh.astype(np.int64)))
+    return out
 
 
 class DeviceSeedMatcher:
@@ -219,6 +232,7 @@ class DeviceSeedMatcher:
         self.hbm_bytes = 0
         self.budget_spill = 0  # chunk rows pushed to the host by the budget
         host_rows: list[int] = []
+        packed: list[np.ndarray] = []  # each bucket's chunk rows
         assigned = np.zeros(vmask_a.shape[0], dtype=bool)
         for E in edges:
             rows = np.nonzero(~assigned & (vcnt_a <= E))[0]
@@ -248,7 +262,15 @@ class DeviceSeedMatcher:
             )
             count_h2d("device seed table", hi, cnt, gids, base)
             self.buckets.append(bucket)
+            packed.append(rows)
             self.hbm_bytes += rows.shape[0] * E * 4
+
+        # the compaction's row order over all buckets: (mask, chunk base)
+        self.order = row_order([vmask_a[r] for r in packed], [vstart_a[r] for r in packed],
+                               [vcnt_a[r] for r in packed], self.device)
+        self._starts = self.order.starts.tolist()
+        count_h2d("device seed table", self.order.starts, self.order.perm, self.order.cont,
+                  self.order.gid, self.order.base)
 
         # host-tier chunk rows, concatenated for one vectorized bisection
         self.host_entries = int(vcnt_a[host_rows].sum()) if host_rows else 0
@@ -279,90 +301,88 @@ class DeviceSeedMatcher:
             f"{len(self.buckets)} buckets [" + ", ".join(parts) + "]"
         )
 
-    def _device_hits(self, qh: np.ndarray, sel: np.ndarray, min_prefix: int,
-                     single: bool = False):
-        """All buckets' hit triples as numpy (b, mask, e0, n_hits) columns.
-        qh/sel are [B, m]; single=True (B == 1) runs the single-query
-        kernel `seed_locate` instead of `seed_locate_batch`."""
-        d = self.device
-        qh_d = torch.from_numpy(qh.view(np.int32)).to(d)
-        sel_d = torch.from_numpy(sel).to(d)
-        count_h2d("device seed matching", qh, sel)
-        parts = []
-        for bk in self.buckets:
-            qh_b = qh_d.index_select(1, bk.gids)
-            qv_b = sel_d.index_select(1, bk.gids)
-            if single:
-                nh, e0 = seed_locate(bk.hi, bk.cnt, qh_b[0], qv_b[0], min_prefix)
-                nh, e0 = nh[None], e0[None]
-            else:
-                nh, e0 = seed_locate_batch(bk.hi, bk.cnt, qh_b, qv_b, min_prefix)
-            parts.append(compact_hits(nh, e0, bk.gids, bk.base))
-        if not parts:
-            return np.empty((4, 0), dtype=np.int64)
-        out = torch.cat(parts, dim=1).cpu().numpy()
-        count_d2h("device seed matching", out)
-        return out
-
-    def match_batch(self, query_kmers_batch: np.ndarray, min_prefix: int):
-        """query_kmers_batch [B, m] u64 (0 = no captured k-mer) -> per-query
-        (hit_masks, e0, n_hits) int64 triples, sorted by (mask, e0), one
-        kernel launch per bucket.  A device failure (out of memory
-        included) raises: the batch is never moved to the host."""
-        return self._match(query_kmers_batch, min_prefix, single=False)
-
-    def match(self, query_kmers: np.ndarray, min_prefix: int):
-        """Single-query variant: (mask_idx, e0, n_hits) triples, one launch
-        of the single-query kernel per bucket."""
-        return self._match(query_kmers[None, :], min_prefix, single=True)[0]
-
-    def _match(self, query_kmers_batch: np.ndarray, min_prefix: int, single: bool):
-        B = query_kmers_batch.shape[0]
+    def query_words(self, query_kmers_batch: np.ndarray):
+        """The batch's hi words uint32 [B, m] and flags bool [B, m] (False
+        where a mask captured no k-mer)."""
         sel = query_kmers_batch != 0
         qh = np.zeros(query_kmers_batch.shape, dtype=np.uint32)
         if sel.any():
             qh[sel] = split_kmers_hi_lo(query_kmers_batch[sel], self.k)[0]
-        qb, hm_all, e0_all, nh_all = self._device_hits(qh, sel, min_prefix, single)
+        return qh, sel
+
+    def device_hits(self, qh: np.ndarray, sel: np.ndarray, min_prefix: int,
+                    single: bool = False):
+        """Every bucket's hits of the batch, as the compaction gives them:
+        (offsets int64 [B + 1] on the host, triples int64 [3, T] of (mask,
+        e0, n_hits) on the device, each query's in (mask, e0) order, chunk
+        runs merged), from `locate_all`'s buffer in one launch."""
+        return seed_compact(self.locate_all(qh, sel, min_prefix, single), qh.shape[0],
+                            self.order)
+
+    def locate_all(self, qh: np.ndarray, sel: np.ndarray, min_prefix: int,
+                   single: bool = False) -> torch.Tensor:
+        """B1 over every bucket: one stacked int32 buffer, bucket k's (n_hits,
+        e0) [2, B, Mb_k] at element 2 * B * order.starts[k].  qh/sel are [B,
+        m]; single=True (B == 1) runs the single-query kernel `seed_locate`
+        instead of `seed_locate_batch`."""
+        d = self.device
+        B = qh.shape[0]
+        qh_d = torch.from_numpy(qh.view(np.int32)).to(d)
+        sel_d = torch.from_numpy(sel).to(d)
+        count_h2d("device seed matching", qh, sel)
+        starts = self._starts
+        stacked = torch.empty(2 * B * starts[-1], dtype=torch.int32, device=d)
+        for bk, s0, s1 in zip(self.buckets, starts[:-1], starts[1:]):
+            qh_b = qh_d.index_select(1, bk.gids)
+            qv_b = sel_d.index_select(1, bk.gids)
+            out = stacked[2 * B * s0: 2 * B * s1].view(2, B, s1 - s0)
+            if single:
+                seed_locate(bk.hi, bk.cnt, qh_b[0], qv_b[0], min_prefix, out=out[:, 0])
+            else:
+                seed_locate_batch(bk.hi, bk.cnt, qh_b, qv_b, min_prefix, out=out)
+        return stacked
+
+    def match_batch(self, query_kmers_batch: np.ndarray, min_prefix: int):
+        """query_kmers_batch [B, m] u64 (0 = no captured k-mer) -> per-query
+        (hit_masks, e0, n_hits) int64 triples, sorted by (mask, e0), one
+        kernel launch per bucket and one compaction.  A device failure (out
+        of memory included) raises: the batch is never moved to the host."""
+        return self._match(query_kmers_batch, min_prefix, single=False)
+
+    def match(self, query_kmers: np.ndarray, min_prefix: int):
+        """Single-query variant: (mask_idx, e0, n_hits) triples, one launch
+        of the single-query kernel per bucket, then one compaction."""
+        return self._match(query_kmers[None, :], min_prefix, single=True)[0]
+
+    def _match(self, query_kmers_batch: np.ndarray, min_prefix: int, single: bool):
+        B = query_kmers_batch.shape[0]
+        qh, sel = self.query_words(query_kmers_batch)
+        offsets, triples = self.device_hits(qh, sel, min_prefix, single)
+        offsets, trip = offsets.numpy(), triples.cpu().numpy()
+        count_d2h("device seed matching", offsets)  # read by the compaction: its one wait
+        count_d2h("device seed matching", trip)
+        hm_all, e0_all, nh_all = trip
+        if not self.host_rows:
+            return [(hm_all[s:t], e0_all[s:t], nh_all[s:t])
+                    for s, t in zip(offsets[:-1], offsets[1:])]
 
         # host bisection for the budget-spilled chunk rows, vectorized over
-        # all (row, query) pairs
-        if self.host_rows:
-            from ..index.search import searchsorted_segments
+        # all (row, query) pairs, then joined to the device's triples
+        from ..index.search import searchsorted_segments
 
-            suf = np.uint64((1 << (2 * (self.k - min_prefix))) - 1)
-            km = query_kmers_batch[:, self._ht_mi]  # [B, R]
-            bsel, rsel = np.nonzero(km != 0)
-            if bsel.shape[0]:
-                q = km[bsel, rsel]
-                lo0 = self._ht_off[rsel]
-                hi0 = self._ht_off[rsel + 1]
-                lo_i = searchsorted_segments(self._ht_cat, lo0, hi0, q & ~suf, "left")
-                hi_i = searchsorted_segments(self._ht_cat, lo0, hi0, q | suf, "right")
-                ok = hi_i > lo_i
-                qb = np.concatenate([qb, bsel[ok]])
-                hm_all = np.concatenate([hm_all, self._ht_mi[rsel[ok]]])
-                e0_all = np.concatenate(
-                    [e0_all, self._ht_start[rsel[ok]] + lo_i[ok] - lo0[ok]]
-                )
-                nh_all = np.concatenate([nh_all, (hi_i - lo_i)[ok]])
-
-        # per query: sort by (mask, e0), then merge chunk-spanning range hits
-        # (a prefix range crossing column-chunk boundaries comes back as
-        # several triples of one mask with contiguous [e0, e0+n)) so that
-        # downstream sees the host path's one-triple-per-mask shape
-        order = np.lexsort((e0_all, hm_all, qb))
-        qb, hm_all, e0_all, nh_all = qb[order], hm_all[order], e0_all[order], nh_all[order]
-        bounds = np.searchsorted(qb, np.arange(B + 1))
-        out = []
-        for b in range(B):
-            s, t = bounds[b], bounds[b + 1]
-            hm, e0, nh = hm_all[s:t], e0_all[s:t], nh_all[s:t]
-            if hm.shape[0] > 1:
-                new_run = np.empty(hm.shape[0], dtype=bool)
-                new_run[0] = True
-                new_run[1:] = (hm[1:] != hm[:-1]) | (e0[1:] != e0[:-1] + nh[:-1])
-                if not new_run.all():
-                    starts = np.nonzero(new_run)[0]
-                    hm, e0, nh = hm[starts], e0[starts], np.add.reduceat(nh, starts)
-            out.append((hm.astype(np.int64), e0.astype(np.int64), nh.astype(np.int64)))
-        return out
+        qb = np.repeat(np.arange(B), np.diff(offsets))
+        suf = np.uint64((1 << (2 * (self.k - min_prefix))) - 1)
+        km = query_kmers_batch[:, self._ht_mi]  # [B, R]
+        bsel, rsel = np.nonzero(km != 0)
+        if bsel.shape[0]:
+            q = km[bsel, rsel]
+            lo0 = self._ht_off[rsel]
+            hi0 = self._ht_off[rsel + 1]
+            lo_i = searchsorted_segments(self._ht_cat, lo0, hi0, q & ~suf, "left")
+            hi_i = searchsorted_segments(self._ht_cat, lo0, hi0, q | suf, "right")
+            ok = hi_i > lo_i
+            qb = np.concatenate([qb, bsel[ok]])
+            hm_all = np.concatenate([hm_all, self._ht_mi[rsel[ok]]])
+            e0_all = np.concatenate([e0_all, self._ht_start[rsel[ok]] + lo_i[ok] - lo0[ok]])
+            nh_all = np.concatenate([nh_all, (hi_i - lo_i)[ok]])
+        return sort_merge(B, qb, hm_all, e0_all, nh_all)

@@ -698,3 +698,44 @@ def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
         rows = [rows_of(r, f"q{i}") for i, r in
                 enumerate(eng.finish_batch(eng.prepare_batch(queries)))]
         assert rows == want_rows and all(want_rows)
+
+
+# B4, the seed matcher's compaction, through the matcher (its kernel
+# against the plain version on random inputs: tests/test_torch_compact.py)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 16_000])
+def test_cuda_matcher_chunk_runs_equal_host(cuda_device, tmp_path, monkeypatch, budget):
+    """DeviceSeedMatcher on the card with rows of at most 4 entries in
+    buckets of E = 1, 2 and 4 (chunk runs across buckets) and, with a
+    budget, a host tier: match_batch and match == the host bisection, one
+    compaction a call, hits across chunk rows at p = 7."""
+    from lexicmap_tpu_torch.index.build import BuildOptions, build_index
+    from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
+    from lexicmap_tpu_torch.kernels import seed_compact as SCK
+    from lexicmap_tpu_torch.parallel import device_search as tds
+    from lexicmap_tpu_torch.utils.kmers import seq_to_codes
+    from torch_parity import mutated_queries, write_genomes
+
+    files, seqs = write_genomes(tmp_path)
+    db = str(tmp_path / "d.lmt")
+    build_index(db, files, BuildOptions(k=31, n_masks=512, chunks=2, verbose=False))
+    host = IndexSearcher(db, SearchOptions(engine="host"))
+    qs = mutated_queries(seqs, ["D0", "D1", "D2"], 13000, 1500, 15, 1)
+    batch = np.stack([host._mask_query(seq_to_codes(q.upper()))[0] for q in qs])
+    monkeypatch.setattr(tds, "E_CAP", 4)
+    monkeypatch.setattr(tds, "bucket_edges_for", lambda counts, cap=None: [1, 2, 4])
+    pm = tds.DeviceSeedMatcher(host, device="cuda", hbm_budget=budget)
+    assert len(pm.buckets) == 3 and (pm.host_rows > 0) == (budget is not None)
+    before = (SL.seed_locate_batch.launches, SCK.seed_compact.launches)
+    got = pm.match_batch(batch, 7)
+    assert (SL.seed_locate_batch.launches, SCK.seed_compact.launches) == (
+        before[0] + 3, before[1] + 1)
+    want = [host_triples(host, batch[b], 7) for b in range(batch.shape[0])]
+    assert [[a.tolist() for a in t] for t in got] == [[a.tolist() for a in t] for t in want]
+    assert any((t[2] > 4).any() for t in got)  # merged over chunk rows
+    before = (SL.seed_locate.launches, SCK.seed_compact.launches)
+    one = pm.match(batch[1], 7)
+    assert (SL.seed_locate.launches, SCK.seed_compact.launches) == (before[0] + 3, before[1] + 1)
+    assert [a.tolist() for a in one] == [a.tolist() for a in want[1]]

@@ -10,7 +10,8 @@ from lexicmap_tpu_torch.kernels import build
 
 
 @pytest.mark.parametrize("name, includes", [("seed_locate", True), ("seed_match", True),
-                                            ("pseudo_align", False), ("capture", False)])
+                                            ("pseudo_align", False), ("capture", False),
+                                            ("seed_compact", False)])
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch, name, includes):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)

@@ -1203,3 +1203,55 @@ def compact_case(B, mb, hit_rate, seed=0, n_pad=0, L=None):
     gids = np.cumsum(rng.integers(1, 9, size=(*shape[:-2], mb)), axis=-1)
     gids[..., mb - n_pad:] = -1
     return tuple(torch.from_numpy(a.astype(np.int32)) for a in (nh, e0, gids))
+
+
+def seed_compact_case(B, n_masks, seed=0, e_cap=8, n_buckets=3, hit_rate=0.5, max_count=60,
+                      device="cpu"):
+    """Inputs of seed_compact as DeviceSeedMatcher lays them out, and the
+    triples they must give.  Masks of 0 to `max_count` entries are
+    column-chunked into rows of <= e_cap; each chunk row goes to one of
+    `n_buckets` buckets at random (so one mask's chunks cross buckets), in
+    row order within a bucket.  Each query takes a range [lo, hi) of each
+    mask's entries, a hit with probability `hit_rate` (query 0 hits
+    nothing), and each chunk row gets what B1 gives for it: n_hits, the part
+    of the range in the row, and e0, the row's entries below the range.
+    Returns (stacked int32 [2 * B * R], the RowOrder, per query the (mask,
+    e0, n_hits) int64 triples: one a hit mask, in mask order)."""
+    from lexicmap_tpu_torch.kernels.seed_compact import row_order
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, max_count + 1, n_masks)
+    nchunk = np.maximum(1, -(-counts // e_cap))
+    vmask = np.repeat(np.arange(n_masks), nchunk)
+    first = np.repeat(np.cumsum(nchunk) - nchunk, nchunk)
+    vstart = (np.arange(vmask.shape[0]) - first) * e_cap
+    vcnt = np.minimum(counts[vmask] - vstart, e_cap)
+    bucket = rng.integers(0, n_buckets, vmask.shape[0])
+    rows = [r for r in (np.nonzero(bucket == k)[0] for k in range(n_buckets)) if r.shape[0]]
+    order = row_order([vmask[r] for r in rows], [vstart[r] for r in rows],
+                      [vcnt[r] for r in rows], device)
+    lo = rng.integers(0, counts + 1, size=(B, n_masks))
+    hit = (rng.random((B, n_masks)) < hit_rate) & (lo < counts)
+    hit[0] = False
+    hi = np.where(hit, np.minimum(lo + rng.integers(1, max_count + 1, size=(B, n_masks)),
+                                  counts), lo)
+    stacked = np.empty(2 * B * vmask.shape[0], dtype=np.int32)
+    at = 0
+    for r in rows:
+        blk = stacked[2 * B * at: 2 * B * (at + r.shape[0])].reshape(2, B, r.shape[0])
+        loc_lo = np.clip(lo[:, vmask[r]] - vstart[r], 0, vcnt[r])
+        blk[0] = np.clip(hi[:, vmask[r]] - vstart[r], 0, vcnt[r]) - loc_lo
+        blk[1] = loc_lo
+        at += r.shape[0]
+    want = []
+    for b in range(B):
+        m = np.nonzero(hi[b] > lo[b])[0]
+        want.append((m.astype(np.int64), lo[b, m].astype(np.int64),
+                     (hi[b] - lo[b])[m].astype(np.int64)))
+    return torch.from_numpy(stacked).to(device), order, want
+
+
+def split_triples(offsets, triples):
+    """seed_compact's (offsets, triples) as per-query numpy triples."""
+    off, tr = offsets.numpy(), triples.cpu().numpy()
+    return [tuple(tr[:, s:t]) for s, t in zip(off[:-1], off[1:])]
