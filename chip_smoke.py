@@ -6,6 +6,7 @@
                           [--compare-source OLD/seed_match.cu]
                           [--compare-source OLD/chain1.cu] [--compare-source OLD/wfa.cu]
                           [--compare-source OLD/sharded.cu] [--compare-source OLD/capture.cu]
+                          [--compare-source OLD/seed_compact.cu]
 
 Phases, each of which raises on a wrong result (nothing falls back):
   1. environment: torch/CUDA versions and the card (nvidia-smi);
@@ -30,9 +31,13 @@ Phases, each of which raises on a wrong result (nothing falls back):
      table vs a numpy bisection oracle; the compaction after B1 (B4,
      seed_compact, one launch for all buckets) on the batch's stacked B1
      outputs == its plain version == the oracle, timed as called, on the
-     device, plain and against the library calls (torch.nonzero and
-     gathers a bucket, torch.sort of one int64 key), its bound from the
-     bytes the run's data needs; match_batch's time split (k-mer split,
+     device (one kernel row a call, asserted), plain and against the
+     library calls (torch.nonzero and gathers a bucket, torch.sort of one
+     int64 key), its bound from the bytes the run's data needs; with
+     --compare-source OLD/seed_compact.cu, the earlier tree's two-pass
+     compaction (count, a wait for the offsets, write) in turns with this
+     one, here, on the chunked table and on phase 6's batch, both == plain;
+     match_batch's time split (k-mer split,
      device part, fetch, host tail) for this tree's path and the parent's
      (a host np.lexsort and merge after torch.nonzero a bucket), in turns;
      then a second table of 2,000 masks, one in sixteen over E_CAP =
@@ -220,23 +225,39 @@ def device_ms_split(fn, names, reps: int = 20) -> dict:
     return out
 
 
-def device_ms_by_call(fn, names, reps: int = 20) -> dict:
-    """{name: device ms a call of fn of the kernel rows whose name holds
-    it} (summed over `reps` calls, over reps: a kernel launched L times a
-    call counts L times), from one trace; None where it shows no row."""
+def device_rows_by_call(fn, names, reps: int = 20, a_call=None) -> tuple[dict, dict]:
+    """({name: device ms a call of fn of the kernel rows whose name holds
+    it}, {name: those rows a call}) from one trace of `reps` calls after a
+    warm one: the rows summed over reps, so a kernel launched L times a
+    call counts L times.  A trace where a name's rows are not a multiple of
+    reps (with `a_call`, not reps x a_call[name]) lost some: it is taken
+    again, up to five times, then this raises.  A name without rows in
+    every trace gives None."""
     import torch
 
     if not torch.cuda.is_available():
-        return {nm: None for nm in names}
+        return {nm: None for nm in names}, {nm: None for nm in names}
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without device rows: again
+    for _ in range(5):  # a trace now and then comes back with rows missing: again
         rows = _cuda_rows(fn, reps)
-        out = {nm: sum(t for name, t in rows if nm in name) / reps / 1e3 or None
-               for nm in names}
-        if None not in out.values():
+        us = {nm: [t for name, t in rows if nm in name] for nm in names}
+        whole = all(len(us[nm]) == reps * a_call[nm] if a_call else len(us[nm]) % reps == 0
+                    for nm in names)
+        if whole and all(us.values()):
             break
-    return out
+    if not whole:
+        raise AssertionError(f"no whole trace of {reps} calls in five: rows "
+                             f"{ {nm: len(u) for nm, u in us.items()} }")
+    return ({nm: sum(u) / reps / 1e3 or None for nm, u in us.items()},
+            {nm: len(u) // reps for nm, u in us.items()})
+
+
+def device_ms_by_call(fn, names, reps: int = 20, a_call=None) -> dict:
+    """{name: device ms a call of fn of the kernel rows whose name holds
+    it}, from a whole trace (device_rows_by_call); None where it shows no
+    row."""
+    return device_rows_by_call(fn, names, reps, a_call)[0]
 
 
 def sync(dev):
@@ -291,13 +312,15 @@ def seed_locate_case(dev, Mb, E, B, k, seed):
     return to_i32_bits(hi64).contiguous(), cnt, to_i32_bits(qh64).contiguous(), qv, hi64
 
 
-PARENT_SOURCES = ("seed_locate", "seed_match", "chain1", "wfa", "sharded", "capture")
+PARENT_SOURCES = ("seed_locate", "seed_match", "chain1", "wfa", "sharded", "capture",
+                  "seed_compact")
 
 
 def parent_build(paths):
     """Start nvcc on each earlier tree's csrc/seed_locate.cu, seed_match.cu,
-    chain1.cu, wfa.cu, sharded.cu or capture.cu (same flags; headers beside
-    it), beside the kernel build; parent_load() waits for them."""
+    chain1.cu, wfa.cu, sharded.cu, capture.cu or seed_compact.cu (same
+    flags; headers beside it), beside the kernel build; parent_load() waits
+    for them."""
     from lexicmap_tpu_torch.kernels import build
 
     started = {}
@@ -342,6 +365,12 @@ def parent_load(started):
         if name == "sharded":  # the compaction of one shard a launch (no L)
             lib.shard_compact.argtypes = [vp] * 4 + [ci] * 3 + [vp]
             lib.shard_compact.restype = ci
+            continue
+        if name == "seed_compact":  # the two-pass compaction's count and write
+            head = [vp] * 6 + [ci, ctypes.c_longlong, ci, ci]
+            lib.seed_compact_count.argtypes = head + [vp] * 3
+            lib.seed_compact_write.argtypes = head + [vp, ctypes.c_longlong, vp, vp]
+            lib.seed_compact_count.restype = lib.seed_compact_write.restype = ci
             continue
         if name == "capture":  # the C signatures of kernels/capture.py's
             i64 = ctypes.c_int64
@@ -510,22 +539,30 @@ def int_err(got, want) -> float:
     return err
 
 
-def split_in_turns(dev, parent_fn, new_fn, parent_names, new_names, reps, same=None):
+def split_in_turns(dev, parent_fn, new_fn, parent_names, new_names, reps, same=None,
+                   a_call=(None, None)):
     """An earlier kernel's calls against this tree's in turns (parent, new,
     new, parent): ms as called (CUDA events) and device ms a call, by
-    kernel name and summed.  Both give the same outputs (`same`, else
-    equal integers), or it raises."""
+    kernel name and summed, each from a whole trace (device_rows_by_call;
+    `a_call`: the parent's and the new side's rows a call by name, where
+    known).  Both give the same outputs (`same`, else equal integers), and
+    each side's two turns the same rows a call, or it raises."""
     a, b = parent_fn(), new_fn()
     if not (same(a, b) if same else int_err(a, b) == 0):
         raise AssertionError(f"the earlier {parent_names[0]} and this tree's differ")
     out = {"parent": [], "new": [], "parent_device": [], "new_device": [],
-           "parent_device_by": [], "new_device_by": []}
-    for key, fn, names in (("parent", parent_fn, parent_names), ("new", new_fn, new_names),
-                           ("new", new_fn, new_names), ("parent", parent_fn, parent_names)):
+           "parent_device_by": [], "new_device_by": [], "parent_rows": [], "new_rows": []}
+    for key, fn, names, want in (
+            ("parent", parent_fn, parent_names, a_call[0]), ("new", new_fn, new_names, a_call[1]),
+            ("new", new_fn, new_names, a_call[1]), ("parent", parent_fn, parent_names, a_call[0])):
         out[key].append(time_ms(fn, dev, reps))
-        by = device_ms_by_call(fn, names, reps)
+        by, rows = device_rows_by_call(fn, names, reps, want)
         out[key + "_device_by"].append(by)
         out[key + "_device"].append(None if None in by.values() else sum(by.values()))
+        out[key + "_rows"].append(rows)
+    for key in ("parent", "new"):
+        if out[key + "_rows"][0] != out[key + "_rows"][1]:
+            raise AssertionError(f"{key}: rows a call differ between turns: {out[key + '_rows']}")
     return out
 
 
@@ -1035,7 +1072,7 @@ def segment_bisect(vals, lo, hi, x, side):
         hi = np.where(act & ~right, mid, hi)
 
 
-def phase_matcher(dev, card, M, E, B, p, seed, reps):
+def phase_matcher(dev, card, M, E, B, p, seed, reps, parent=None):
     import numpy as np
     import torch
 
@@ -1084,7 +1121,7 @@ def phase_matcher(dev, card, M, E, B, p, seed, reps):
                                or compactions != 1 + 2 * reps):
         raise AssertionError(f"expected one B1 launch per bucket and one compaction per "
                              f"batch, saw {launches} and {compactions}")
-    comp = compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps * 4)
+    comp = compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps * 4, parent=parent)
     split = tail_split(dev, card, matcher, q, p, reps * 2, "10k shape")
     res = {"hbm_bytes": matcher.hbm_bytes, "ms_per_batch": ms, "device_ms": dev_ms,
            "triples": n_trip, "launches": launches, "compactions": compactions,
@@ -1143,12 +1180,76 @@ def library_compaction(matcher, stacked, B):
     return t[:, torch.sort(key).indices]
 
 
+def parent_compact(lib, stacked, B, order, span=128):
+    """The earlier tree's two-pass B4 (--compare-source OLD/seed_compact.cu)
+    as its wrapper ran it: a memset and the count pass, a wait for the
+    offsets, then the write pass into [3, T]."""
+    import torch
+
+    R, nb = order.perm.shape[0], order.starts.shape[0] - 1
+    dev = stacked.device
+    units = B * -(-R // span)
+    scratch = torch.empty(units + 1, dtype=torch.int32, device=dev)
+    woff = torch.empty(units + B + 1, dtype=torch.int64, device=dev)
+    ptrs = [t.data_ptr() for t in (stacked, order.perm, order.cont, order.gid, order.base,
+                                   order.starts)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if lib.seed_compact_count(*ptrs, nb, R, B, span, scratch.data_ptr(), woff.data_ptr(),
+                              stream):
+        raise RuntimeError("the earlier seed_compact's count pass failed to launch")
+    offsets = woff[units:].cpu()
+    T = int(offsets[B])
+    out = torch.empty((3, T), dtype=torch.int64, device=dev)
+    if lib.seed_compact_write(*ptrs, nb, R, B, span, woff.data_ptr(), T, out.data_ptr(),
+                              stream):
+        raise RuntimeError("the earlier seed_compact's write pass failed to launch")
+    return offsets, out
+
+
+COMPACT_KERNEL = "compact_lookback"  # the one kernel of seed_compact.cu
+PARENT_COMPACT_KERNELS = ("compact_count", "compact_write")  # the earlier tree's two
+# each of them once a call
+COMPACT_ROWS_A_CALL = ({k: 1 for k in PARENT_COMPACT_KERNELS}, {COMPACT_KERNEL: 1})
+
+
+def kernel_rows_per_call(fn, reps=10) -> list:
+    """The names of the kernel rows (not memsets, not copies) that one call
+    of fn makes, from a trace of `reps` calls; raises unless every call
+    makes the same rows."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):  # a trace now and then comes back with rows missing: again
+        rows = [name for name, _ in _cuda_rows(fn, reps)
+                if not name.startswith(("Memcpy", "Memset"))]
+        if rows and len(rows) % reps == 0:
+            break
+    if not rows or len(rows) % reps:
+        raise AssertionError(f"{len(rows)} kernel rows over {reps} calls: {sorted(set(rows))}")
+    return rows[: len(rows) // reps]
+
+
+def check_one_compact_row(call, what):
+    """One call of seed_compact makes exactly one kernel row, its kernel's
+    (None in a rehearsal on the CPU)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    rows = kernel_rows_per_call(call)
+    if len(rows) != 1 or COMPACT_KERNEL not in rows[0]:
+        raise AssertionError(f"seed_compact ({what}): a call made the kernel rows {rows}, "
+                             f"expected one {COMPACT_KERNEL}")
+    return rows
+
+
 def compact_bytes(stacked, B, order, T):
     """The bytes B4's function must move on these inputs: every n_hits read
     (through the row order, all of them), the 32-byte sectors holding the
     e0 of a hit and the gid and base of a row with a hit in any query, the
-    triples and offsets written.  Returns (bytes, the row order's own perm
-    and cont bytes)."""
+    triples and offsets written.  Returns (bytes, the row order's own perm,
+    src and cont bytes)."""
     import numpy as np
 
     st = stacked.cpu().numpy()
@@ -1165,17 +1266,20 @@ def compact_bytes(stacked, B, order, T):
     row_sectors = np.unique(np.nonzero(rows_hit)[0] * 8 // SECTOR)
     nbytes = (B * R * 4 + (e0_sectors.shape[0] + 2 * row_sectors.shape[0]) * SECTOR
               + T * 24 + (B + 1) * 8)
-    return nbytes, R * 5
+    return nbytes, R * 13
 
 
-def compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps, label="10k shape"):
+def compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps, label="10k shape",
+                        parent=None):
     """B4 (seed_compact) on B1's outputs of the matcher's batch, all its
     buckets in one stacked buffer: the kernel == its plain version == the
-    bisection oracle's triples, exactly.  Its time as called (the count
-    pass, the one wait for the offsets, the write pass) and on the device
-    (the two kernels' profiler rows), the plain version's, the library
-    call's (library_compaction; on the device, every kernel row of a call),
-    the bound from the bytes this run's data needs (compact_bytes)."""
+    bisection oracle's triples, exactly.  Its time as called (the memset,
+    the one launch, the wait for the offsets) and on the device (the
+    kernel's profiler row: one a call, asserted), the plain version's, the
+    library call's (library_compaction; on the device, every kernel row of
+    a call), the bound from the bytes this run's data needs
+    (compact_bytes); with `parent` (the earlier tree's library), its
+    two-pass compaction in turns with this one."""
     import numpy as np
 
     from lexicmap_tpu_torch.kernels.seed_compact import seed_compact, seed_compact_plain
@@ -1197,7 +1301,8 @@ def compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps, label="10k s
         raise AssertionError(f"B4 at the {label}: kernel != plain (max abs err {err})")
     check_triples(got, want, f"B4 at the {label}")
     ms = time_ms(call, dev, reps)
-    by = device_ms_split(call, ("compact_count", "compact_write"), reps)
+    rows = check_one_compact_row(call, label)
+    by = device_ms_split(call, (COMPACT_KERNEL,), reps)
     lib = library_compaction(matcher, stacked, B)
     if lib.shape[1] < trip.shape[1] or not np.array_equal(
             np.unique(lib[1].cpu().numpy()), np.unique(trip[0].cpu().numpy())):
@@ -1213,7 +1318,12 @@ def compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps, label="10k s
            "library_device_ms": device_ms_by_call(
                lambda: library_compaction(matcher, stacked, B), ("",), reps)[""],
            "bytes": nbytes, "design_bytes": design,
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "kernel_rows_per_call": rows}
+    if parent is not None:
+        res["parent"] = split_in_turns(dev, lambda: parent_compact(parent, stacked, B, order),
+                                       call, PARENT_COMPACT_KERNELS, (COMPACT_KERNEL,), reps,
+                                       a_call=COMPACT_ROWS_A_CALL)
     seed_locate_batch.launches, seed_compact.launches = saved  # measuring does not count
     log(f"[matcher] B4 at the {label}: kernel == plain == oracle; {json.dumps(res)} [{card}]")
     return res
@@ -1288,7 +1398,7 @@ def tail_split(dev, card, matcher, q, p, reps, label):
 
 
 def phase_matcher_chunked(dev, card, seed, reps, M=2000, B=32, p=15, counts=(2000, 14_001),
-                          big_max=60_001):
+                          big_max=60_001, parent=None):
     """The matcher over masks of 2,000-14,000 entries and, for one in
     sixteen, 16,385-60,000 (over E_CAP = 16,384, so column-chunked, the
     last chunk mostly in a smaller bucket), with a block of entries sharing
@@ -1355,7 +1465,7 @@ def phase_matcher_chunked(dev, card, seed, reps, M=2000, B=32, p=15, counts=(200
     seed_locate_batch.launches, seed_compact.launches = saved
     qh, sel = matcher.query_words(q)
     comp = compaction_in_batch(dev, card, matcher, qh, sel, p, want, reps * 4,
-                               "chunked table")
+                               "chunked table", parent)
     res = {"masks": M, "chunked_masks": int(big.sum()), "rows": int(o.perm.shape[0]),
            "buckets": [b.E for b in matcher.buckets], "triples": comp["triples"],
            "runs_over_chunks": rows, "runs_across_buckets": across, "compaction": comp}
@@ -3016,7 +3126,8 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
 
     # the kernel vs its plain version at the shapes the main path gives it
     batch = np.stack([dev_idx._mask_query(seq_to_codes(s.upper()))[0] for s in seqs[:32]])
-    shapes, compact_shapes = check_main_path_shapes(dev, card, dev_idx, batch, parent)
+    shapes, compact_shapes = check_main_path_shapes(dev, card, dev_idx, batch, parent,
+                                                    (parents or {}).get("seed_compact"))
     # match_batch's split on this batch of real queries (a realistic density)
     split = tail_split(dev, card, dev_idx.device_matcher, batch, dev_idx.opt.min_prefix, 20,
                        "200-genome batch")
@@ -3222,13 +3333,14 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
     return res
 
 
-def check_main_path_shapes(dev, card, idx, kmers, parent=None):
+def check_main_path_shapes(dev, card, idx, kmers, parent=None, compact_parent=None):
     """Each bucket of the e2e matcher, with the real queries' hi words:
     seed_locate_batch on the batch and seed_locate on its first query
     against their plain versions, their times as called and on the device
     (the kernels' profiler rows), the design's sectors, and the earlier
     tree's kernel in turns; then seed_compact on the batch's stacked
-    outputs (and the first query's) against its plain version."""
+    outputs (and the first query's) against its plain version, one kernel
+    row a call, and the earlier tree's compaction in turns on the batch."""
     import numpy as np
     import torch
 
@@ -3284,11 +3396,19 @@ def check_main_path_shapes(dev, card, idx, kmers, parent=None):
         err = int_err(got, seed_compact_plain(stacked, B, m.order))
         if err:
             raise AssertionError(f"seed_compact != plain on the main path's batch (B = {B})")
-        compact.append({"B": B, "R": int(m.order.perm.shape[0]), "buckets": len(m.buckets),
-                        "triples": int(got[1].shape[1]), "equal": True, "max_abs_err": err,
-                        "ms": time_ms(lambda: seed_compact(stacked, B, m.order), dev, 20),
-                        "device_ms": device_ms(lambda: seed_compact(stacked, B, m.order),
-                                               ("compact_count", "compact_write"))[0]})
+
+        def call():
+            return seed_compact(stacked, B, m.order)
+
+        r = {"B": B, "R": int(m.order.perm.shape[0]), "buckets": len(m.buckets),
+             "triples": int(got[1].shape[1]), "equal": True, "max_abs_err": err,
+             "ms": time_ms(call, dev, 20), "device_ms": device_ms(call, COMPACT_KERNEL)[0],
+             "kernel_rows_per_call": check_one_compact_row(call, f"main path, B = {B}")}
+        if compact_parent is not None and B > 1:
+            r["parent"] = split_in_turns(
+                dev, lambda: parent_compact(compact_parent, stacked, B, m.order), call,
+                PARENT_COMPACT_KERNELS, (COMPACT_KERNEL,), 20, a_call=COMPACT_ROWS_A_CALL)
+        compact.append(r)
     log(f"[e2e] main-path B4 {json.dumps(compact)}: kernel == plain [{card}]")
     # comparison launches do not count
     seed_locate_batch.launches, seed_locate.launches = saved
@@ -3553,6 +3673,8 @@ def compact_row(mres, eres):
                        "(query, mask, e0) key",
             "shape": {k: comp[k] for k in ("B", "R", "buckets", "triples", "hit_rows")},
             "bytes": comp["bytes"], "design_bytes": comp["design_bytes"],
+            "kernel_rows_per_call": comp["kernel_rows_per_call"],
+            **({"parent": comp["parent"]} if "parent" in comp else {}),
             "single_launches": eres["single_compactions"], "chunked_table": chunked,
             "main_path_shape": eres["compact_shapes"],
             "tail_split": {"10k shape": mres["tail_split"]["runs"],
@@ -3568,8 +3690,8 @@ def main() -> int:
                     help="end-to-end timing rounds of (host, device, device, host) passes")
     ap.add_argument("--compare-source", metavar="CU", action="append", default=[],
                     help="an earlier tree's csrc/seed_locate.cu, seed_match.cu, chain1.cu, "
-                         "wfa.cu or sharded.cu (given once each; any header it includes beside "
-                         "it): build it "
+                         "wfa.cu, sharded.cu, capture.cu or seed_compact.cu (given once each; "
+                         "any header it includes beside it): build it "
                          "too and time its kernels against this tree's, in turns, at the same "
                          "shapes")
     args = ap.parse_args()
@@ -3611,9 +3733,10 @@ def main() -> int:
                             parent=parents.get("seed_match"))
     torch.cuda.empty_cache()
     mres, mstate = phase_matcher(dev, card, M=20_000, E=10_240, B=32, p=15, seed=args.seed,
-                                 reps=5)
+                                 reps=5, parent=parents.get("seed_compact"))
     torch.cuda.empty_cache()
-    mres["chunked"] = phase_matcher_chunked(dev, card, seed=args.seed, reps=5)
+    mres["chunked"] = phase_matcher_chunked(dev, card, seed=args.seed, reps=5,
+                                            parent=parents.get("seed_compact"))
     torch.cuda.empty_cache()
     shres, cpres, mesh = phase_sharded(dev, card, mstate, seed=args.seed, reps=20,
                                        parent=parents.get("sharded"))

@@ -26,10 +26,11 @@ import torch
 
 from .seed_locate import _cuda_ptrs, _on_device
 
-#: ordered rows a warp of the kernel covers for one query (a unit)
+#: ordered rows a warp of the kernel covers for one query (SPAN in the source)
 SPAN = 128
-#: buckets the kernel stages in shared memory (MAX_BUCKETS in the source)
-MAX_BUCKETS = 32
+#: ordered rows a block covers for one query, a tile of the kernel's scan
+#: (TILE in the source, which refuses another)
+TILE = 8 * SPAN
 
 
 @dataclass
@@ -37,12 +38,16 @@ class RowOrder:
     """A matcher's device rows in (mask, chunk base) order, built once.
 
     starts int32 [nb + 1]: bucket k holds the global rows starts[k] to
-    starts[k+1] - 1; perm int32 [R]: the global row of ordered row i; cont
-    uint8 [R]: 1 where row i is the chunk of row i-1's mask that follows it;
-    gid, base int64 [R]: ordered row i's mask id and chunk base."""
+    starts[k+1] - 1; perm int32 [R]: the global row of ordered row i; src
+    int32 [R, 2]: the (starts[k], starts[k+1] - starts[k]) of the bucket k
+    that holds ordered row i, so that the kernel finds a row's B1 outputs
+    with one multiply-add; cont uint8 [R]: 1 where row i is the chunk of row
+    i-1's mask that follows it; gid, base int64 [R]: ordered row i's mask id
+    and chunk base."""
 
     starts: torch.Tensor
     perm: torch.Tensor
+    src: torch.Tensor
     cont: torch.Tensor
     gid: torch.Tensor
     base: torch.Tensor
@@ -52,8 +57,6 @@ def row_order(gids, bases, cnts, device) -> RowOrder:
     """The RowOrder of buckets whose rows have mask ids `gids[k]`, chunk
     bases `bases[k]` and entry counts `cnts[k]` (numpy, one array a
     bucket), on `device`."""
-    if len(gids) > MAX_BUCKETS:
-        raise ValueError(f"at most {MAX_BUCKETS} buckets, got {len(gids)}")
     starts = np.zeros(len(gids) + 1, dtype=np.int64)
     np.cumsum([g.shape[0] for g in gids], out=starts[1:])
     if starts[-1] >= 1 << 31:
@@ -63,28 +66,30 @@ def row_order(gids, bases, cnts, device) -> RowOrder:
     c = np.concatenate(cnts).astype(np.int64) if gids else np.zeros(0, np.int64)
     perm = np.lexsort((b, g))
     g, b, c = g[perm], b[perm], c[perm]
+    k = np.repeat(np.arange(len(gids)), np.diff(starts))[perm]  # each ordered row's bucket
+    src = np.stack([starts[k], starts[k + 1] - starts[k]], axis=1)
     cont = np.zeros(perm.shape[0], dtype=np.uint8)
     cont[1:] = (g[1:] == g[:-1]) & (b[1:] == b[:-1] + c[:-1])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return RowOrder(starts=t(starts.astype(np.int32)), perm=t(perm.astype(np.int32)),
-                    cont=t(cont), gid=t(g), base=t(b))
+                    src=t(src.astype(np.int32)), cont=t(cont), gid=t(g), base=t(b))
 
 
 def _check(stacked, B, order):
     if not isinstance(stacked, torch.Tensor) or stacked.dtype != torch.int32:
         raise TypeError("stacked must be an int32 torch.Tensor")
     R = order.perm.shape[0]
-    for name, t, dt in (("starts", order.starts, torch.int32), ("perm", order.perm, torch.int32),
-                        ("cont", order.cont, torch.uint8), ("gid", order.gid, torch.int64),
-                        ("base", order.base, torch.int64)):
+    for name, t, dt, shape in (
+            ("starts", order.starts, torch.int32, (order.starts.shape[0],)),
+            ("perm", order.perm, torch.int32, (R,)), ("src", order.src, torch.int32, (R, 2)),
+            ("cont", order.cont, torch.uint8, (R,)), ("gid", order.gid, torch.int64, (R,)),
+            ("base", order.base, torch.int64, (R,))):
         if t.dtype != dt:
             raise TypeError(f"order.{name} must be {dt}, got {t.dtype}")
         if t.device != stacked.device:
             raise ValueError(f"order.{name} is on {t.device}, stacked on {stacked.device}")
-        if t.dim() != 1 or t.shape[0] != (order.starts.shape[0] if name == "starts" else R):
+        if tuple(t.shape) != shape:
             raise ValueError(f"order.{name} has shape {tuple(t.shape)}")
-    if order.starts.shape[0] - 1 > MAX_BUCKETS:
-        raise ValueError(f"at most {MAX_BUCKETS} buckets")
     if B < 0 or tuple(stacked.shape) != (2 * B * R,):
         raise ValueError(f"stacked must be [{2 * B * R}] (2 x B x R), got {tuple(stacked.shape)}")
 
@@ -132,11 +137,8 @@ def seed_compact_plain(stacked, B: int, order: RowOrder):
 
 
 _SIGNATURES = {
-    "seed_compact_count": ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
-                           + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3, ctypes.c_int),
-    "seed_compact_write": ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
-                           + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong]
-                           + [ctypes.c_void_p] * 2, ctypes.c_int),
+    "seed_compact": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                     + [ctypes.c_void_p] * 3, ctypes.c_int),
     "seed_compact_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -162,34 +164,34 @@ def seed_compact(stacked, B: int, order: RowOrder):
     host, triples int64 [3, T] of (mask, e0, n_hits), on stacked's device):
     query b's triples are columns offsets[b] to offsets[b+1] - 1.
 
-    CUDA tensors launch the kernel (`launches` counts the calls that do): a
-    count pass, one wait for the offsets (they size the output), and the
-    write pass.  CPU tensors run the plain version."""
+    CUDA tensors launch the kernel (`launches` counts the calls that do):
+    one launch into an output sized B * R triples (each (query, row) starts
+    at most one), whose triples are the view [3, T] of T contiguous
+    (mask, e0, n_hits) records, so `triples.t()` fetches in one copy; the
+    host's one wait is the fetch of the offsets.  CPU tensors run the plain
+    version."""
     _check(stacked, B, order)
     if stacked.device.type == "cpu":
         return seed_compact_plain(stacked, B, order)
-    ptrs = _cuda_ptrs(stacked=stacked, perm=order.perm, cont=order.cont, gid=order.gid,
-                      base=order.base, starts=order.starts)
-    R, nb = order.perm.shape[0], order.starts.shape[0] - 1
+    ptrs = _cuda_ptrs(stacked=stacked, perm=order.perm, src=order.src, cont=order.cont,
+                      gid=order.gid, base=order.base)
+    R = order.perm.shape[0]
     dev = stacked.device
     if B * R == 0:
         return (torch.zeros(B + 1, dtype=torch.int64),
                 torch.zeros((3, 0), dtype=torch.int64, device=dev))
-    units = B * -(-R // SPAN)
-    scratch = torch.empty(units + 1, dtype=torch.int32, device=dev)
-    woff = torch.empty(units + B + 1, dtype=torch.int64, device=dev)
+    if B * R >= 1 << 32:
+        raise ValueError(f"B x R = {B * R} (query, row) pairs: the kernel counts in 32 bits")
+    tiles = B * -(-R // TILE)
+    scratch = torch.empty(tiles + 1 + B + 1, dtype=torch.int64, device=dev)
+    out = torch.empty((B * R, 3), dtype=torch.int64, device=dev)
     lib = kernel_lib()
-    err = _on_device(dev, lambda stream: lib.seed_compact_count(
-        *ptrs, nb, R, B, SPAN, scratch.data_ptr(), woff.data_ptr(), stream))
-    _raise_on(err, lib, "seed_compact (count)")
-    offsets = woff[units:].cpu()
-    T = int(offsets[B])
-    out = torch.empty((3, T), dtype=torch.int64, device=dev)
-    err = _on_device(dev, lambda stream: lib.seed_compact_write(
-        *ptrs, nb, R, B, SPAN, woff.data_ptr(), T, out.data_ptr(), stream))
-    _raise_on(err, lib, "seed_compact (write)")
+    err = _on_device(dev, lambda stream: lib.seed_compact(
+        *ptrs, R, B, TILE, scratch.data_ptr(), out.data_ptr(), stream))
+    _raise_on(err, lib, "seed_compact")
     seed_compact.launches += 1
-    return offsets, out
+    offsets = scratch[tiles + 1:].cpu()
+    return offsets, out[: int(offsets[B])].t()
 
 
 seed_compact.launches = 0

@@ -269,8 +269,8 @@ class DeviceSeedMatcher:
         self.order = row_order([vmask_a[r] for r in packed], [vstart_a[r] for r in packed],
                                [vcnt_a[r] for r in packed], self.device)
         self._starts = self.order.starts.tolist()
-        count_h2d("device seed table", self.order.starts, self.order.perm, self.order.cont,
-                  self.order.gid, self.order.base)
+        count_h2d("device seed table", self.order.starts, self.order.perm, self.order.src,
+                  self.order.cont, self.order.gid, self.order.base)
 
         # host-tier chunk rows, concatenated for one vectorized bisection
         self.host_entries = int(vcnt_a[host_rows].sum()) if host_rows else 0
@@ -358,7 +358,9 @@ class DeviceSeedMatcher:
         B = query_kmers_batch.shape[0]
         qh, sel = self.query_words(query_kmers_batch)
         offsets, triples = self.device_hits(qh, sel, min_prefix, single)
-        offsets, trip = offsets.numpy(), triples.cpu().numpy()
+        # the triples are contiguous (mask, e0, n_hits) records: one copy of
+        # [T, 3], then a transposed view
+        offsets, trip = offsets.numpy(), triples.t().cpu().numpy().T
         count_d2h("device seed matching", offsets)  # read by the compaction: its one wait
         count_d2h("device seed matching", trip)
         hm_all, e0_all, nh_all = trip
