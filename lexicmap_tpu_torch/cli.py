@@ -174,6 +174,25 @@ def format_hit_rows(query_id: str, qlen: int, results, all_columns=False, show_s
             c_idx += 1
 
 
+def print_spans(spans, n_queries: int):
+    """--debug: the span recorder's totals and the transport counters,
+    whole and a query."""
+    from .parallel import transport_summary
+
+    per = 1 / max(n_queries, 1)
+    print(f"  [debug] device engine phase times (s; ms a query over {n_queries} queries; "
+          "spans):", file=sys.stderr)
+    for key, v in spans.totals.items():
+        print(f"    {key:<16} {v:10.4f} {v * per * 1e3:10.4f} {spans.counts[key]:8d}",
+              file=sys.stderr)
+    print("  [debug] transport (fetches, d2h bytes, h2d bytes; the same a query):",
+          file=sys.stderr)
+    for label, t in transport_summary().items():
+        f, d, h = t["fetches"], t["d2h_bytes"], t["h2d_bytes"]
+        print(f"    {label:<28} {f:8d} {d:14d} {h:14d}; {f * per:.3f} {d * per:.1f} {h * per:.1f}",
+              file=sys.stderr)
+
+
 def cmd_search(args) -> int:
     import os
 
@@ -349,7 +368,7 @@ def cmd_search(args) -> int:
         # how much of each device stage ran on the device this session
         eng = getattr(idx, "_device_engine", None)
         if eng is not None:
-            print(f"  [debug] device engine phase times (s): {eng.times}", file=sys.stderr)
+            print_spans(idx.spans, n)
             print(f"  [debug] device pseudo-align: {eng.pseudo.stats}", file=sys.stderr)
         if idx.device_chainer is not None:
             print(f"  [debug] device chainer: {idx.device_chainer.stats}", file=sys.stderr)

@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from time import perf_counter
 
 import numpy as np
 
 from ..utils.arrays import ranges_to_indices as _ranges_to_indices
+from ..utils.spans import SpanRecorder
 
 from ..constants import (
     BITS_GENOME_IDX,
@@ -185,6 +187,10 @@ class IndexSearcher:
     def __init__(self, db_dir: str, opt: SearchOptions | None = None):
         self.path = db_dir
         self.opt = opt or SearchOptions()
+        #: host spans of the search path (utils/spans.py): the device
+        #: engine's phase times and their parts, waits on the card and on
+        #: the finish thread
+        self.spans = SpanRecorder()
         self.info = IndexInfo.load(os.path.join(db_dir, FILE_INFO))
         self.mask_set = MaskSet.load(os.path.join(db_dir, FILE_MASKS))
         self.k = self.mask_set.k
@@ -291,37 +297,42 @@ class IndexSearcher:
     # ------------------------------------------------------------------
     # phase 1+2: masking + seed matching
 
-    def _mask_query(self, qcodes: np.ndarray):
+    def _mask_query(self, qcodes: np.ndarray, qi=None):
+        """Phase 1: the query's captured k-mers, low-complexity ones zeroed,
+        and the capture.  qi: the query's index in its batch, for the
+        spans."""
         from ..native import capture_native_call
         from ..ops.masking import CaptureResult
         from ..utils.kmers import kmers_fwd_rc as _kfr
 
-        fwd, rc = _kfr(qcodes, self.k)
-        # checkShorterPrefix=true (ref: lib-index-search.go:1175): the query
-        # capture keeps sub-distinct-prefix winners — suffix matching can pair
-        # a low-LCP query k-mer with a stored reversed seed.
-        native = capture_native_call(
-            fwd, rc, None, self.mask_set.masks, self.k,
-            self.mask_set.prefix_len, True,
-        )
-        if native is not None:
-            kmers_out, counts, pos_flat = native
-            offsets = np.zeros(self.mask_set.m + 1, dtype=np.int64)
-            np.cumsum(counts, out=offsets[1:])
-            res = CaptureResult(kmers=kmers_out, pos_flat=pos_flat, pos_offsets=offsets)
-        else:
-            res = capture(
-                self.mask_set, qcodes, None, check_shorter_prefix=True,
-                precomputed=(fwd, rc),
+        with self.spans.span("mask.capture", qi):
+            fwd, rc = _kfr(qcodes, self.k)
+            # checkShorterPrefix=true (ref: lib-index-search.go:1175): the query
+            # capture keeps sub-distinct-prefix winners — suffix matching can pair
+            # a low-LCP query k-mer with a stored reversed seed.
+            native = capture_native_call(
+                fwd, rc, None, self.mask_set.masks, self.k,
+                self.mask_set.prefix_len, True,
             )
-        kmers = res.kmers.copy()
-        bad = (
-            (kmers == self._ccc)
-            | (kmers == self._ggg)
-            | (kmers == self._ttt)
-            | is_low_complexity_dust(kmers, self.k)
-        )
-        kmers[bad] = 0  # positions kept, like the reference
+            if native is not None:
+                kmers_out, counts, pos_flat = native
+                offsets = np.zeros(self.mask_set.m + 1, dtype=np.int64)
+                np.cumsum(counts, out=offsets[1:])
+                res = CaptureResult(kmers=kmers_out, pos_flat=pos_flat, pos_offsets=offsets)
+            else:
+                res = capture(
+                    self.mask_set, qcodes, None, check_shorter_prefix=True,
+                    precomputed=(fwd, rc),
+                )
+        with self.spans.span("mask.filter", qi):
+            kmers = res.kmers.copy()
+            bad = (
+                (kmers == self._ccc)
+                | (kmers == self._ggg)
+                | (kmers == self._ttt)
+                | is_low_complexity_dust(kmers, self.k)
+            )
+            kmers[bad] = 0  # positions kept, like the reference
         return kmers, res
 
     def _reversed_query_kmers(self, kmers: np.ndarray):
@@ -394,16 +405,19 @@ class IndexSearcher:
         genome_codes: set[int] | None = None,
         premasked=None,
         dev_hits_pre=None,
+        qi=None,
     ):
         """Phases 1+2; returns dict refBatchAndIdx -> Anchors.
 
         genome_codes: optional white list of batch<<17|idx codes
         (the reference's genomeIds param, used by genome screening).
         premasked / dev_hits_pre: results of _mask_query / a batched device
-        match computed up front by search_many (amortizes device dispatch)."""
-        k = self.k
-        kmers, capres = premasked if premasked is not None else self._mask_query(qcodes)
-        rnew, rkmers, rorig = self._reversed_query_kmers(kmers)
+        match computed up front by search_many (amortizes device dispatch).
+        qi: the query's index in its batch, for the spans."""
+        sp = self.spans
+        kmers, capres = premasked if premasked is not None else self._mask_query(qcodes, qi)
+        with sp.span("anchors.reverse", qi):
+            rnew, rkmers, rorig = self._reversed_query_kmers(kmers)
 
         from ..native import get_lib
 
@@ -437,8 +451,11 @@ class IndexSearcher:
         ):
             dev_hits = self.device_matcher.match(kmers, self.opt.min_prefix)
 
+        # each chunk's prefix and suffix search, summed over the chunks
+        t_prefix = t_suffix = 0.0
         for ci, rdr in enumerate(self.chunks):
             # ---- prefix search ----
+            t0 = perf_counter()
             mb, me = rdr.mask_begin, rdr.mask_end
             if dev_hits is not None:
                 # device path: the kernel already located every mask's
@@ -491,6 +508,8 @@ class IndexSearcher:
                     all_rev.append(np.zeros(int(per.sum()), dtype=bool))
 
             # ---- suffix search (reversed k-mers assigned to this chunk) ----
+            t1 = perf_counter()
+            t_prefix += t1 - t0
             insel = (rnew >= mb) & (rnew < me)
             if insel.any():
                 mi = rnew[insel]
@@ -515,40 +534,55 @@ class IndexSearcher:
                         all_lcp.append(np.repeat(lcp, per))
                         all_qloc_entry.append(np.repeat(orig[qrow], per))
                         all_rev.append(np.ones(int(per.sum()), dtype=bool))
+            t_suffix += perf_counter() - t1
+        sp.add("anchors.prefix", t_prefix)
+        sp.add("anchors.suffix", t_suffix)
 
-        if use_native:
-            if not rec_eidx:
-                return {}
-            from ..native import collect_anchors_native
+        with sp.span("anchors.gather", qi):
+            if use_native:
+                return self._gather_native(rec_chunk, rec_eidx, rec_lcp, rec_qmask, capres)
+            return self._gather_host(all_vals, all_lcp, all_qloc_entry, capres, genome_codes)
 
-            res = collect_anchors_native(
-                [
-                    (
-                        np.asarray(r.values).ctypes.data,
-                        np.asarray(r.entry_offsets).ctypes.data,
-                    )
-                    for r in self.chunks
-                ],
-                np.concatenate(rec_chunk),
-                np.concatenate(rec_eidx),
-                np.concatenate(rec_lcp),
-                np.concatenate(rec_qmask),
-                capres.pos_flat,
-                capres.pos_offsets,
-                capres.n_positions(),
-                k,
-            )
-            ref, bq, bt, ln, rcq, rct = res
-            if ref.shape[0] == 0:
-                return {}
-            bounds = np.nonzero(np.diff(ref))[0] + 1
-            starts = np.concatenate([[0], bounds])
-            ends = np.concatenate([bounds, [ref.shape[0]]])
-            return {
-                int(ref[s]): Anchors(bq[s:e], bt[s:e], ln[s:e], rcq[s:e], rct[s:e])
-                for s, e in zip(starts, ends)
-            }
+    def _gather_native(self, rec_chunk, rec_eidx, rec_lcp, rec_qmask, capres):
+        """Phase 2b's fast path: the matched entries' postings gathered,
+        decoded and grouped by genome in one native call."""
+        if not rec_eidx:
+            return {}
+        from ..native import collect_anchors_native
 
+        res = collect_anchors_native(
+            [
+                (
+                    np.asarray(r.values).ctypes.data,
+                    np.asarray(r.entry_offsets).ctypes.data,
+                )
+                for r in self.chunks
+            ],
+            np.concatenate(rec_chunk),
+            np.concatenate(rec_eidx),
+            np.concatenate(rec_lcp),
+            np.concatenate(rec_qmask),
+            capres.pos_flat,
+            capres.pos_offsets,
+            capres.n_positions(),
+            self.k,
+        )
+        ref, bq, bt, ln, rcq, rct = res
+        if ref.shape[0] == 0:
+            return {}
+        bounds = np.nonzero(np.diff(ref))[0] + 1
+        starts = np.concatenate([[0], bounds])
+        ends = np.concatenate([bounds, [ref.shape[0]]])
+        return {
+            int(ref[s]): Anchors(bq[s:e], bt[s:e], ln[s:e], rcq[s:e], rct[s:e])
+            for s, e in zip(starts, ends)
+        }
+
+    def _gather_host(self, all_vals, all_lcp, all_qloc_entry, capres, genome_codes):
+        """Phase 2b's reference path (genome filters included): the matched
+        values expanded by the query locations of their masks, decoded and
+        grouped by genome."""
+        k = self.k
         if not all_vals:
             return {}
 
@@ -1488,7 +1522,9 @@ class IndexSearcher:
         if ex is None:
             from concurrent.futures import ThreadPoolExecutor
 
-            ex = self._phase4_pool = ThreadPoolExecutor(max_workers=min(4, os.cpu_count() or 1))
+            # a device WFA (-a) waits on the card in these threads
+            ex = self._phase4_pool = ThreadPoolExecutor(max_workers=min(4, os.cpu_count() or 1),
+                                                        initializer=self.spans.bind_thread)
         return ex
 
     def _phase4_assemble(self, qcodes, hits, pseudo_map=None, debug=False, t0=0.0,
@@ -1644,13 +1680,15 @@ class IndexSearcher:
             ids = list(range(o, min(o + 32, len(seqs))))
             prepared = eng.prepare_batch([seqs[i] for i in ids])
             if fut is not None:
-                for i, r in zip(fut_ids, fut.result()):
-                    out_map[i] = r
+                with self.spans.span("finish_wait"):
+                    done = fut.result()
+                out_map.update(zip(fut_ids, done))
             fut = fin.submit(eng.finish_batch, prepared)
             fut_ids = ids
         if fut is not None:
-            for i, r in zip(fut_ids, fut.result()):
-                out_map[i] = r
+            with self.spans.span("finish_wait"):
+                done = fut.result()
+            out_map.update(zip(fut_ids, done))
         return [out_map.get(i, []) for i in range(len(seqs))]
 
 

@@ -29,6 +29,7 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel import fetch_numpy
 from .pseudo_align import _require as _check
 from .seed_locate import _on_device
 
@@ -219,7 +220,7 @@ def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist, *, plan=
     if G == 0:
         return ms, prev, dirs, flags
     if plan is None:
-        host, n_block = schedule(off.cpu().numpy())
+        host, n_block = schedule(fetch_numpy("device chain DP", off)[0])
         plan = (torch.from_numpy(host).to(dev), n_block)
     order, n_block = plan
     _check("order", order, torch.int32, dev, (G,))

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel import fetch_numpy
 from .seed_locate import _cuda_ptrs, _on_device
 
 #: ordered rows a warp of the kernel covers for one query (SPAN in the source)
@@ -131,9 +132,14 @@ def seed_compact_plain(stacked, B: int, order: RowOrder):
     n = torch.zeros(T, dtype=torch.int64, device=dev).index_add_(
         0, run[flat_hit], v.reshape(-1)[flat_hit])
     triples = torch.stack([order.gid[None, :].expand(B, -1)[start], e[start], n])
-    offsets = torch.zeros(B + 1, dtype=torch.int64)
-    offsets[1:] = torch.cumsum(start.sum(1).cpu(), 0)
-    return offsets, triples
+    offsets = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(start.sum(1), 0)
+    return _fetch_offsets(offsets), triples
+
+
+def _fetch_offsets(offsets):
+    """The per-query offsets on the host: the matcher's wait on the card."""
+    return torch.from_numpy(fetch_numpy("device seed matching", offsets)[0])
 
 
 _SIGNATURES = {
@@ -190,7 +196,7 @@ def seed_compact(stacked, B: int, order: RowOrder):
         *ptrs, R, B, TILE, scratch.data_ptr(), out.data_ptr(), stream))
     _raise_on(err, lib, "seed_compact")
     seed_compact.launches += 1
-    offsets = scratch[tiles + 1:].cpu()
+    offsets = _fetch_offsets(scratch[tiles + 1:])
     return offsets, out[: int(offsets[B])].t()
 
 

@@ -29,6 +29,7 @@ import threading
 import numpy as np
 import torch
 
+from ..parallel import fetch_numpy
 from .pseudo_align import _require as _check
 from .seed_locate import _on_device
 from .seed_match import bit_length
@@ -333,11 +334,11 @@ def check_pairs(NW, q_off, t_off, n, m):
     if not len(n):
         return
     if isinstance(n, torch.Tensor):
-        vals = torch.stack([
+        vals = fetch_numpy("device WFA", torch.stack([
             torch.minimum(q_off.min(), t_off.min()),
             torch.maximum((q_off + n // 32).max(), (t_off + m // 32).max()),
             torch.minimum(n.min(), m.min()).to(torch.int64),
-            torch.maximum(n.max(), m.max()).to(torch.int64)]).tolist()
+            torch.maximum(n.max(), m.max()).to(torch.int64)]))[0]
     else:
         vals = [min(q_off.min(), t_off.min()), max((q_off + n // 32).max(), (t_off + m // 32).max()),
                 min(n.min(), m.min()), max(n.max(), m.max())]

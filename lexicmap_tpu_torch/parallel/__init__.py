@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.spans import card_wait
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """`cuda` unless `device` says `cpu`.  Raises when CUDA is asked for
@@ -31,7 +33,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 # ---------------------------------------------------------------------------
 # Per-stage transfer accounting: label -> {fetches, d2h_bytes, h2d_bytes}.
 # h2d is counted by count_h2d() at each upload site, d2h by count_d2h() at
-# each fetch.
+# each fetch; every fetch of the search path goes through fetch_numpy, which
+# also times the host's wait.
 
 transport: dict = {}
 
@@ -58,21 +61,24 @@ def count_d2h(label: str, *arrays) -> int:
 
 
 def fetch_numpy(label: str, *ts) -> list:
-    """Host numpy copies of tensors, counted as one fetch under `label`.
-    Contiguous views of one buffer (the kernel wrappers' outputs on the
-    card) come back in a single copy of that buffer."""
+    """Host numpy copies of tensors, counted as one fetch under `label` and
+    timed as one wait on the card (utils.spans.card_wait).  Contiguous
+    views of one buffer (the kernel wrappers' outputs on the card) come back
+    in a single copy of that buffer."""
     st = ts[0].untyped_storage()
     if len(ts) > 1 and all(t.is_contiguous() and t.untyped_storage().data_ptr() == st.data_ptr()
                            for t in ts):
-        raw = torch.empty(0, dtype=torch.uint8, device=ts[0].device).set_(
-            st, 0, (st.nbytes(),)).cpu().numpy()
+        with card_wait(label):
+            raw = torch.empty(0, dtype=torch.uint8, device=ts[0].device).set_(
+                st, 0, (st.nbytes(),)).cpu().numpy()
         out = []
         for t in ts:
             at = t.storage_offset() * t.element_size()
             part = raw[at: at + t.numel() * t.element_size()]
             out.append(part.view(torch.empty(0, dtype=t.dtype).numpy().dtype).reshape(t.shape))
     else:
-        out = [t.cpu().numpy() for t in ts]
+        with card_wait(label):
+            out = [t.cpu().numpy() for t in ts]
     count_d2h(label, *out)
     return out
 

@@ -44,7 +44,7 @@ import torch
 
 from ..kernels.seed_compact import row_order, seed_compact
 from ..kernels.seed_locate import PAD_HI, seed_locate, seed_locate_batch, split_kmers_hi_lo
-from . import count_d2h, count_h2d, resolve_device
+from . import count_h2d, fetch_numpy, resolve_device
 from .pseudo_device import WORKING_BYTES
 
 # entry-count ceiling of one packed row; read at call time, so tests can
@@ -358,11 +358,10 @@ class DeviceSeedMatcher:
         B = query_kmers_batch.shape[0]
         qh, sel = self.query_words(query_kmers_batch)
         offsets, triples = self.device_hits(qh, sel, min_prefix, single)
-        # the triples are contiguous (mask, e0, n_hits) records: one copy of
+        # the offsets came back inside the compaction (its one wait); the
+        # triples are contiguous (mask, e0, n_hits) records: one copy of
         # [T, 3], then a transposed view
-        offsets, trip = offsets.numpy(), triples.t().cpu().numpy().T
-        count_d2h("device seed matching", offsets)  # read by the compaction: its one wait
-        count_d2h("device seed matching", trip)
+        offsets, trip = offsets.numpy(), fetch_numpy("device seed matching", triples.t())[0].T
         hm_all, e0_all, nh_all = trip
         if not self.host_rows:
             return [(hm_all[s:t], e0_all[s:t], nh_all[s:t])

@@ -52,8 +52,6 @@ item for the host), and everything downstream is the identical host code
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from ..ops.seqcompare import SeqComparator
@@ -111,11 +109,14 @@ class DeviceSearchEngine:
         if store_bytes(idx.genome_stores) <= hbm_budget:
             self.blob = DeviceGenomeBlob(idx.genome_stores, device=self.pseudo.device)
         self.pseudo.blob = self.blob
-        #: cumulative wall per engine phase (seconds): mask (1), match (2a),
+        #: the searcher's span recorder (utils/spans.py), and its totals:
+        #: cumulative wall per engine phase (seconds), mask (1), match (2a),
         #: anchors (2b), chain (3), winprep and pseudo (4), align (5-6), and
-        #: wfa, the part of align in the device WFA (--wfa device)
-        self.times = {"mask": 0.0, "match": 0.0, "anchors": 0.0, "chain": 0.0,
-                      "winprep": 0.0, "pseudo": 0.0, "align": 0.0, "wfa": 0.0}
+        #: wfa, the part of align in the device WFA (--wfa device); then the
+        #: parts of phases 1 and 2b, the wait on the finish thread and the
+        #: waits on the card
+        self.spans = idx.spans
+        self.times = self.spans.totals
 
     # two-stage API so that search_many can overlap host phases 5-6 of
     # batch N with phases 1-4 of batch N+1
@@ -130,74 +131,79 @@ class DeviceSearchEngine:
         search matches every query on every rank, then each rank takes
         its own share of them here)."""
         idx = self.idx
+        sp = self.spans
+        sp.bind_thread()
         sopt = idx.opt.seqcompare_options()
-        t0 = time.perf_counter()
-        codes = [seq_to_codes(s.upper()) for s in seqs]
+        if sum(len(s) >= idx.k for s in seqs) > 32:
+            raise ValueError("engine batches are capped at 32 queries")
+        # phase 1 a query: its 2-bit codes and masking
+        codes, masked = [], {}
+        for i, s in enumerate(seqs):
+            if matched is not None or len(s) < idx.k:
+                codes.append(seq_to_codes(s.upper()))
+                continue
+            with sp.span("mask", i):
+                codes.append(seq_to_codes(s.upper()))
+                masked[i] = idx._mask_query(codes[i], i)
         valid = [i for i, c in enumerate(codes) if c.shape[0] >= idx.k]
         if not valid:
             return (codes, [], {}, {}, {}, {})
-        if len(valid) > 32:
-            raise ValueError("engine batches are capped at 32 queries")
 
         if matched is not None:
             masked = {i: matched[i][0] for i in valid}
             dev_hits = {i: matched[i][1] for i in valid}
         else:
-            masked = {i: idx._mask_query(codes[i]) for i in valid}
-            self.times["mask"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            dev_hits = match_phase(idx, self.matcher, np.stack([masked[i][0] for i in valid]))
+            with sp.span("match"):
+                dev_hits = match_phase(idx, self.matcher, np.stack([masked[i][0] for i in valid]))
             dev_hits = dict(zip(valid, dev_hits))
-            self.times["match"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
 
-        pg_of = {
-            i: idx._collect_anchors(codes[i], premasked=masked[i], dev_hits_pre=dev_hits[i])
-            for i in valid
-        }
-        self.times["anchors"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if idx.device_chainer is not None:
-            # --chain device: the chain1 DP of every genome of every query
-            # in one kernel launch (chain_device.py)
-            hits_of = dict(zip(valid, idx._chain_genomes_many([pg_of[i] or {} for i in valid])))
-        else:
-            hits_of = {i: (idx._chain_genomes(pg_of[i]) if pg_of[i] else []) for i in valid}
-        self.times["chain"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
+        pg_of = {}
+        for i in valid:
+            with sp.span("anchors", i):
+                pg_of[i] = idx._collect_anchors(codes[i], premasked=masked[i],
+                                                dev_hits_pre=dev_hits[i], qi=i)
+        with sp.span("chain"):
+            if idx.device_chainer is not None:
+                # --chain device: the chain1 DP of every genome of every
+                # query in one kernel launch (chain_device.py)
+                hits_of = dict(zip(valid, idx._chain_genomes_many(
+                    [pg_of[i] or {} for i in valid])))
+            else:
+                hits_of = {i: (idx._chain_genomes(pg_of[i]) if pg_of[i] else [])
+                           for i in valid}
 
         # window prep, then one device pseudo-align run over every window of
         # every query (the JAX engine's phase 4, lexicmap_tpu/parallel/engine.py);
         # the comparators and windows go on to phase 5
-        queries, windows, geoms, wmeta = [], [], [], []
-        cpr_of: dict[int, SeqComparator] = {}
-        wins_of: dict[int, dict[int, tuple]] = {}
-        for i in valid:
-            if not hits_of[i]:
-                continue
-            cpr = cpr_of[i] = SeqComparator(sopt)
-            cpr.index(codes[i])
-            qpos = len(queries)
-            queries.append((cpr.qk, cpr.qv))
-            for hi, (hit, anchors, paths) in enumerate(hits_of[i]):
-                spaths = sorted(paths, key=lambda p: int(anchors.tbegin[p[0]]))
-                wins = wins_of.setdefault(i, {})[hi] = idx._path_windows(
-                    codes[i], hit, anchors, spaths)
-                for pp, (w, meta) in enumerate(zip(wins[0], wins[1])):
-                    windows.append((qpos, w, meta[0], meta[1]))
-                    wmeta.append((i, hi, pp))
-                    if self.blob is None:
-                        continue
-                    # meta = (q_begin, q_end, t_begin, t_end, rc, seeds); t_end
-                    # is already clipped, so the geometry's length equals the
-                    # window's unless the store disagrees (then: the host)
-                    wb, ph, L = self.blob.geometry(hit.genome_batch, hit.genome_index,
-                                                   meta[2], meta[3], meta[4], WORDS_OUT)
-                    geoms.append((wb, ph, bool(meta[4])) if L == w.shape[0] else None)
-        self.times["winprep"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res = self.pseudo.run_batch(queries, windows, geoms if self.blob is not None else None)
-        self.times["pseudo"] += time.perf_counter() - t0
+        with sp.span("winprep"):
+            queries, windows, geoms, wmeta = [], [], [], []
+            cpr_of: dict[int, SeqComparator] = {}
+            wins_of: dict[int, dict[int, tuple]] = {}
+            for i in valid:
+                if not hits_of[i]:
+                    continue
+                cpr = cpr_of[i] = SeqComparator(sopt)
+                cpr.index(codes[i])
+                qpos = len(queries)
+                queries.append((cpr.qk, cpr.qv))
+                for hi, (hit, anchors, paths) in enumerate(hits_of[i]):
+                    spaths = sorted(paths, key=lambda p: int(anchors.tbegin[p[0]]))
+                    wins = wins_of.setdefault(i, {})[hi] = idx._path_windows(
+                        codes[i], hit, anchors, spaths)
+                    for pp, (w, meta) in enumerate(zip(wins[0], wins[1])):
+                        windows.append((qpos, w, meta[0], meta[1]))
+                        wmeta.append((i, hi, pp))
+                        if self.blob is None:
+                            continue
+                        # meta = (q_begin, q_end, t_begin, t_end, rc, seeds); t_end
+                        # is already clipped, so the geometry's length equals the
+                        # window's unless the store disagrees (then: the host)
+                        wb, ph, L = self.blob.geometry(hit.genome_batch, hit.genome_index,
+                                                       meta[2], meta[3], meta[4], WORDS_OUT)
+                        geoms.append((wb, ph, bool(meta[4])) if L == w.shape[0] else None)
+        with sp.span("pseudo"):
+            res = self.pseudo.run_batch(queries, windows,
+                                        geoms if self.blob is not None else None)
         pseudo_maps: dict[int, dict[int, list]] = {}
         for (i, hi, pp), r in zip(wmeta, res):
             lst = pseudo_maps.setdefault(i, {}).setdefault(hi, [])
@@ -214,17 +220,19 @@ class DeviceSearchEngine:
         call, between a threaded stage that collects them and a threaded
         stage that scores and assembles with the op streams injected
         (ref: the JAX engine's batch-wide flow)."""
-        codes, valid, hits_of, pseudo_maps, cpr_of, wins_of = prepared
+        self.spans.bind_thread()
+        with self.spans.span("align"):
+            return self._finish(*prepared)
+
+    def _finish(self, codes, valid, hits_of, pseudo_maps, cpr_of, wins_of):
         idx = self.idx
         out = [[] for _ in codes]
-        t0 = time.perf_counter()
         if idx.device_wfa is None or idx.opt.output_seq:
             for i in valid:
                 if hits_of[i]:
                     out[i] = idx._phase4_assemble(codes[i], hits_of[i],
                                                   pseudo_map=pseudo_maps.get(i),
                                                   cpr=cpr_of[i], wins_map=wins_of.get(i))
-            self.times["align"] += time.perf_counter() - t0
             return out
 
         jobs = []
@@ -248,10 +256,9 @@ class DeviceSearchEngine:
 
         list(pool.map(prep, jobs))
         # stage B: one device alignment over every span of the batch
-        tw = time.perf_counter()
-        all_pairs = [p for job in jobs for p in job["pairs"]]
-        all_ops = idx.device_wfa.align_batch(all_pairs) if all_pairs else []
-        self.times["wfa"] += time.perf_counter() - tw
+        with self.spans.span("wfa"):
+            all_pairs = [p for job in jobs for p in job["pairs"]]
+            all_ops = idx.device_wfa.align_batch(all_pairs) if all_pairs else []
         o = 0
         for job in jobs:
             k = len(job["pairs"])
@@ -275,5 +282,4 @@ class DeviceSearchEngine:
         for i in valid:
             got = [job["result"] for job in jobs if job["i"] == i and job["result"] is not None]
             out[i] = idx._assemble_results(codes[i], got)
-        self.times["align"] += time.perf_counter() - t0
         return out

@@ -26,8 +26,6 @@ ref: lib-seq_compare.go:335-521, lib-chaining2.go:152-658.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -48,7 +46,7 @@ from ..kernels.pseudo_align import (  # noqa: F401  (the flag bits are re-export
 )
 from ..constants import SearchDefaults
 from ..ops.seqcompare import min_prefix_for
-from . import count_d2h, count_h2d, resolve_device
+from . import count_h2d, fetch_numpy, resolve_device
 
 M_PREFIX = SearchDefaults.CMP_MIN_PREFIX  # SeqComparator minimum prefix
 HEURISTIC_PIDENT = SearchDefaults.HEURISTIC_KMER_PIDENT_THRESHOLD  # chain pident gate
@@ -165,15 +163,6 @@ class DevicePseudoAligner:
         #: the host; queries whose windows all go to the host; flag<bits>
         self.stats = {"windows": 0, "device_windows": 0, "host_windows": 0,
                       "host_queries": 0}
-        #: cumulative host wall per internal stage (seconds): tables (query
-        #: arrays staged, their copy and the card's bucket table queued),
-        #: probe_pack (window table, probe launch), chain_dispatch (chain
-        #: launch and the row compaction, where the host waits for the
-        #: card: the tables' copy and bucket table and both kernels),
-        #: probe_fetch (probe flags, chain counts and flags in one
-        #: transfer), chain_fetch (the rows), decode
-        self.times = {"tables": 0.0, "probe_pack": 0.0, "probe_fetch": 0.0,
-                      "chain_dispatch": 0.0, "chain_fetch": 0.0, "decode": 0.0}
 
     def _flag(self, f: int):
         self.stats[f"flag{f}"] = self.stats.get(f"flag{f}", 0) + 1
@@ -190,7 +179,6 @@ class DevicePseudoAligner:
         if n_win == 0:
             return results
         self.stats["windows"] += n_win
-        t0 = time.perf_counter()
         tables, q_ok = query_tables(queries, self.device)
         self.stats["host_queries"] += int((~q_ok).sum())
         dev_idx = [
@@ -199,7 +187,6 @@ class DevicePseudoAligner:
             and (geoms is None or geoms[i] is not None)
         ]
         self.stats["host_windows"] += n_win - len(dev_idx)
-        self.times["tables"] += time.perf_counter() - t0
         if not dev_idx:
             return results
 
@@ -208,7 +195,6 @@ class DevicePseudoAligner:
         return results
 
     def _run_chunk(self, idxs, windows, geoms, tables, results):
-        t0 = time.perf_counter()
         d = self.device
         win = np.zeros((len(idxs), 8), dtype=np.int64)
         packed = []
@@ -234,29 +220,17 @@ class DevicePseudoAligner:
         check_windows(win, tables[2].shape[0] - 1)
         count_h2d("device pseudo-align probe", win)
         aqb, atb, aln, acnt, aflg = pseudo_probe(blob, _upload(win, d), *tables, checked=True)
-        self.times["probe_pack"] += time.perf_counter() - t0
         # the chain is queued right behind the probe: the host first waits
-        # for the card at the compaction after both; the fetches after it
-        # find the queue empty
-        t0 = time.perf_counter()
+        # for the card at the fetch of both kernels' flags and counts
         rows, ccnt, cflg = pseudo_chain(
             aqb, atb, aln, acnt, aflg, self.band_base, self.band_count, self.max_gap,
             self.min_score, self.min_align_len, HEURISTIC_PIDENT)
+        pflags, cnt, cflags = fetch_numpy("device pseudo-align probe",
+                                          torch.stack((aflg, ccnt, cflg)))[0]
         # compaction on the device: only the emitted rows cross to the host
         valid = torch.arange(C_CAP, device=d)[None, :] < ccnt[:, None].to(torch.int64)
-        packed_rows = rows[valid]
-        self.times["chain_dispatch"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pflags, cnt, cflags = torch.stack((aflg, ccnt, cflg)).cpu().numpy()
-        count_d2h("device pseudo-align probe", pflags)
-        self.times["probe_fetch"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        flat = packed_rows.cpu().numpy()
-        count_d2h("device pseudo-align chain", cnt, cflags, flat)
-        self.times["chain_fetch"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
+        flat = fetch_numpy("device pseudo-align chain", rows[valid])[0]
         self._decode(idxs, pflags | cflags, cnt, flat, results)
-        self.times["decode"] += time.perf_counter() - t0
 
     def _decode(self, idxs, flags, cnt, flat, results):
         """Per-window results from the compacted rows (window order, each

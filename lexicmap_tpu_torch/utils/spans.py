@@ -1,0 +1,104 @@
+"""Host spans of the search path: one recorder a searcher, with its
+seconds (`totals`) and its spans (`counts`) by key, exact under the
+client thread, the finish thread and the alignment pool together.
+
+A span always adds its host seconds (time.perf_counter) to `totals[key]`
+and one to `counts[key]`.  While torch.profiler records, it also opens
+torch.profiler.record_function("lexicmap." + key), which puts the span on
+the profiler's clock beside the card's rows, with `args` (the query's index
+in its batch, or a transfer's stage label) as the range's arguments.  With
+the profiler off a span costs two clock reads and one flag check.
+
+A wait on the card (`card_wait`, used by parallel.fetch_numpy) adds to the
+recorder bound to the waiting thread (`SpanRecorder.bind_thread`); on a
+thread with none it times nothing.
+
+This module imports no torch: the host engine's searcher never loads it,
+and the profiler cannot record before torch is imported.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+from contextlib import nullcontext
+from time import perf_counter
+
+PREFIX = "lexicmap."
+
+#: the phases' wall times, which DeviceSearchEngine.times has always held:
+#: mask (1), match (2a), anchors (2b), chain (3), winprep and pseudo (4),
+#: align (5-6) and wfa (the device WFA inside align); then the parts of
+#: phases 1 and 2b, the client thread's wait on the finish thread, and the
+#: host's waits on the card
+KEYS = ("mask", "match", "anchors", "chain", "winprep", "pseudo", "align", "wfa",
+        "mask.capture", "mask.filter",
+        "anchors.prefix", "anchors.reverse", "anchors.suffix", "anchors.gather",
+        "finish_wait", "card_wait")
+
+_bound = threading.local()
+_NO_SPAN = nullcontext()
+
+
+def profiling() -> bool:
+    """Whether torch.profiler is recording.  torch's own
+    `torch.autograd._profiler_enabled()` reads False under
+    `_ExperimentalConfig(profile_all_threads=True)`, in every thread, so
+    the flag that profile() sets for the whole process is read instead."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+class Span:
+    """One timed interval of `key` (a context manager; see the module)."""
+
+    __slots__ = ("_rec", "_key", "_args", "_t0", "_range")
+
+    def __init__(self, rec: SpanRecorder, key: str, args=None):
+        self._rec, self._key, self._args = rec, key, args
+
+    def __enter__(self):
+        self._range = None
+        if profiling():
+            import torch
+
+            self._range = torch.profiler.record_function(
+                PREFIX + self._key, None if self._args is None else str(self._args))
+            self._range.__enter__()
+        self._t0 = perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._rec.add(self._key, dt)
+
+
+class SpanRecorder:
+    """Seconds and spans by key, every key of KEYS seeded at 0."""
+
+    def __init__(self):
+        self.totals = dict.fromkeys(KEYS, 0.0)
+        self.counts = dict.fromkeys(KEYS, 0)
+        self._lock = threading.Lock()
+
+    def add(self, key: str, seconds: float):
+        """One span of `seconds` (a loop's parts summed by the caller)."""
+        with self._lock:
+            self.totals[key] += seconds
+            self.counts[key] += 1
+
+    def span(self, key: str, args=None) -> Span:
+        return Span(self, key, args)
+
+    def bind_thread(self):
+        """Make this the calling thread's recorder for its card waits."""
+        _bound.rec = self
+
+
+def card_wait(label: str):
+    """A span of the host's wait on the card under the calling thread's
+    recorder, `label` the transfer's stage; a no-op where none is bound."""
+    rec = getattr(_bound, "rec", None)
+    return _NO_SPAN if rec is None else Span(rec, "card_wait", label)
