@@ -44,6 +44,14 @@ Phases, each of which raises on a wrong result (nothing falls back):
      16,384 entries with 15-base prefix blocks across its chunk
      boundaries, so that chunk runs cross buckets: triples == the oracle,
      B4 == plain there too;
+  4a. the reversed-k-mer dispatch of phase 2b (reverse_dispatch, B13) at
+     the main path's shape: 32 queries of the genes mix's lengths through
+     phase 1 against the gtdb.genes masks (k = 31, 20,000 masks): the
+     kernel == its plain version == the host's _reversed_query_kmers,
+     array for array, no query declined; times as called (with and
+     without the k-mers' upload), on the device (one kernel row a call,
+     asserted), plain and the host's 32 calls; its bound from the bytes the
+     batch needs;
   4b. the sharded matcher on one NCCL rank with four local shards, over
      phase 4's table: seed_match_shard (B11, one launch for the four
      shards) through make_sharded_search_step on its 16-mer hi words (rows
@@ -73,7 +81,7 @@ Phases, each of which raises on a wrong result (nothing falls back):
      16 genomes each) searched with the device engine (phases 2a and 4 on
      the card) and with the host engine: rows equal, every q_from_gNNN
      top-hits gNNN, every batch launched each kernel the expected number of
-     times (B1 a bucket, B4 once), >= 90% of the windows answered on the
+     times (B1 a bucket, B4 and B13 once), >= 90% of the windows answered on the
      card; B1 and B4 on the first batch's real queries == plain, and
      match_batch's split there, this tree's path and the parent's in turns; in turns with it,
      the device engine with `--chain device --wfa device` (chain1 once per
@@ -1479,6 +1487,112 @@ def phase_matcher_chunked(dev, card, seed, reps, M=2000, B=32, p=15, counts=(200
 # holding four tp shards
 
 
+REVERSE_KERNEL = "reverse_dispatch_kernel"  # the one kernel of reverse_dispatch.cu
+
+
+def reverse_batch(seed, B=32, k=31, m=20_000):
+    """The main path's batch for the reversed dispatch: the gtdb.genes
+    masks (k = 31, 20,000 masks, seed 1) and B queries of the genes mix's
+    lengths (log-normal, median 1 kb, sigma 0.6, 300-5,000 bp) of i.i.d.
+    bases, each through phase 1 (capture, low-complexity filter) of a
+    searcher that holds only the masks.  Returns (searcher, masked k-mers
+    uint64 [B, m], lengths)."""
+    import numpy as np
+
+    from lexicmap_tpu_torch.masks import MaskSet
+    from lexicmap_tpu_torch.utils.kmers import seq_to_codes
+
+    s = parity().masks_searcher("lexicmap_tpu_torch", MaskSet.generate(k, m, 1).masks, k)
+    rng = np.random.default_rng(seed)
+    lens = np.clip(np.exp(rng.normal(np.log(1000), 0.6, B)), 300, 5000).astype(np.int64)
+    seqs = [bytes(rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), int(n))) for n in lens]
+    return s, np.stack([s._mask_query(seq_to_codes(q))[0] for q in seqs]), lens
+
+
+def phase_reverse(dev, card, seed, reps, B=32, m=20_000):
+    """The reversed-k-mer dispatch (reverse_dispatch.cu) at the main path's
+    shape (reverse_batch): the kernel == its plain version == the host's
+    IndexSearcher._reversed_query_kmers for every query, array for array
+    (values, dtypes, order), no query declined.  Times: as called (launch,
+    the waits for the offsets and the records; with the k-mers' upload
+    too), on the device (one kernel row a call, asserted), the plain
+    version's and the host's (the 32 serial calls it replaces); the bound
+    from the bytes the batch needs: the k-mers and the tree read once, the
+    records and offsets written once."""
+    import numpy as np
+    import torch
+
+    from lexicmap_tpu_torch.kernels import reverse_dispatch as RD
+
+    s, kmers, lens = reverse_batch(seed, B, m=m)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        want = [s._reversed_query_kmers(kmers[b]) for b in range(B)]
+        host_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mt = RD.mask_tree(s.mask_set.masks, s.k, dev)
+    tree_s = time.perf_counter() - t0
+    t = torch.from_numpy(kmers.view(np.int64)).to(dev)
+    saved = RD.reverse_dispatch.launches
+    got = RD.reverse_dispatch(t, mt)()
+    sync(dev)
+    plain = RD.reverse_dispatch_plain(t, mt)
+    cols = ("offsets", "declined", "new_mask", "rev_kmer", "orig_mask")
+    bad = [c for c in cols if not (getattr(got, c).dtype == getattr(plain, c).dtype
+                                   and np.array_equal(getattr(got, c), getattr(plain, c)))]
+    if bad:
+        raise AssertionError(f"reverse_dispatch: kernel != plain in {bad}")
+    if got.declined.any():
+        raise AssertionError(f"reverse_dispatch declined queries {np.flatnonzero(got.declined)}")
+    for b in range(B):
+        if not all(g.dtype == w.dtype and np.array_equal(g, w)
+                   for g, w in zip(got.query(b), want[b])):
+            raise AssertionError(f"reverse_dispatch: query {b} != the host's arrays")
+
+    def call():
+        return RD.reverse_dispatch(t, mt)()
+
+    ms = time_ms(call, dev, reps)
+    upload_ms = time_ms(lambda: RD.reverse_dispatch(
+        torch.from_numpy(kmers.view(np.int64)).to(dev), mt)(), dev, reps)
+    by, rows = device_rows_by_call(call, (REVERSE_KERNEL,), reps, a_call={REVERSE_KERNEL: 1})
+    T = int(got.offsets[-1])
+    largest = max(int(np.unique(got.query(b)[0], return_counts=True)[1].max())
+                  for b in range(B) if got.offsets[b + 1] > got.offsets[b])
+    nbytes = kmers.nbytes + mt.tree.numel() * 8 + T * 16 + (2 * B + 1) * 8
+    res = {"B": B, "m": m, "k": s.k, "query_bp": [int(lens.min()), int(np.median(lens)),
+                                                  int(lens.max())],
+           "captures": int((kmers != 0).sum()), "records": T, "largest_bucket": largest,
+           "equal": True, "max_abs_err": 0, "ms": ms, "ms_with_upload": upload_ms,
+           "device_ms": by[REVERSE_KERNEL], "device_ms_by": by, "kernel_rows_per_call": rows,
+           "plain_ms": time_ms(lambda: RD.reverse_dispatch_plain(t, mt), dev, 3),
+           "host_ms": min(host_s) * 1e3, "tree_s": tree_s, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    RD.reverse_dispatch.launches = saved  # measuring does not count
+    log(f"[reverse] kernel == plain == the host's arrays; {json.dumps(res)} [{card}]")
+    return res
+
+
+def reverse_row(rres, eres):
+    """The kernels line's row of the reversed dispatch (B13): the numbers at
+    the main path's shape, launches from phase 6 (one a batch)."""
+    return {"name": "reverse_dispatch", "route": "cuda",
+            "source": "lexicmap_tpu_torch/csrc/reverse_dispatch.cu",
+            "replaces": "none: the host's IndexSearcher._reversed_query_kmers, a query at a "
+                        "time (lexicmap_tpu/index/search.py)",
+            "launches": eres["launches"]["reverse_dispatch"], "equal": rres["equal"],
+            "max_abs_err": rres["max_abs_err"], "ms": rres["ms"],
+            "ms_with_upload": rres["ms_with_upload"], "device_ms": rres["device_ms"],
+            "device_ms_by": rres["device_ms_by"], "plain_ms": rres["plain_ms"],
+            "host_ms": rres["host_ms"], "bound_ms": rres["bound_ms"], "bound_by": "bytes",
+            "bytes": rres["bytes"], "library_ms": None,
+            "library": "none: no PyTorch call computes a nearest mask by XOR",
+            "kernel_rows_per_call": rres["kernel_rows_per_call"],
+            "shape": {k: rres[k] for k in ("B", "m", "k", "query_bp", "captures", "records",
+                                           "largest_bucket")}}
+
+
 def host_shard_count(hi, qh, k, p):
     """B11's definition in int64 numpy: (n_hits, lcp) [B, M] and the
     per-query sums, by bisection over each whole padded row."""
@@ -2613,13 +2727,14 @@ def write_genomes(root, n_genomes, n_queries, seed, n_many=32, many_in=16):
 
 def kernel_fns():
     from lexicmap_tpu_torch.kernels import (
-        capture, chain1, pseudo_align, seed_compact, seed_locate, seed_match, seed_match_shard,
-        shard_compact, wfa)
+        capture, chain1, pseudo_align, reverse_dispatch, seed_compact, seed_locate, seed_match,
+        seed_match_shard, shard_compact, wfa)
 
     return (seed_locate.seed_locate_batch, seed_locate.seed_locate, seed_match.seed_match,
             pseudo_align.pseudo_probe, pseudo_align.pseudo_chain, chain1.chain1_forward,
             wfa.wfa_batch, capture.capture, seed_match_shard.seed_match_shard,
-            shard_compact.shard_compact, seed_compact.seed_compact)
+            shard_compact.shard_compact, seed_compact.seed_compact,
+            reverse_dispatch.reverse_dispatch)
 
 
 def reset_launches():
@@ -3062,6 +3177,10 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             raise AssertionError(f"the main path launched seed_compact "
                                  f"{launches['seed_compact']} times, expected {batches} (one "
                                  f"per batch)")
+        if launches["reverse_dispatch"] != batches:
+            raise AssertionError(f"the main path launched reverse_dispatch "
+                                 f"{launches['reverse_dispatch']} times, expected {batches} "
+                                 f"(one per batch)")
         # each batch has windows, fewer than W_CHUNK: one launch of each
         if per_batch >= W_CHUNK or not (launches["pseudo_probe"] == launches["pseudo_chain"]
                                         == batches):
@@ -3716,7 +3835,7 @@ def main() -> int:
     t0 = time.perf_counter()
     started = parent_build(args.compare_source)
     libs = build.build(["seed_locate", "seed_match", "pseudo_align", "chain1", "wfa", "capture",
-                        "sharded", "seed_compact"])
+                        "sharded", "seed_compact", "reverse_dispatch"])
     parents = parent_load(started)  # {source name: the earlier tree's library}
     parent = parents.get("seed_locate")
     log(f"[build] {len(libs) + len(parents)} kernel sources built with nvcc in parallel in "
@@ -3735,6 +3854,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mres["chunked"] = phase_matcher_chunked(dev, card, seed=args.seed, reps=5,
                                             parent=parents.get("seed_compact"))
+    torch.cuda.empty_cache()
+    rres = phase_reverse(dev, card, seed=args.seed + 17, reps=20)
     torch.cuda.empty_cache()
     shres, cpres, mesh = phase_sharded(dev, card, mstate, seed=args.seed, reps=20,
                                        parent=parents.get("sharded"))
@@ -3831,6 +3952,7 @@ def main() -> int:
                     eres["sharded"]["main_path_err"], eres["sharded"]["main_path_shape"],
                     "torch.sort (stable) of the keys, the sort of JAX's step"),
         compact_row(mres, eres),
+        reverse_row(rres, eres),
     ]
     log(f"[summary] matcher {json.dumps(mres)}")
     log(f"[summary] phase4 {json.dumps(p4)}")
@@ -3846,10 +3968,10 @@ def main() -> int:
     log(f"[summary] e2e q/min device {eres['dev_qpm']} device with chain1 + wfa "
         f"{eres['stage_qpm']} host {eres['host_qpm']}; many-hit "
         f"{json.dumps(eres['many_hit'])}; total {time.perf_counter() - t_all:.1f} s")
-    on_path = ("seed_locate_batch", "seed_compact", "pseudo_probe", "pseudo_chain",
-               "chain1_forward", "wfa_batch")
-    mesh_path = ("seed_locate_batch", "shard_compact", "pseudo_probe", "pseudo_chain",
-                 "chain1_forward", "wfa_batch")
+    on_path = ("seed_locate_batch", "seed_compact", "reverse_dispatch", "pseudo_probe",
+               "pseudo_chain", "chain1_forward", "wfa_batch")
+    mesh_path = ("seed_locate_batch", "shard_compact", "reverse_dispatch", "pseudo_probe",
+                 "pseudo_chain", "chain1_forward", "wfa_batch")
     if (not all(eres["launches"][n] for n in on_path) or not eres["single_launches"]
             or not eres["single_compactions"]
             or not eres["build"]["capture_launches"] or not shres["launches"]

@@ -183,7 +183,7 @@ def print_spans(spans, n_queries: int):
     print(f"  [debug] device engine phase times (s; ms a query over {n_queries} queries; "
           "spans):", file=sys.stderr)
     for key, v in spans.totals.items():
-        print(f"    {key:<16} {v:10.4f} {v * per * 1e3:10.4f} {spans.counts[key]:8d}",
+        print(f"    {key:<20} {v:10.4f} {v * per * 1e3:10.4f} {spans.counts[key]:8d}",
               file=sys.stderr)
     print("  [debug] transport (fetches, d2h bytes, h2d bytes; the same a query):",
           file=sys.stderr)

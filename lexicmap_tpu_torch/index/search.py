@@ -406,6 +406,7 @@ class IndexSearcher:
         premasked=None,
         dev_hits_pre=None,
         qi=None,
+        rev_pre=None,
     ):
         """Phases 1+2; returns dict refBatchAndIdx -> Anchors.
 
@@ -413,11 +414,22 @@ class IndexSearcher:
         (the reference's genomeIds param, used by genome screening).
         premasked / dev_hits_pre: results of _mask_query / a batched device
         match computed up front by search_many (amortizes device dispatch).
-        qi: the query's index in its batch, for the spans."""
+        qi: the query's index in its batch, for the spans.
+        rev_pre: (batch, b), the device engine's reversed-k-mer dispatch of
+        the batch (kernels/reverse_dispatch.py::Reversed) and the query's
+        row in it; a query the card declined is dispatched here on the host
+        (span anchors.reverse_host)."""
         sp = self.spans
         kmers, capres = premasked if premasked is not None else self._mask_query(qcodes, qi)
         with sp.span("anchors.reverse", qi):
-            rnew, rkmers, rorig = self._reversed_query_kmers(kmers)
+            if rev_pre is None:
+                rnew, rkmers, rorig = self._reversed_query_kmers(kmers)
+            else:
+                got = rev_pre[0].query(rev_pre[1])
+                if got is None:  # the card declined the query
+                    with sp.span("anchors.reverse_host", qi):
+                        got = self._reversed_query_kmers(kmers)
+                rnew, rkmers, rorig = got
 
         from ..native import get_lib
 

@@ -2,10 +2,12 @@
 pipeline with its two device phases on the GPU.
 
 Per batch of up to 32 queries:
-  1. host: query masking (capture + reversed k-mers)
+  1. host: query masking (capture, the low-complexity filter)
   2a. device: prefix seed matching for ALL queries x all masks, one launch
-      of the CUDA seed-locate kernel per bucket (device_search.py)
-  2b. host: posting gather
+      of the CUDA seed-locate kernel per bucket (device_search.py); beside
+      it, queued before its waits, the reversed-k-mer dispatch of every
+      query in one launch (kernels/reverse_dispatch.py)
+  2b. host: prefix filter, suffix search and posting gather
   3. host: anchor chaining; with --chain device, the chain1 forward DP of
      every genome of every query in one launch of the CUDA chain1 kernel
      (chain_device.py), the backtrack on the host
@@ -43,7 +45,9 @@ holds one device and runs them there; the rows are the same either way.
 
 Output is identical to the host engine: the device matchers return exactly
 the host bisection's triples (the sharded one compacts a bucket again
-where a query passes its hit capacity), the device pseudo-aligner
+where a query passes its hit capacity), the reversed dispatch exactly the
+host's arrays (or declines a query, which the host then dispatches), the
+device pseudo-aligner
 exactly the host's chain rows, the device chainer exactly the host's
 forward DP and the device WFA exactly the host's op streams (or flags the
 item for the host), and everything downstream is the identical host code
@@ -52,10 +56,15 @@ item for the host), and everything downstream is the identical host code
 
 from __future__ import annotations
 
-import numpy as np
+from time import perf_counter
 
+import numpy as np
+import torch
+
+from ..kernels import reverse_dispatch as RD
 from ..ops.seqcompare import SeqComparator
 from ..utils.kmers import seq_to_codes
+from . import count_h2d
 from .device_search import default_budget
 from .pseudo_device import WORDS_OUT, DevicePseudoAligner
 from .resident import DeviceGenomeBlob, store_bytes
@@ -109,6 +118,12 @@ class DeviceSearchEngine:
         if store_bytes(idx.genome_stores) <= hbm_budget:
             self.blob = DeviceGenomeBlob(idx.genome_stores, device=self.pseudo.device)
         self.pseudo.blob = self.blob
+        # phase 2b's reversed-k-mer dispatch runs on the card wherever phase
+        # 2a has a device matcher and the kernel takes the mask set (an
+        # index of more masks stays on the host's dispatch): the sorted
+        # masks and their tree, once
+        self.masks = (None if self.matcher is None or idx.mask_set.m > RD.MAX_M else
+                      RD.mask_tree(idx.mask_set.masks, idx.k, self.pseudo.device))
         #: the searcher's span recorder (utils/spans.py), and its totals:
         #: cumulative wall per engine phase (seconds), mask (1), match (2a),
         #: anchors (2b), chain (3), winprep and pseudo (4), align (5-6), and
@@ -149,19 +164,35 @@ class DeviceSearchEngine:
         if not valid:
             return (codes, [], {}, {}, {}, {})
 
+        rev = None
         if matched is not None:
             masked = {i: matched[i][0] for i in valid}
             dev_hits = {i: matched[i][1] for i in valid}
+            if self.masks is not None:
+                with sp.span("match.reverse"):
+                    rev = self._reverse(np.stack([masked[i][0] for i in valid]))()
         else:
+            kmers = np.stack([masked[i][0] for i in valid])
             with sp.span("match"):
-                dev_hits = match_phase(idx, self.matcher, np.stack([masked[i][0] for i in valid]))
+                # the reversed dispatch is queued before phase 2a's waits on
+                # the card and fetched after them: match.reverse times the
+                # upload and launch, then the fetch
+                t0 = perf_counter()
+                fetch = None if self.masks is None else self._reverse(kmers)
+                t1 = perf_counter()
+                dev_hits = match_phase(idx, self.matcher, kmers)
+                if fetch is not None:
+                    t2 = perf_counter()
+                    rev = fetch()
+                    sp.add("match.reverse", t1 - t0 + perf_counter() - t2)
             dev_hits = dict(zip(valid, dev_hits))
 
         pg_of = {}
-        for i in valid:
+        for n, i in enumerate(valid):
             with sp.span("anchors", i):
                 pg_of[i] = idx._collect_anchors(codes[i], premasked=masked[i],
-                                                dev_hits_pre=dev_hits[i], qi=i)
+                                                dev_hits_pre=dev_hits[i], qi=i,
+                                                rev_pre=None if rev is None else (rev, n))
         with sp.span("chain"):
             if idx.device_chainer is not None:
                 # --chain device: the chain1 DP of every genome of every
@@ -210,6 +241,14 @@ class DeviceSearchEngine:
             assert len(lst) == pp
             lst.append(r)
         return (codes, valid, hits_of, pseudo_maps, cpr_of, wins_of)
+
+    def _reverse(self, kmers: np.ndarray):
+        """The reversed-k-mer dispatch of a [B, m] batch of masked k-mers,
+        uploaded and launched on the engine's device; returns the function
+        that fetches it (kernels/reverse_dispatch.py::reverse_dispatch)."""
+        count_h2d(RD.LABEL, kmers)
+        return RD.reverse_dispatch(
+            torch.from_numpy(kmers.view(np.int64)).to(self.masks.tree.device), self.masks)
 
     def finish_batch(self, prepared):
         """Phases 5-6: extension, alignment and assembly, with the device

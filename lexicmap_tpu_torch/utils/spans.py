@@ -29,12 +29,14 @@ PREFIX = "lexicmap."
 #: the phases' wall times, which DeviceSearchEngine.times has always held:
 #: mask (1), match (2a), anchors (2b), chain (3), winprep and pseudo (4),
 #: align (5-6) and wfa (the device WFA inside align); then the parts of
-#: phases 1 and 2b, the client thread's wait on the finish thread, and the
-#: host's waits on the card
+#: phases 1 and 2b (match.reverse: the batch's reversed-k-mer dispatch on
+#: the card, inside match; anchors.reverse_host: a query the card declined,
+#: dispatched on the host inside anchors.reverse), the client thread's wait
+#: on the finish thread, and the host's waits on the card
 KEYS = ("mask", "match", "anchors", "chain", "winprep", "pseudo", "align", "wfa",
-        "mask.capture", "mask.filter",
-        "anchors.prefix", "anchors.reverse", "anchors.suffix", "anchors.gather",
-        "finish_wait", "card_wait")
+        "mask.capture", "mask.filter", "match.reverse",
+        "anchors.prefix", "anchors.reverse", "anchors.reverse_host", "anchors.suffix",
+        "anchors.gather", "finish_wait", "card_wait")
 
 _bound = threading.local()
 _NO_SPAN = nullcontext()

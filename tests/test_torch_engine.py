@@ -17,6 +17,7 @@ from lexicmap_tpu.index.search import SearchOptions as JaxOptions
 from lexicmap_tpu_torch import cli as tcli
 from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
 from lexicmap_tpu_torch.kernels import pseudo_align as PA
+from lexicmap_tpu_torch.kernels import reverse_dispatch as RD
 from lexicmap_tpu_torch.kernels.seed_locate import seed_locate, seed_locate_batch
 
 
@@ -84,6 +85,26 @@ def test_engine_across_batch_boundary(db, jax_host):
     assert all(got)
     st = port._device_engine.pseudo.stats
     assert st["windows"] >= 33 and st["device_windows"] == st["windows"], st
+
+
+def test_reversed_dispatch_a_batch_equals_host_engine(db, jax_host):
+    """Phase 2b's reversed dispatch in the device engine (its plain twin on
+    the CPU; queries8 has one shorter than k and one random): the TSV rows
+    equal the JAX package's host engine's over two batches, with one
+    match.reverse a batch, every query's arrays taken from it (one
+    anchors.reverse a query) and none dispatched on the host."""
+    _, seqs, _ = db
+    qs = queries8(seqs) * 5
+    port = IndexSearcher(db[0], SearchOptions(engine="device", device="cpu"))
+    before = RD.reverse_dispatch.launches
+    got = all_rows(port.search_many(qs))
+    assert got == all_rows([jax_host.search_bytes(q) for q in queries8(seqs)] * 5)
+    assert sum(map(len, got)) >= 24
+    c = port.spans.counts
+    assert c["match.reverse"] == 2 and c["anchors.reverse_host"] == 0
+    assert c["anchors.reverse"] == sum(len(q) >= 31 for q in qs)
+    assert port.spans.totals["match.reverse"] <= port.spans.totals["match"]
+    assert RD.reverse_dispatch.launches == before  # CPU: the plain version
 
 
 def test_single_query_search_with_device_matcher(db, jax_host):

@@ -101,12 +101,14 @@ def test_keys_seeded_and_parts_inside_their_phases(searched):
     assert sum(map(bool, res)) >= 30
     t, c = s.spans.totals, s.spans.counts
     for key in ("mask", "match", "anchors", "chain", "winprep", "pseudo", "align",
-                "mask.capture", "mask.filter", "anchors.prefix", "anchors.reverse",
-                "anchors.gather", "finish_wait", "card_wait"):
+                "mask.capture", "mask.filter", "match.reverse", "anchors.prefix",
+                "anchors.reverse", "anchors.gather", "finish_wait", "card_wait"):
         assert t[key] > 0, key
     assert t["anchors.prefix"] + t["anchors.reverse"] + t["anchors.suffix"] \
         + t["anchors.gather"] <= t["anchors"]
     assert t["mask.capture"] + t["mask.filter"] <= t["mask"]
+    assert t["match.reverse"] <= t["match"]
+    assert t["anchors.reverse_host"] <= t["anchors.reverse"]
     assert t["wfa"] <= t["align"]
     # one span a query for phase 1, 2b and their parts; one a batch for the
     # rest; the client thread waited on the finish thread once a batch
@@ -114,8 +116,12 @@ def test_keys_seeded_and_parts_inside_their_phases(searched):
     for key in ("mask", "anchors", "mask.capture", "mask.filter", "anchors.prefix",
                 "anchors.reverse", "anchors.suffix", "anchors.gather"):
         assert c[key] - counts0[key] == n, key
-    for key in ("match", "chain", "winprep", "pseudo", "align", "wfa", "finish_wait"):
+    for key in ("match", "match.reverse", "chain", "winprep", "pseudo", "align", "wfa",
+                "finish_wait"):
         assert c[key] - counts0[key] == 2, key
+    # every query's reversed dispatch served by the batch's (the card's, here
+    # its plain twin): none on the host
+    assert c["anchors.reverse_host"] == counts0["anchors.reverse_host"]
     fetches = tpar.transport_summary()["TOTAL"]["fetches"] - fetches0
     assert fetches >= 2 * 5  # seed matching 2, pseudo-align 2, chain DP 1, WFA 1+ a batch
     assert c["card_wait"] - counts0["card_wait"] == fetches
@@ -148,8 +154,9 @@ def test_ranges_on_the_profilers_clock(db, tmp_path):
     for key in ("mask.capture", "mask.filter", "anchors.reverse", "anchors.gather", "match",
                 "chain", "winprep", "pseudo", "card_wait"):
         assert S.PREFIX + key in threads, key
-    # the per-chunk parts are counters only
+    # the per-chunk parts and the reversed dispatch's two parts are counters only
     assert "lexicmap.anchors.prefix" not in threads
+    assert "lexicmap.match.reverse" not in threads
     # the execution trace keeps each range's arguments: the query's index in
     # its batch, a card wait's stage label
     nodes = json.loads(et_path.read_text())["nodes"]

@@ -7,12 +7,15 @@ package and the port alike; nothing here imports JAX, so the card's tests
 
 from __future__ import annotations
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from lexicmap_tpu_torch.kernels import seed_locate as SL
 from lexicmap_tpu_torch.kernels.seed_match import MATCH_RUN, bit_length
+from lexicmap_tpu_torch.utils.spans import SpanRecorder
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,6 +42,27 @@ def write_genomes(d, n=3, length=50000, seed=13):
             fh.write(b">c0\n" + seq + b"\n")
         files.append(str(p))
     return files, seqs
+
+
+def masks_searcher(pkg: str, masks: np.ndarray, k: int):
+    """An IndexSearcher of the package `pkg` ("lexicmap_tpu_torch", or
+    "lexicmap_tpu" for the reference) that holds only what phase 1 (the
+    capture and the low-complexity filter) and the host's reversed-k-mer
+    dispatch read: a MaskSet of the sorted `masks` of k-mers of `k` bases,
+    taken as they are where a value repeats (MaskSet refuses that), an
+    empty span recorder (the port's: the JAX package has none) and the
+    homopolymer k-mers."""
+    mod = lambda name: importlib.import_module(f"{pkg}.{name}")
+    MaskSet, Searcher = mod("masks").MaskSet, mod("index.search").IndexSearcher
+    if np.unique(masks).shape[0] == masks.shape[0]:
+        ms = MaskSet(masks, k)
+    else:
+        ms = MaskSet.__new__(MaskSet)
+        ms.masks, ms.k, ms.m, ms.prefix_len = masks, k, int(masks.shape[0]), 0
+    s = Searcher.__new__(Searcher)
+    s.mask_set, s.k, s.spans = ms, k, SpanRecorder()
+    s._ccc, s._ggg, s._ttt = mod("utils.kmers").homopolymer_codes(k)[1:]
+    return s
 
 
 def mutated_queries(seqs, names, start, length, n_mut, seed):
