@@ -42,6 +42,7 @@ class RunRecord:
     n_queries: int = 0
     eng_times: dict = field(default_factory=dict)
     trace: object = None
+    memory_peak_bytes: int = 0
 
 
 def _load_json(path: str) -> dict:
@@ -199,7 +200,9 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float, trace: bool,
     control=True the same rows are judged a second time after the
     control's change (reference/judge.py::ungapped_rows), under
     `control_checks`; `fault` plants one of reference/faults.py's faults
-    under the window's requests.  The benchmark's own runs use neither."""
+    under the window's requests.  The benchmark's own runs use neither.
+    The judge re-aligns its sample on `device`, once the searcher is
+    freed."""
     import torch
 
     from benchmark.lib.traffic import QueryStream
@@ -244,16 +247,17 @@ def run_cell(spec: dict, workload: str, seed: int, seconds: float, trace: bool,
         with planted(fault):
             attempted, failed = run_window(searcher, stream, rq, seconds, record, done, trace)
         peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
+        record.memory_peak_bytes = int(peak)
         del searcher
         gc.collect()
         if device != "cpu":
             torch.cuda.empty_cache()
 
         t = time.time()
-        numbers, counts = judge(db, done, seed)
+        numbers, counts = judge(db, done, seed, device)
         counts["judge_s"] = time.time() - t
         if control:
-            control_numbers, _ = judge(db, ungapped_rows(db, done), seed)
+            control_numbers, _ = judge(db, ungapped_rows(db, done), seed, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

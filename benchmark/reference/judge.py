@@ -97,8 +97,9 @@ def row_error(query, copies: list, p: dict):
     return best
 
 
-def judge(db, done: list, seed: int) -> tuple[dict, dict]:
-    """(numbers, counts) for `done`, [(query, rows)]: every finished query."""
+def judge(db, done: list, seed: int, device: str = "cpu") -> tuple[dict, dict]:
+    """(numbers, counts) for `done`, [(query, rows)]: every finished query;
+    the sample is re-aligned on `device`."""
     gidx = {g.name: i for i, g in enumerate(db.genomes)}
     must = missed = off = fields_bad = n_rows = 0
     must_copies = missed_copies = cross = cross_found = 0
@@ -152,7 +153,7 @@ def judge(db, done: list, seed: int) -> tuple[dict, dict]:
     picked = align_sample(on_target, seed)
     pairs = [hsp_pair(db, gidx, p, q) for p, q in picked]
     gap = 0.0
-    for (p, _), ref in zip(picked, align_batch(pairs)):
+    for (p, _), ref in zip(picked, align_batch(pairs, device=device)):
         gap = max(gap, abs(p["pident"] - ref["pident"]))
     numbers = {
         "missed_pct": 100.0 * missed / must if must else 0.0,
@@ -165,7 +166,9 @@ def judge(db, done: list, seed: int) -> tuple[dict, dict]:
     }
     counts = {"queries": len(done), "rows": n_rows, "must_hit": must,
               "must_copies": must_copies, "cross_copies": cross,
-              "realigned": len(picked), "coord_err_max_bp": err_max}
+              "realigned": len(picked), "realigned_max_bp": max(
+                  (max(q.shape[0], t.shape[0]) for q, t in pairs), default=0),
+              "coord_err_max_bp": err_max}
     return numbers, counts
 
 

@@ -1,20 +1,26 @@
-"""Whole runs of a test-sized cell on the CPU (the port's plain twins of
+"""Whole runs of test-sized cells on the CPU (the port's plain twins of
 its kernels; the harness's look for a card skipped): a sound run comes
 out correct, and each fault planted under the timed path, and the
-ungapped control, come out not correct."""
+ungapped control, come out not correct; with 20-40 kb queries too."""
 
 import os
 
 import pytest
 
 from benchmark.lib.harness import run_cell
-from benchmark.tests.tinyspec import DATA, SPEC
+from benchmark.reference.align import LONG
+from benchmark.tests.tinyspec import DATA, LONG_SPEC, SPEC
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def run(fault=None, control=False, seed=2**31 + 77):
     return run_cell(SPEC, "tiny.genes", seed, 0.5, False, device="cpu", root=ROOT,
+                    bench_dir=DATA, control=control, fault=fault)
+
+
+def run_long(fault=None, control=False, seed=2**31 + 77, device="cpu"):
+    return run_cell(LONG_SPEC, "tiny.long", seed, 0.5, False, device=device, root=ROOT,
                     bench_dir=DATA, control=control, fault=fault)
 
 
@@ -45,6 +51,27 @@ def test_fault_is_not_correct(fault, number):
         assert r["checks"][number]["value"] > r["checks"][number]["limit"]
 
 
+@pytest.fixture(scope="module")
+def sound_long():
+    return run_long(control=True)
+
+
+def test_long_queries_are_judged(sound_long):
+    """Queries of 20-40 kb: the sample holds stretches over 16 kb, the
+    run is correct and the control is not."""
+    assert sound_long["correct"], sound_long["checks"]
+    assert sound_long["judged"]["realigned_max_bp"] >= LONG
+    ctl = sound_long["control_checks"]
+    assert any(c["value"] > c["limit"] for c in ctl.values())
+
+
+@pytest.mark.parametrize("fault", ["half", "strand"])
+def test_fault_on_long_queries_is_not_correct(fault):
+    r = run_long(fault=fault)
+    assert r["judged"]["realigned_max_bp"] >= LONG
+    assert not r["correct"]
+
+
 def test_traced_run_reads_host_layers():
     r = run_cell(SPEC, "tiny.genes", 5, 0.5, True, device="cpu", root=ROOT, bench_dir=DATA)
     assert r["correct"]
@@ -59,3 +86,10 @@ def test_tiny_cell_on_the_card(card):
     r = run_cell(SPEC, "tiny.genes", 3, 1.0, True, device="cuda", root=ROOT, bench_dir=DATA)
     assert r["correct"], r["checks"]
     assert r["device"]["busy_s"] > 0 and "kernel_us_per_query" in r["metrics"]
+
+
+@pytest.mark.cuda
+def test_tiny_long_cell_on_the_card(card):
+    r = run_long(device="cuda")
+    assert r["correct"], r["checks"]
+    assert r["judged"]["realigned_max_bp"] >= LONG

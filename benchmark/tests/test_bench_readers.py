@@ -70,6 +70,14 @@ def test_host_metrics():
     assert read("query_p95_ms", record(latencies_s=[])) is None
 
 
+def test_memory_and_traced_rate():
+    rec = record(memory_peak_bytes=136_577_024)
+    assert read("device_memory_peak_mib", rec) == pytest.approx(130.25)
+    assert read("device_memory_peak_mib", record()) is None  # a run without a card
+    assert read("queries_per_min_traced", rec) == read("queries_per_min", rec)
+    assert read("queries_per_min_traced", record(n_queries=0)) is None
+
+
 def test_device_metrics():
     rec = record()
     # kernels inside the window: 200 + 150 + 50 ms of kernel time; copies left out

@@ -1,5 +1,9 @@
 """The plain reference: the banded alignment against an exhaustive one,
-and the judge's numbers on rows built from the truth."""
+against the earlier aligner's outputs and against long pairs whose
+optimum is known, and the judge's numbers on rows built from the truth."""
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -7,8 +11,10 @@ import pytest
 from benchmark.data import clades
 from benchmark.lib.traffic import QueryStream
 from benchmark.reference import judge as J
-from benchmark.reference.align import align_batch
+from benchmark.reference.align import BAND, LONG_BAND, MAX_LEN, align_batch
 from benchmark.tests.test_bench_generators import tiny_cfg, tiny_mix
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 def exhaustive(q, t):
@@ -58,6 +64,132 @@ def test_banded_alignment_equals_exhaustive():
         assert r["alen"] == r["matches"] + r["mismatches"] + r["gaps"]
 
 
+def mutated(rng, q, sub, indel):
+    """q with substitutions at rate `sub` and 1-3 base indels at rate
+    `indel`, half insertions, half deletions."""
+    t = q.copy()
+    s = rng.random(t.shape[0]) < sub
+    t[s] = (t[s] + rng.integers(1, 4, int(s.sum()))) % 4
+    pieces, last = [], 0
+    for p in np.flatnonzero(rng.random(t.shape[0]) < indel).tolist():
+        if p < last:
+            continue
+        L = int(rng.integers(1, 4))
+        pieces.append(t[last:p])
+        if rng.random() < 0.5:
+            pieces.append(rng.integers(0, 4, L).astype(np.uint8))
+            last = p
+        else:
+            last = min(p + L, t.shape[0])
+    pieces.append(t[last:])
+    return np.concatenate(pieces).astype(np.uint8)
+
+
+def seeded_pairs(seed=20, count=40):
+    """Pairs under 16,384 bases: a quarter of 10-16 kb, the rest up to
+    5 kb, two of 0 and 1; 0.5-8% substitutions, indels a tenth to a third
+    of that; a third with the mutated side as the query."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for c in range(count):
+        if c < 2:
+            n = c
+        elif c % 4 == 0:
+            n = int(rng.integers(10_000, 16_300))
+        else:
+            n = int(rng.integers(2, 5_000))
+        q = rng.integers(0, 4, n).astype(np.uint8)
+        sub = float(rng.uniform(0.005, 0.08))
+        t = mutated(rng, q, sub, sub * float(rng.uniform(0.1, 0.33)))[:16_383]
+        pairs.append((q, t) if c % 3 else (t, q))
+    return pairs
+
+
+def test_widened_encoding_equals_the_earlier_aligner():
+    with open(os.path.join(DATA, "align_earlier.json")) as fh:
+        earlier = json.load(fh)["rows"]
+    pairs = seeded_pairs()
+    assert sum(max(len(q), len(t)) >= 10_000 for q, t in pairs) >= 8
+    got = [[r["cost"], r["matches"], r["mismatches"], r["gaps"], r["alen"]]
+           for r in align_batch(pairs)]
+    assert got == earlier
+
+
+def known_pair(seed, n, spacing, pattern):
+    """(query, target, (cost, matches, mismatches, gaps)): events placed
+    `spacing` [lo, hi] bases apart, in the order of `pattern` ('s' a
+    substitution, 'i' an insertion of 1-3 bases into the target, 'd' a
+    deletion of 1-3 query bases), so far apart that no other alignment is
+    as cheap: the optimum is the one that undoes each event."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, n).astype(np.uint8)
+    pieces, last, p, k = [], 0, 0, 0
+    subs = ins = dels = opens = 0
+    while True:
+        p += int(rng.integers(spacing[0], spacing[1] + 1))
+        if p + spacing[1] >= n:
+            break
+        kind = pattern[k % len(pattern)]
+        k += 1
+        pieces.append(q[last:p])
+        L = int(rng.integers(1, 4))
+        if kind == "s":
+            pieces.append((q[p: p + 1] + rng.integers(1, 4, 1)).astype(np.uint8) % 4)
+            last, subs = p + 1, subs + 1
+        elif kind == "i":
+            pieces.append(rng.integers(0, 4, L).astype(np.uint8))
+            last, ins, opens = p, ins + L, opens + 1
+        else:
+            last, dels, opens = p + L, dels + L, opens + 1
+            p += L
+    pieces.append(q[last:])
+    t = np.concatenate(pieces).astype(np.uint8)
+    cost = 4 * subs + 6 * opens + 2 * (ins + dels)
+    return q, t, (cost, n - subs - dels, subs, ins + dels)
+
+
+LONG_PAIRS = {
+    "substitutions_20k": (1, 20_000, (20, 40), "s"),
+    "substitutions_131071": (2, MAX_LEN, (50, 100), "s"),
+    "indels_60k": (3, 60_000, (300, 600), "sisd"),
+    "deletions_131071": (4, MAX_LEN, (800, 1600), "sd"),
+    "insertions_100k": (5, 100_000, (800, 1600), "si"),
+}
+
+
+@pytest.fixture(scope="module")
+def long_pairs():
+    cases = {name: known_pair(*args) for name, args in LONG_PAIRS.items()}
+    out = align_batch([(q, t) for q, t, _ in cases.values()])
+    return {name: (case, r) for (name, case), r in zip(cases.items(), out)}
+
+
+@pytest.mark.parametrize("name", list(LONG_PAIRS))
+def test_exact_on_long_pairs_of_known_optimum(long_pairs, name):
+    (q, t, (cost, matches, mism, gaps)), r = long_pairs[name]
+    assert max(len(q), len(t)) <= MAX_LEN
+    assert (r["cost"], r["matches"], r["mismatches"], r["gaps"]) == (cost, matches, mism, gaps)
+    assert r["alen"] == matches + mism + gaps
+    assert r["pident"] == pytest.approx(100.0 * matches / r["alen"])
+
+
+@pytest.mark.parametrize("shape", [(MAX_LEN + 1, 10), (10, MAX_LEN + 1)])
+def test_beyond_the_encoding_raises(shape):
+    pair = tuple(np.zeros(x, dtype=np.uint8) for x in shape)
+    with pytest.raises(ValueError):
+        align_batch([(np.zeros(5, dtype=np.uint8),) * 2, pair])
+
+
+@pytest.mark.parametrize("n, band", [(16_000, BAND), (40_000, LONG_BAND)])
+def test_doubling_the_band_changes_nothing(n, band):
+    rng = np.random.default_rng(n)
+    pairs = []
+    for sub in (0.005, 0.02, 0.05):
+        q = rng.integers(0, 4, n).astype(np.uint8)
+        pairs.append((q, mutated(rng, q, sub, sub / 10)))
+    assert align_batch(pairs) == align_batch(pairs, band=2 * band)
+
+
 def truth_rows(db, q):
     """Rows as a correct search would print them: one HSP a must-hit
     genome, on its planted copy, identity from the reference."""
@@ -65,11 +197,14 @@ def truth_rows(db, q):
     rows = []
     hits = [(h, fn, o) for h, fn, o in q.occurrences if h in q.expected]
     n_genomes = len({h for h, _, _ in hits})
+    places = []
     for h, fn, o in hits:
         lo, hi = J.expected_interval(q, fn, 0, qlen - 1)
         strand = J._strand(q, o)
         t = db.genomes[h].codes[lo: hi + 1]
-        ref = align_batch([(q.codes, J.revcomp(t) if strand == "-" else t)])[0]
+        places.append((h, lo, hi, strand, J.revcomp(t) if strand == "-" else t))
+    refs = align_batch([(q.codes, t) for *_, t in places])
+    for (h, lo, hi, strand, _), ref in zip(places, refs):
         rows.append("\t".join(map(str, [
             q.qid, qlen, n_genomes, db.genomes[h].name, db.genomes[h].name + "_c1",
             "100.000", 1, 1, "100.000", ref["alen"], f"{ref['pident']:.3f}", ref["gaps"],
