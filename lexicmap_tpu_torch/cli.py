@@ -178,11 +178,16 @@ def print_spans(spans, n_queries: int):
     """--debug: the span recorder's totals and the transport counters,
     whole and a query."""
     from .parallel import transport_summary
+    from .utils.spans import COUNTERS
 
     per = 1 / max(n_queries, 1)
     print(f"  [debug] device engine phase times (s; ms a query over {n_queries} queries; "
-          "spans):", file=sys.stderr)
+          "spans), then counters (items; a query; calls):", file=sys.stderr)
     for key, v in spans.totals.items():
+        if key in COUNTERS:  # items, whole and a query, and the calls that added them
+            print(f"    {key:<20} {v:10.0f} {v * per:10.4f} {spans.counts[key]:8d}",
+                  file=sys.stderr)
+            continue
         print(f"    {key:<20} {v:10.4f} {v * per * 1e3:10.4f} {spans.counts[key]:8d}",
               file=sys.stderr)
     print("  [debug] transport (fetches, d2h bytes, h2d bytes; the same a query):",

@@ -128,8 +128,10 @@ class DeviceSearchEngine:
         #: cumulative wall per engine phase (seconds), mask (1), match (2a),
         #: anchors (2b), chain (3), winprep and pseudo (4), align (5-6), and
         #: wfa, the part of align in the device WFA (--wfa device); then the
-        #: parts of phases 1 and 2b, the wait on the finish thread and the
-        #: waits on the card
+        #: parts of phases 1 and 2b, the wait on the finish thread, the
+        #: waits on the card and the host WFA inside wfa; then the counters
+        #: of phase 4's windows and phase 5's WFA pairs, card and host
+        #: (items, not seconds; spans.COUNTERS)
         self.spans = idx.spans
         self.times = self.spans.totals
 

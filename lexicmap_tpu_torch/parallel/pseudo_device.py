@@ -20,7 +20,9 @@ windows packed and uploaded per launch as a blob of their own (geoms=None).
 A window goes to the host ('host') when it is longer than L_CAP, its query
 does not fit the 21-bit anchor key fields, its geometry does not match its
 length, or a kernel flags it: more than A_CAP anchors, more than C_CAP
-chains, or a region stack deeper than S_CAP.
+chains, or a region stack deeper than S_CAP.  Each batch adds its windows
+to the counters `pseudo.card_windows` and `pseudo.host_windows` under the
+recorder bound to the calling thread (utils/spans.py).
 ref: lib-seq_compare.go:335-521, lib-chaining2.go:152-658.
 """
 
@@ -46,6 +48,7 @@ from ..kernels.pseudo_align import (  # noqa: F401  (the flag bits are re-export
 )
 from ..constants import SearchDefaults
 from ..ops.seqcompare import min_prefix_for
+from ..utils.spans import bound_tally
 from . import count_h2d, fetch_numpy, resolve_device
 
 M_PREFIX = SearchDefaults.CMP_MIN_PREFIX  # SeqComparator minimum prefix
@@ -178,20 +181,21 @@ class DevicePseudoAligner:
         results = [("host", None)] * n_win
         if n_win == 0:
             return results
-        self.stats["windows"] += n_win
+        st = self.stats
+        card0, host0 = st["device_windows"], st["host_windows"]
+        st["windows"] += n_win
         tables, q_ok = query_tables(queries, self.device)
-        self.stats["host_queries"] += int((~q_ok).sum())
+        st["host_queries"] += int((~q_ok).sum())
         dev_idx = [
             i for i, (qidx, tcodes, _b, _e) in enumerate(windows)
             if q_ok[qidx] and tcodes.shape[0] <= L_CAP
             and (geoms is None or geoms[i] is not None)
         ]
-        self.stats["host_windows"] += n_win - len(dev_idx)
-        if not dev_idx:
-            return results
-
+        st["host_windows"] += n_win - len(dev_idx)
         for o in range(0, len(dev_idx), W_CHUNK):
             self._run_chunk(dev_idx[o: o + W_CHUNK], windows, geoms, tables, results)
+        bound_tally("pseudo.card_windows", st["device_windows"] - card0)
+        bound_tally("pseudo.host_windows", st["host_windows"] - host0)
         return results
 
     def _run_chunk(self, idxs, windows, geoms, tables, results):

@@ -15,7 +15,9 @@ expansion were for the TPU's transport), and batches are not padded to
 powers of two (no compile shapes).  A pair with an empty side, one longer
 than the last bucket, or one the kernels flag (a live span wider than W, no
 end within S scores) is aligned by the host's wfa_align: exact in every
-case.
+case.  Each such host alignment is a span `wfa.host`, and each call adds
+its pairs to the counters `wfa.card_pairs` and `wfa.host_pairs`, under the
+recorder bound to the calling thread (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ..kernels.wfa import check_pairs, decode_ops, history_bytes, pack_pairs, wfa_batch
 from ..ops.wfa import wfa_align
+from ..utils.spans import bound_span, bound_tally
 from . import count_h2d, fetch_numpy, resolve_device
 
 #: (longest sequence, scores, window of diagonals): S covers a cost of
@@ -103,7 +106,8 @@ class DeviceWFA:
                         results[i] = ops
                 launches += self.device.type == "cuda"
         for i in host:
-            results[i] = self._host(*pairs[i])
+            with bound_span("wfa.host"):
+                results[i] = self._host(*pairs[i])
         with self._lock:
             st = self.stats
             st["pairs"] += len(pairs)
@@ -111,6 +115,8 @@ class DeviceWFA:
             st["host_pairs"] += len(host) - flagged
             st["flagged_pairs"] += flagged
             self.launches += launches
+        bound_tally("wfa.card_pairs", len(pairs) - len(host))
+        bound_tally("wfa.host_pairs", len(host))
         return results
 
     def _align_chunk(self, bucket, pairs):

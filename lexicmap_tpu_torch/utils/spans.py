@@ -11,7 +11,11 @@ the profiler off a span costs two clock reads and one flag check.
 
 A wait on the card (`card_wait`, used by parallel.fetch_numpy) adds to the
 recorder bound to the waiting thread (`SpanRecorder.bind_thread`); on a
-thread with none it times nothing.
+thread with none it times nothing.  So do `bound_span` and `bound_tally`,
+which the device stages use without holding a recorder of their own.
+
+A counter (`SpanRecorder.tally`) adds a number of items, pairs or windows,
+to `totals[key]` in place of seconds; its keys are COUNTERS.
 
 This module imports no torch: the host engine's searcher never loads it,
 and the profiler cannot record before torch is imported.
@@ -32,11 +36,19 @@ PREFIX = "lexicmap."
 #: phases 1 and 2b (match.reverse: the batch's reversed-k-mer dispatch on
 #: the card, inside match; anchors.reverse_host: a query the card declined,
 #: dispatched on the host inside anchors.reverse), the client thread's wait
-#: on the finish thread, and the host's waits on the card
+#: on the finish thread, the host's waits on the card, and wfa.host: the
+#: host WFA of a pair the device WFA declined or flagged, inside wfa; then
+#: the COUNTERS
 KEYS = ("mask", "match", "anchors", "chain", "winprep", "pseudo", "align", "wfa",
         "mask.capture", "mask.filter", "match.reverse",
         "anchors.prefix", "anchors.reverse", "anchors.reverse_host", "anchors.suffix",
-        "anchors.gather", "finish_wait", "card_wait")
+        "anchors.gather", "finish_wait", "card_wait", "wfa.host")
+#: items, not seconds: phase 5's WFA pairs aligned on the card and on the
+#: host (DeviceWFA.stats' device_pairs, and host_pairs + flagged_pairs),
+#: phase 4's windows answered on the card and sent to the host
+#: (DevicePseudoAligner.stats' device_windows and host_windows)
+COUNTERS = ("wfa.card_pairs", "wfa.host_pairs", "pseudo.card_windows", "pseudo.host_windows")
+KEYS += COUNTERS
 
 _bound = threading.local()
 _NO_SPAN = nullcontext()
@@ -78,7 +90,8 @@ class Span:
 
 
 class SpanRecorder:
-    """Seconds and spans by key, every key of KEYS seeded at 0."""
+    """Seconds and spans by key, every key of KEYS seeded at 0; a counter's
+    total is its items, and its count the calls that added them."""
 
     def __init__(self):
         self.totals = dict.fromkeys(KEYS, 0.0)
@@ -91,6 +104,11 @@ class SpanRecorder:
             self.totals[key] += seconds
             self.counts[key] += 1
 
+    def tally(self, key: str, n: int):
+        """n items (pairs, windows: not seconds) added to counter `key`,
+        and one call to its count."""
+        self.add(key, n)
+
     def span(self, key: str, args=None) -> Span:
         return Span(self, key, args)
 
@@ -99,8 +117,22 @@ class SpanRecorder:
         _bound.rec = self
 
 
+def bound_span(key: str, args=None):
+    """A span of `key` under the calling thread's recorder; a no-op where
+    none is bound."""
+    rec = getattr(_bound, "rec", None)
+    return _NO_SPAN if rec is None else Span(rec, key, args)
+
+
+def bound_tally(key: str, n: int):
+    """n items added to counter `key` of the calling thread's recorder;
+    nothing where none is bound."""
+    rec = getattr(_bound, "rec", None)
+    if rec is not None:
+        rec.tally(key, n)
+
+
 def card_wait(label: str):
     """A span of the host's wait on the card under the calling thread's
     recorder, `label` the transfer's stage; a no-op where none is bound."""
-    rec = getattr(_bound, "rec", None)
-    return _NO_SPAN if rec is None else Span(rec, "card_wait", label)
+    return bound_span("card_wait", label)
