@@ -2276,6 +2276,10 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
 CHAIN1_OPS_PER_VISIT = 20  # int and float operations of one predecessor visit
 WFA_OPS_PER_CELL = 20  # reads, maxima, validity and reduction share of a cell
 WFA_OPS_PER_COMPARE = 10  # one 32-base compare of the extension
+# wfa.cu's kernels (the sizing pass and its offsets, the write pass, the
+# traceback), and an earlier tree's two (no sizing pass)
+WFA_KERNELS = ("wfa_size", "wfa_offsets", "wfa_forward", "wfa_traceback")
+PARENT_WFA_KERNELS = ("wfa_forward", "wfa_traceback")
 
 
 def chain1_case(seed, n_sets=4096, n_dense=16, n_big=4, big=20_000):
@@ -2482,8 +2486,9 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
             f"{sum(o is not None for o in k)} of {len(pairs)} answered on the card "
             f"(bucket L={b[0]}, S={b[1]}, W={b[2]})")
     w_ms = time_ms(lambda: WK.wfa_batch(*wargs, S, W, S + 8), dev, reps)
-    w_by = device_ms_split(lambda: WK.wfa_batch(*wargs, S, W, S + 8),
-                           ("wfa_forward", "wfa_traceback"), reps)
+    w_by = device_ms_split(lambda: WK.wfa_batch(*wargs, S, W, S + 8), WFA_KERNELS, reps)
+    arena = {}
+    WK.wfa_batch(*wargs, S, W, S + 8, scratch=arena)
     w_dev = None if None in w_by.values() else sum(w_by.values())
     nops = got[2].cpu().numpy()
     compares = work["extended"] + work["ext_bases"] // 32
@@ -2515,20 +2520,23 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
                "bytes": w_bytes, "history_bytes": hist_bytes,
                "history_bound_ms": hist_bytes / HBM_BYTES_PER_S * 1e3,
                "history_bytes_wide_rows": hist_bytes_wide,
+               "scratch_bytes": arena["hist_bytes"],
+               "scratch_bytes_full_window": WK.history_bytes(len(main), S, W),
                "max_abs_err": 0, "align_batch_s": batch_s, "launches_per_batch": dw.launches,
                "device_share": dw.stats["device_pairs"] / dw.stats["pairs"]}
     log(f"[phase7] wfa == plain == wfa_align on {len(main)} pairs of 1.5 kb ({answered} answered "
         f"on the card, {work['cells']} wavefront cells, {work['ext_bases']} bases extended): "
         f"kernel {w_ms:.4f} ms as called (one launch of all), device {w_dev} ms, plain "
         f"{w_plain_ms:.1f} ms, bound {max(wb):.5f} ms by {wfa_res['bound_by']} (with this "
-        f"design's history traffic {wfa_res['history_bound_ms']:.5f} ms); "
+        f"design's history traffic {wfa_res['history_bound_ms']:.5f} ms); history scratch "
+        f"{wfa_res['scratch_bytes']} B (room at the full window: "
+        f"{wfa_res['scratch_bytes_full_window']} B); "
         f"DeviceWFA.align_batch {batch_s * 1e3:.1f} ms in {dw.launches} launches, "
         f"{dw.stats} (made in {made_s:.1f} s); device ms by kernel {json.dumps(w_by)} [{card}]")
     if parents and "wfa" in parents:
-        names = ("wfa_forward", "wfa_traceback")
         wfa_res["parent"] = split_in_turns(
             dev, lambda: parent_wfa(parents["wfa"], *wargs, S, W, S + 8),
-            lambda: WK.wfa_batch(*wargs, S, W, S + 8), names, names, reps,
+            lambda: WK.wfa_batch(*wargs, S, W, S + 8), PARENT_WFA_KERNELS, WFA_KERNELS, reps,
             same=same_stage_outputs)
         log(f"[phase7] wfa, the earlier kernels and these in turns: "
             f"{json.dumps(wfa_res['parent'])} [{card}]")
@@ -3091,7 +3099,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
 
         saved = launch_counts()
         fn = real_chain1 if name == "chain1" else real_wfa
-        names = ("chain1_kernel",) if name == "chain1" else ("wfa_forward", "wfa_traceback")
+        names = ("chain1_kernel",) if name == "chain1" else WFA_KERNELS
         by = device_ms_split(lambda: fn(*a, **kw), names)
         main_shape[name] = {
             "ms": time_ms(lambda: fn(*a, **kw), dev, 20),
@@ -3099,7 +3107,8 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         if parents and name in parents:
             pfn = parent_chain1 if name == "chain1" else parent_wfa
             main_shape[name]["parent"] = split_in_turns(
-                dev, lambda: pfn(parents[name], *a, **kw), lambda: fn(*a, **kw), names, names, 20,
+                dev, lambda: pfn(parents[name], *a, **kw), lambda: fn(*a, **kw),
+                names if name == "chain1" else PARENT_WFA_KERNELS, names, 20,
                 same=same_stage_outputs)
         if name == "chain1":
             got = real_chain1(*a, **kw)

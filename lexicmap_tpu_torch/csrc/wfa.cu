@@ -1,5 +1,6 @@
 // Gap-affine wavefront alignment (WFA) of a batch of sequence pairs for
-// NVIDIA Hopper (sm_90a): kernels wfa_forward and wfa_traceback.
+// NVIDIA Hopper (sm_90a): kernels wfa_size, wfa_offsets, wfa_forward and
+// wfa_traceback.
 //
 // Replaces lexicmap_tpu/parallel/wfa_device.py::build_wfa_step (a jitted
 // lax.while_loop over scores, vmapped over pairs) and ::build_wfa_traceback.
@@ -17,9 +18,9 @@
 // equal neighbours merged, into ops int8 / cnts int32 [B, CAP] and their
 // count into nops [B] (-1 on overflow or failure).
 //
-// wfa_forward, one warp per pair, WARPS pairs to a block, over the scores
-// that are multiples of G = gcd(x, o+e, e) (any other has no live source:
-// every odd score under the even defaults); per score s:
+// wfa_size and wfa_forward, one warp per pair, WARPS pairs to a block,
+// over the scores that are multiples of G = gcd(x, o+e, e) (any other has
+// no live source: every odd score under the even defaults); per score s:
 //   1. the span [kmin, kmax] from the live spans of the source rows s-x,
 //      s-o-e, s-e (the native's trimmed spans, from a per-warp ring of the
 //      last max(x, o+e)/G + 1 rows in shared memory, each row's metadata
@@ -37,11 +38,23 @@
 // __syncwarp, and each pair's score chain runs at its own pace.
 //
 // History: a row is written only over its span, as three int16 runs of
-// `width` cells (M, I, D) appended to the pair's region of hist
-// [B, S * 3 * W]; meta int2 [B, S] holds each row's first diagonal and
-// (cells before it << 9 | width), width 0 for a dead row (a score that is
-// not a multiple of G has no entry: no path reads it).  A read outside a
-// row's span is NEG, as the dead cells of a W-wide row were.
+// `width` cells (M, I, D) appended to the pair's region of hist; meta int2
+// [B, S] holds each row's first diagonal and (cells before it in the
+// region << 9 | width), width 0 for a dead row (a score that is not a
+// multiple of G has no entry: no path reads it).  A read outside a row's
+// span is NEG, as the dead cells of a W-wide row were.
+//
+// Size, then write: hist is one packed arena holding just the cells the
+// launch's pairs write.  wfa_size runs the forward DP with no history and
+// leaves each pair's cell count (3 x its rows' widths and score 0's one
+// diagonal; 0 for a pair it flags) in off[b]; wfa_offsets turns the counts
+// into offsets, each region rounded up to ALIGN cells (16 bytes, for the
+// traceback's copies), and the arena's size in off[B], which the caller
+// reads back to allocate the arena.  wfa_forward then runs the same DP
+// (one template body) writing pair b's rows from hist + off[b], and skips
+// a pair the sizing pass flagged.  A 1.5 kb 16S pair's arena and row
+// table take ~37 KiB, where room for every score at the full window took
+// 776 KiB.
 //
 // wfa_traceback, one warp per pair: the warp copies the pair's row table
 // and its cells (~20 KB for a 1.5 kb gene pair; the newest 48 or 112 KB of
@@ -76,6 +89,8 @@ constexpr int SEQ_WORDS = 160;  // per-warp cache of a pair's packed words
 // 4,096 pairs on an H100: half the pairs in flight)
 constexpr int TB_SMEM_MANY = 48 << 10, TB_SMEM_FEW = 112 << 10, TB_FEW = 264;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int ALIGN = 8;  // cells: each pair's region of the arena starts 16-byte aligned
+constexpr int SCAN = 1024;  // threads of wfa_offsets
 
 // 32 bases starting at base i, MSB first
 __device__ __forceinline__ uint64_t bases_at(const uint64_t* s, int i) {
@@ -122,16 +137,16 @@ __host__ __device__ constexpr int warp_smem(int R, int W) {
 
 __host__ __device__ constexpr int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
-__global__ void __launch_bounds__(WARPS * 32)
-wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
-            const int64_t* __restrict__ t_off, const int32_t* __restrict__ ns,
-            const int32_t* __restrict__ ms, int B, int S, int W, int R, int G, int x, int o,
-            int e, int min_wf_len, int max_dist_diff, int16_t* hist, int2* meta,
-            int32_t* done_s) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The forward DP of pair b, one warp; WRITE: its rows to hist + off[b] and
+// meta, else only its cell count to off[b].  done_s[b] is the final score.
+template <bool WRITE>
+__device__ __forceinline__ void forward_pair(
+    unsigned char* smem, int b, const uint64_t* __restrict__ seq,
+    const int64_t* __restrict__ q_off, const int64_t* __restrict__ t_off,
+    const int32_t* __restrict__ ns, const int32_t* __restrict__ ms, int S, int W, int R, int G,
+    int x, int o, int e, int min_wf_len, int max_dist_diff, int64_t* off, int16_t* hist,
+    int2* meta, int32_t* done_s) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int b = blockIdx.x * WARPS + wid;
-  if (b >= B) return;  // whole warps only: nothing below waits on the block
   unsigned char* mine = smem + wid * warp_smem(R, W);
   uint64_t* cache = reinterpret_cast<uint64_t*>(mine);
   int4* r_meta = reinterpret_cast<int4*>(mine + SEQ_WORDS * 8);  // per slot: lo, width, tlo, thi
@@ -148,8 +163,8 @@ wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
     t = cache + nq;
     __syncwarp();
   }
-  int16_t* hb = hist + (int64_t)b * S * 3 * W;
-  int2* mb = meta + (int64_t)b * S;
+  int16_t* hb = WRITE ? hist + off[b] : nullptr;
+  int2* mb = WRITE ? meta + (int64_t)b * S : nullptr;
 
   // s = 0: diagonal 0 only
   const int m0 = extend(q, t, n, m, 0, 0);
@@ -158,10 +173,12 @@ wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
     ring[W] = (int16_t)NEG;
     ring[2 * W] = (int16_t)NEG;
     r_meta[0] = make_int4(0, 1, 0, 0);
-    hb[0] = (int16_t)m0;
-    hb[1] = (int16_t)NEG;
-    hb[2] = (int16_t)NEG;
-    mb[0] = make_int2(0, 1);
+    if (WRITE) {
+      hb[0] = (int16_t)m0;
+      hb[1] = (int16_t)NEG;
+      hb[2] = (int16_t)NEG;
+      mb[0] = make_int2(0, 1);
+    }
   }
   __syncwarp();
   int s_final = (k_end == 0 && m0 >= m) ? 0 : -1;
@@ -189,7 +206,7 @@ wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
     if (kmin > kmax) {  // no live source: a dead row
       if (lane == 0) {
         r_meta[slot] = make_int4(BIG, 0, 1, 0);
-        mb[s] = make_int2(BIG, cum << 9);
+        if (WRITE) mb[s] = make_int2(BIG, cum << 9);
       }
       __syncwarp();
       continue;
@@ -234,7 +251,7 @@ wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
     const bool prune = cnt >= min_wf_len;
 
     // pass 2: the reduction, the row to the ring and the history, its span
-    int16_t* hrow = hb + cum * 3;
+    int16_t* hrow = WRITE ? hb + cum * 3 : nullptr;
     int tlo = BIG, thi = -BIG;
     bool hit = false;
     for (int base = 0; base < width; base += 32) {
@@ -250,9 +267,11 @@ wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
         row[idx] = (int16_t)M;
         row[W + idx] = (int16_t)I;
         row[2 * W + idx] = (int16_t)D;
-        hrow[idx] = (int16_t)M;
-        hrow[width + idx] = (int16_t)I;
-        hrow[2 * width + idx] = (int16_t)D;
+        if (WRITE) {
+          hrow[idx] = (int16_t)M;
+          hrow[width + idx] = (int16_t)I;
+          hrow[2 * width + idx] = (int16_t)D;
+        }
         live = M > NEG || I > NEG || D > NEG;
         hit = hit || (k == k_end && M >= m);
       }
@@ -264,20 +283,89 @@ wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
     }
     if (lane == 0) {
       r_meta[slot] = make_int4(lo, width, tlo, thi);
-      mb[s] = make_int2(lo, (cum << 9) | width);
+      if (WRITE) mb[s] = make_int2(lo, (cum << 9) | width);
     }
     cum += width;
     if (__any_sync(FULL, hit)) s_final = s;
     __syncwarp();
   }
-  if (lane == 0) done_s[b] = s_final;
+  if (lane == 0) {
+    done_s[b] = s_final;
+    if (!WRITE) off[b] = s_final >= 0 ? 3 * (int64_t)cum : 0;
+  }
+}
+
+// the sizing pass: each pair's history cells to off[b] (0 where flagged)
+__global__ void __launch_bounds__(WARPS * 32)
+wfa_size(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
+         const int64_t* __restrict__ t_off, const int32_t* __restrict__ ns,
+         const int32_t* __restrict__ ms, int B, int S, int W, int R, int G, int x, int o, int e,
+         int min_wf_len, int max_dist_diff, int64_t* off, int32_t* done_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // whole warps only: nothing below waits on the block
+  forward_pair<false>(smem, b, seq, q_off, t_off, ns, ms, S, W, R, G, x, o, e, min_wf_len,
+                      max_dist_diff, off, nullptr, nullptr, done_s);
+}
+
+// off [B + 1]: the counts of off[0, B) -> their exclusive prefix sums, each
+// rounded up to ALIGN cells, and the arena's cells in off[B]; one block
+__global__ void __launch_bounds__(SCAN) wfa_offsets(int64_t* off, int B) {
+  __shared__ int64_t warp_sum[SCAN / 32];
+  __shared__ int64_t carry;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int base = 0; base < B; base += SCAN) {
+    const int i = base + threadIdx.x;
+    const int64_t v = i < B ? (off[i] + ALIGN - 1) / ALIGN * ALIGN : 0;
+    int64_t inc = v;  // inclusive sum over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int64_t y = __shfl_up_sync(FULL, inc, d);
+      if (lane >= d) inc += y;
+    }
+    if (lane == 31) warp_sum[wid] = inc;
+    __syncthreads();
+    if (wid == 0) {  // inclusive sum over the warps' sums
+      int64_t w = warp_sum[lane];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int64_t y = __shfl_up_sync(FULL, w, d);
+        if (lane >= d) w += y;
+      }
+      warp_sum[lane] = w;
+    }
+    __syncthreads();
+    inc += (wid ? warp_sum[wid - 1] : 0) + carry;
+    if (i < B) off[i] = inc - v;
+    __syncthreads();  // every thread has read carry
+    if (threadIdx.x == SCAN - 1) carry = inc;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) off[B] = carry;
+}
+
+// the write pass: the sized pairs' rows into the arena
+__global__ void __launch_bounds__(WARPS * 32)
+wfa_forward(const uint64_t* __restrict__ seq, const int64_t* __restrict__ q_off,
+            const int64_t* __restrict__ t_off, const int32_t* __restrict__ ns,
+            const int32_t* __restrict__ ms, int B, int S, int W, int R, int G, int x, int o,
+            int e, int min_wf_len, int max_dist_diff, int64_t* off, int16_t* hist, int2* meta,
+            int32_t* done_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (b >= B || done_s[b] < 0) return;  // flagged by the sizing pass: no room
+  forward_pair<true>(smem, b, seq, q_off, t_off, ns, ms, S, W, R, G, x, o, e, min_wf_len,
+                     max_dist_diff, off, hist, meta, done_s);
 }
 
 __global__ void __launch_bounds__(128)
-wfa_traceback(const int16_t* __restrict__ hist, const int2* __restrict__ meta,
-              const int32_t* __restrict__ done_s, const int32_t* __restrict__ ns,
-              const int32_t* __restrict__ ms, int B, int S, int W, int CAP, int x, int o, int e,
-              int stage_bytes, int8_t* ops, int32_t* cnts, int32_t* nops) {
+wfa_traceback(const int64_t* __restrict__ off, const int16_t* __restrict__ hist,
+              const int2* __restrict__ meta, const int32_t* __restrict__ done_s,
+              const int32_t* __restrict__ ns, const int32_t* __restrict__ ms, int B, int S,
+              int CAP, int x, int o, int e, int stage_bytes, int8_t* ops, int32_t* cnts,
+              int32_t* nops) {
   extern __shared__ __align__(16) unsigned char tb_smem[];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + wid;
@@ -287,7 +375,7 @@ wfa_traceback(const int16_t* __restrict__ hist, const int2* __restrict__ meta,
     if (lane == 0) nops[b] = -1;
     return;
   }
-  const int16_t* hb = hist + (int64_t)b * S * 3 * W;
+  const int16_t* hb = hist + off[b];
   const int2* mb = meta + (int64_t)b * S;
   // the pair's history into the warp's shared memory: its row table up to
   // done_s where that takes at most half of stage_bytes (8 bytes a lane a
@@ -410,46 +498,78 @@ wfa_traceback(const int16_t* __restrict__ hist, const int2* __restrict__ meta,
   nops[b] = ok ? w : -1;
 }
 
+// a shape's ring rows R, score step G and a forward block's shared memory,
+// or an error for a shape this build does not take
+int forward_shape(int S, int W, int x, int o, int e, int* R, int* G, int* smem) {
+  if (W < 32 || W > MAX_W || W % 32 || S < 1 || x < 1 || e < 1 || o < 0 ||
+      (int64_t)S * W >= (1 << 22))
+    return (int)cudaErrorInvalidValue;
+  *G = gcd(gcd(x, o + e), e);
+  *R = (x > o + e ? x : o + e) / *G + 1;
+  if (*R > MAX_R) return (int)cudaErrorInvalidValue;
+  *smem = WARPS * warp_smem(*R, W);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches both kernels on `stream` and returns cudaGetLastError() after
-// them (cudaErrorInvalidValue for a shape this build does not take).
-// hist int16 [B, S * 3 * W], meta int2 [B, S] and done_s int32 [B] are the
-// caller's scratch.
+// The sizing pass on `stream`: wfa_size, then wfa_offsets.  off int64
+// [B + 1] gets each pair's offset in the arena (in int16 cells) and the
+// arena's cells in off[B]; done_s int32 [B] each pair's final score (-1:
+// flagged).  Returns cudaGetLastError() after them (cudaErrorInvalidValue
+// for a shape this build does not take).
+int wfa_size_batch(const void* seq, const void* q_off, const void* t_off, const void* ns,
+                   const void* ms, int B, int S, int W, int x, int o, int e, int min_wf_len,
+                   int max_dist_diff, void* off, void* done_s, void* stream) {
+  if (B <= 0) return 0;
+  int R, G, smem;
+  int err = forward_shape(S, W, x, o, e, &R, &G, &smem);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(wfa_size, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  wfa_size<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, st>>>(
+      (const uint64_t*)seq, (const int64_t*)q_off, (const int64_t*)t_off, (const int32_t*)ns,
+      (const int32_t*)ms, B, S, W, R, G, x, o, e, min_wf_len, max_dist_diff, (int64_t*)off,
+      (int32_t*)done_s);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  wfa_offsets<<<1, SCAN, 0, st>>>((int64_t*)off, B);
+  return (int)cudaGetLastError();
+}
+
+// The write pass and the traceback on `stream`, after wfa_size_batch with
+// the same pairs, off and done_s: hist int16 [off[B]] (the arena) and meta
+// int2 [B, S] are the caller's scratch.  Returns as wfa_size_batch.
 int wfa_align_batch(const void* seq, const void* q_off, const void* t_off, const void* ns,
                     const void* ms, int B, int S, int W, int CAP, int x, int o, int e,
-                    int min_wf_len, int max_dist_diff, void* hist, void* meta, void* done_s,
-                    void* ops, void* cnts, void* nops, void* stream) {
+                    int min_wf_len, int max_dist_diff, void* off, void* hist, void* meta,
+                    void* done_s, void* ops, void* cnts, void* nops, void* stream) {
   if (B <= 0) return 0;
-  if (W < 32 || W > MAX_W || W % 32 || S < 1 || CAP < 1 || x < 1 || e < 1 || o < 0 ||
-      (int64_t)S * W >= (1 << 22))
-    return (int)cudaErrorInvalidValue;
-  const int G = gcd(gcd(x, o + e), e);
-  const int R = (x > o + e ? x : o + e) / G + 1;
-  if (R > MAX_R) return (int)cudaErrorInvalidValue;
-  const int smem = WARPS * warp_smem(R, W);
-  cudaError_t err = cudaFuncSetAttribute(wfa_forward,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  int R, G, smem;
+  int err = CAP < 1 ? (int)cudaErrorInvalidValue : forward_shape(S, W, x, o, e, &R, &G, &smem);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(wfa_forward, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  if (err) return err;
   const bool few = B <= TB_FEW;
   const int tb_warps = few ? 1 : 4, tb_smem = few ? TB_SMEM_FEW : TB_SMEM_MANY;
-  err = cudaFuncSetAttribute(wfa_traceback, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tb_warps * tb_smem);
-  if (err != cudaSuccess) return (int)err;
+  err = (int)cudaFuncSetAttribute(wfa_traceback, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  tb_warps * tb_smem);
+  if (err) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = (B + WARPS - 1) / WARPS;
-  wfa_forward<<<blocks, WARPS * 32, smem, st>>>(
+  wfa_forward<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, st>>>(
       (const uint64_t*)seq, (const int64_t*)q_off, (const int64_t*)t_off, (const int32_t*)ns,
-      (const int32_t*)ms, B, S, W, R, G, x, o, e, min_wf_len, max_dist_diff, (int16_t*)hist,
-      (int2*)meta, (int32_t*)done_s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      (const int32_t*)ms, B, S, W, R, G, x, o, e, min_wf_len, max_dist_diff, (int64_t*)off,
+      (int16_t*)hist, (int2*)meta, (int32_t*)done_s);
+  err = (int)cudaGetLastError();
+  if (err) return err;
   wfa_traceback<<<(B + tb_warps - 1) / tb_warps, tb_warps * 32, tb_warps * tb_smem, st>>>(
-      (const int16_t*)hist, (const int2*)meta, (const int32_t*)done_s, (const int32_t*)ns,
-      (const int32_t*)ms, B, S, W, CAP, x, o, e, tb_smem, (int8_t*)ops, (int32_t*)cnts,
-      (int32_t*)nops);
+      (const int64_t*)off, (const int16_t*)hist, (const int2*)meta, (const int32_t*)done_s,
+      (const int32_t*)ns, (const int32_t*)ms, B, S, CAP, x, o, e, tb_smem, (int8_t*)ops,
+      (int32_t*)cnts, (int32_t*)nops);
   return (int)cudaGetLastError();
 }
 

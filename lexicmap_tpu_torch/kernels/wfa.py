@@ -1,5 +1,6 @@
-"""Gap-affine WFA of a batch of sequence pairs: the two hand-written CUDA
-kernels of `csrc/wfa.cu` (forward, then traceback) and their plain
+"""Gap-affine WFA of a batch of sequence pairs: the hand-written CUDA
+kernels of `csrc/wfa.cu` (a sizing pass of the forward DP, then the
+forward DP writing its history, then the traceback) and their plain
 PyTorch twin.
 
   wfa_batch  (replaces lexicmap_tpu/parallel/wfa_device.py::build_wfa_step
@@ -15,10 +16,13 @@ cnts int32 [B, CAP], the runs newest first with equal neighbours merged,
 and nops int32 [B], the number of runs, or -1 for a pair that overflowed
 the window of W diagonals or S scores (or CAP runs): such a pair is not
 answered and goes to the host.  On the card the three outputs are views of
-one buffer (`parallel.fetch_numpy` brings them back in one copy), and the
-history the traceback reads is scratch of `history_bytes(B, S, W)`: room
-for [B, S, 3, W] int16 cells, of which each score writes only its live
-span, and a [B, S] int2 row table.  The caller bounds B.
+one buffer (`parallel.fetch_numpy` brings them back in one copy).  The
+history the traceback reads is sized, then written: the sizing pass counts
+the int16 cells each pair's live spans take, the wrapper reads the launch's
+total back (one 8-byte fetch, labelled SIZE_LABEL) and allocates that
+packed arena and a [B, S] int2 row table, `history_bytes_packed`.
+`history_bytes(B, S, W)`, room for every score's row at the full window,
+is the most a launch could take: the caller bounds B by it.
 """
 
 from __future__ import annotations
@@ -35,9 +39,11 @@ from .seed_locate import _on_device
 from .seed_match import bit_length
 
 NEG = -20000  # a dead wavefront cell (int16 history)
+ALIGN = 8  # int16 cells: each pair's region of the arena starts 16-byte aligned
 BIG = 1 << 20  # the window start of a score with no live source
 L_MAX = 30000  # longest sequence: offsets fit the int16 history
 OPS = "MXID"
+SIZE_LABEL = "device WFA size"  # the transport label of the arena's size read
 
 _count_lock = threading.Lock()
 
@@ -66,9 +72,28 @@ def pack_pairs(pairs):
 
 
 def history_bytes(B: int, S: int, W: int) -> int:
-    """Device bytes of the scratch a launch of B pairs takes: the history's
-    room, its row table and each pair's final score."""
+    """Device bytes of the most scratch a launch of B pairs can take: room
+    for every score's row at the full window W, its row table and each
+    pair's final score (history_bytes_packed of B * S * 3 * W cells)."""
     return B * (S * (3 * W * 2 + 8) + 4)
+
+
+def history_bytes_packed(cells: int, B: int, S: int) -> int:
+    """Device bytes of the scratch a launch of B pairs takes when their
+    regions of the arena hold `cells` int16 cells in all: the arena, its
+    [B, S] int2 row table and each pair's final score (the sizing pass's
+    B + 1 int64 offsets besides)."""
+    return 2 * cells + B * (8 * S + 4)
+
+
+def packed_offsets(cells):
+    """Each pair's history cells int64 [B] (0 for a flagged pair) -> the
+    arena's offsets int64 [B + 1]: pair b's region from off[b], each
+    rounded up to ALIGN cells, and the arena's cells in off[B] (what the
+    card's wfa_offsets computes)."""
+    off = torch.zeros(cells.shape[0] + 1, dtype=torch.int64, device=cells.device)
+    torch.cumsum((cells + ALIGN - 1) // ALIGN * ALIGN, 0, out=off[1:])
+    return off
 
 
 # ---------------------------------------------------------------------------
@@ -111,9 +136,11 @@ def _extend(f, ks, qw, tw, n, m, live):
 def _forward(seq, q_off, t_off, n, m, S, W, x, o, e, min_wf_len, max_dist_diff, work=None):
     """The forward pass for all pairs in lockstep, one score at a time,
     vectorised over pairs x diagonals.  Returns (hist int16 [B, S, 3, W],
-    lo int32 [B, S], done_s int32 [B]); `work` (a dict) gains the cells
-    the rows span (the native's row widths), the rows computed and the
-    bases the extension advances."""
+    lo int32 [B, S], done_s int32 [B], cells int64 [B]): `cells` is the
+    int16 history cells the card's write pass writes for each pair (three
+    a diagonal of every computed span, with score 0's one), 0 for a pair
+    it flags; `work` (a dict) gains the cells the rows span (the native's
+    row widths), the rows computed and the bases the extension advances."""
     dev = seq.device
     B = n.shape[0]
     nl, ml = n.to(torch.int64), m.to(torch.int64)
@@ -139,6 +166,7 @@ def _forward(seq, q_off, t_off, n, m, S, W, x, o, e, min_wf_len, max_dist_diff, 
     done = (k_end == 0) & (m0 >= ml)
     done_s = torch.where(done, 0, -1)
     running = ~done
+    cum = torch.ones(B, dtype=torch.int64, device=dev)  # cells a kind, score 0's one
 
     def get(src, which, kk):
         if src < 0:
@@ -163,6 +191,7 @@ def _forward(seq, q_off, t_off, n, m, S, W, x, o, e, min_wf_len, max_dist_diff, 
         over = running & has_src & (kmax - kmin + 1 > W)
         running = running & ~over
         act = running & has_src
+        cum += torch.where(act, kmax - kmin + 1, 0)
         row_lo = torch.where(act, kmin, BIG)
         ks = row_lo[:, None] + lane[None, :]
         D = torch.maximum(get(s - o - e, 0, ks - 1), get(s - e, 2, ks - 1))
@@ -203,7 +232,8 @@ def _forward(seq, q_off, t_off, n, m, S, W, x, o, e, min_wf_len, max_dist_diff, 
         hit = act & (k_end >= row_lo) & (k_end < row_lo + W) & (M[rows, at] >= ml)
         done_s = torch.where(hit, s, done_s)
         running = running & ~hit
-    return hist, lo.to(torch.int32), done_s.to(torch.int32)
+    cells = torch.where(done_s >= 0, 3 * cum, 0)
+    return hist, lo.to(torch.int32), done_s.to(torch.int32), cells
 
 
 def _traceback(hist, lo, done_s, n, m, CAP, x, o, e, work=None):
@@ -302,8 +332,8 @@ def wfa_plain(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
     arguments and outputs as `wfa_batch`; runs past nops are 0.  `work`,
     when given, is a dict that gains the counts of _forward and _traceback
     (the data's own work, for a bound)."""
-    hist, lo, done_s = _forward(seq, q_off, t_off, n, m, S, W, x, o, e, min_wf_len,
-                                max_dist_diff, work)
+    hist, lo, done_s, _ = _forward(seq, q_off, t_off, n, m, S, W, x, o, e, min_wf_len,
+                                   max_dist_diff, work)
     return _traceback(hist, lo, done_s, n, m, CAP, x, o, e, work)
 
 
@@ -322,7 +352,8 @@ def kernel_lib() -> ctypes.CDLL:
 
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         _lib_handle = bind("wfa", {
-            "wfa_align_batch": ([vp] * 5 + [i32] * 9 + [vp] * 7, i32),
+            "wfa_size_batch": ([vp] * 5 + [i32] * 8 + [vp] * 3, i32),
+            "wfa_align_batch": ([vp] * 5 + [i32] * 9 + [vp] * 8, i32),
             "wfa_error_string": ([i32], ctypes.c_char_p)})
     return _lib_handle
 
@@ -349,15 +380,32 @@ def check_pairs(NW, q_off, t_off, n, m):
         raise ValueError("a sequence's words pass the end of seq")
 
 
+def _raise_on(lib, err: int):
+    if err != 0:
+        raise RuntimeError(f"wfa_batch launch failed: {lib.wfa_error_string(err).decode()}")
+
+
+def _arena_cells(off, B, S, scratch):
+    """The arena's cells, off[B], read back (the launch's one wait before
+    its outputs); its history_bytes_packed added to scratch["hist_bytes"]
+    where scratch is a dict."""
+    cells = int(fetch_numpy(SIZE_LABEL, off[B:])[0][0])
+    if scratch is not None:
+        scratch["hist_bytes"] = scratch.get("hist_bytes", 0) + history_bytes_packed(cells, B, S)
+    return cells
+
+
 def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
-              max_dist_diff=50, checked=False):
+              max_dist_diff=50, checked=False, scratch=None):
     """Align every pair of a batch (see the module docstring for the
     layout): W diagonals a window (a multiple of 32, at most 256), S
     scores, CAP runs a pair.  `checked` says the caller has run
-    check_pairs on the batch's host copy.  Returns (ops int8 [B, CAP],
-    cnts int32 [B, CAP], nops int32 [B]).  CUDA tensors launch the kernels
-    (`launches` counts the launches of the pair); CPU tensors run the
-    plain version."""
+    check_pairs on the batch's host copy; `scratch`, a dict, gains under
+    "hist_bytes" the history bytes the call took (history_bytes_packed of
+    the sized arena).  Returns (ops int8 [B, CAP], cnts int32 [B, CAP],
+    nops int32 [B]).  CUDA tensors launch the kernels (`launches` counts
+    the calls that launch them); CPU tensors run the plain version, which
+    sizes the arena as the card does."""
     dev = seq.device
     _check("seq", seq, torch.int64, dev)
     if seq.dim() != 1 or seq.shape[0] == 0:
@@ -375,8 +423,10 @@ def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
     if not checked:
         check_pairs(seq.shape[0], q_off, t_off, n, m)
     if dev.type == "cpu":
-        return wfa_plain(seq, q_off, t_off, n, m, S, W, CAP, x, o, e, min_wf_len,
-                         max_dist_diff)
+        hist, lo, done_s, cells = _forward(seq, q_off, t_off, n, m, S, W, x, o, e, min_wf_len,
+                                           max_dist_diff)
+        _arena_cells(packed_offsets(cells), B, S, scratch)
+        return _traceback(hist, lo, done_s, n, m, CAP, x, o, e)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = kernel_lib()
@@ -386,15 +436,19 @@ def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
     ops = out[4 * B * (1 + CAP):].view(torch.int8).view(B, CAP)
     if B == 0:
         return ops, cnts, nops
-    scratch = torch.empty(history_bytes(B, S, W), dtype=torch.uint8, device=dev)
-    hist, meta = scratch.data_ptr(), scratch.data_ptr() + B * S * 3 * W * 2
-    done_s = meta + B * S * 8
-    err = _on_device(dev, lambda stream: lib.wfa_align_batch(
-        seq.data_ptr(), q_off.data_ptr(), t_off.data_ptr(), n.data_ptr(), m.data_ptr(), B,
-        S, W, CAP, x, o, e, min_wf_len, max_dist_diff, hist, meta, done_s, ops.data_ptr(),
-        cnts.data_ptr(), nops.data_ptr(), stream))
-    if err != 0:
-        raise RuntimeError(f"wfa_batch launch failed: {lib.wfa_error_string(err).decode()}")
+    pairs = (seq.data_ptr(), q_off.data_ptr(), t_off.data_ptr(), n.data_ptr(), m.data_ptr(),
+             B, S, W)
+    sized = torch.empty(12 * B + 8, dtype=torch.uint8, device=dev)
+    off = sized[: 8 * (B + 1)].view(torch.int64)
+    done_s = sized[8 * (B + 1):].view(torch.int32)
+    _raise_on(lib, _on_device(dev, lambda stream: lib.wfa_size_batch(
+        *pairs, x, o, e, min_wf_len, max_dist_diff, off.data_ptr(), done_s.data_ptr(), stream)))
+    cells = _arena_cells(off, B, S, scratch)
+    arena = torch.empty(2 * cells + 8 * B * S, dtype=torch.uint8, device=dev)
+    _raise_on(lib, _on_device(dev, lambda stream: lib.wfa_align_batch(
+        *pairs, CAP, x, o, e, min_wf_len, max_dist_diff, off.data_ptr(), arena.data_ptr(),
+        arena.data_ptr() + 2 * cells, done_s.data_ptr(), ops.data_ptr(), cnts.data_ptr(),
+        nops.data_ptr(), stream)))
     with _count_lock:
         wfa_batch.launches += 1
     return ops, cnts, nops

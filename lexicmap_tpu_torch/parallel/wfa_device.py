@@ -16,8 +16,10 @@ powers of two (no compile shapes).  A pair with an empty side, one longer
 than the last bucket, or one the kernels flag (a live span wider than W, no
 end within S scores) is aligned by the host's wfa_align: exact in every
 case.  Each such host alignment is a span `wfa.host`, and each call adds
-its pairs to the counters `wfa.card_pairs` and `wfa.host_pairs`, under the
-recorder bound to the calling thread (utils/spans.py).
+its pairs to the counters `wfa.card_pairs` and `wfa.host_pairs`, and the
+history bytes its launches took (each sized to what its pairs write, at
+most HIST_BYTES) to `wfa.hist_bytes`, under the recorder bound to the
+calling thread (utils/spans.py).
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ BUCKETS = (
     (8192, 4096, 192),
     (30000, 12288, 256),
 )
-#: device bytes of one launch's wavefront history (the JAX package keeps
-#: ~512 MB of it per dispatch)
+#: the most device bytes one launch's wavefront history could take
+#: (history_bytes: every score's row at the full window), which cuts a
+#: bucket into launches; a launch takes what its pairs write (the JAX
+#: package keeps ~512 MB of it per dispatch)
 HIST_BYTES = 512 << 20
 
 
@@ -92,13 +96,15 @@ class DeviceWFA:
                 host.append(i)
             else:
                 groups.setdefault(b, []).append(i)
-        launches = flagged = 0
+        launches = flagged = hist_bytes = 0
         for b, idxs in groups.items():
             L, S, W = b
             per = max(1, HIST_BYTES // history_bytes(1, S, W))
             for c0 in range(0, len(idxs), per):
                 chunk = idxs[c0: c0 + per]
-                for i, ops in zip(chunk, self._align_chunk(b, [pairs[i] for i in chunk])):
+                got, took = self._align_chunk(b, [pairs[i] for i in chunk])
+                hist_bytes += took
+                for i, ops in zip(chunk, got):
                     if ops is None:
                         flagged += 1
                         host.append(i)
@@ -117,11 +123,13 @@ class DeviceWFA:
             self.launches += launches
         bound_tally("wfa.card_pairs", len(pairs) - len(host))
         bound_tally("wfa.host_pairs", len(host))
+        bound_tally("wfa.hist_bytes", hist_bytes)
         return results
 
     def _align_chunk(self, bucket, pairs):
         """One launch over `pairs` (all within `bucket`, at most its
-        HIST_BYTES share): op lists, None where the kernels flagged."""
+        HIST_BYTES share): (op lists, None where the kernels flagged; the
+        history bytes the launch took)."""
         L, S, W = bucket
         arrs = pack_pairs(pairs)
         check_pairs(arrs[0].shape[0], *arrs[1:])
@@ -133,9 +141,10 @@ class DeviceWFA:
                                np.concatenate([arrs[3], arrs[4]]).view(np.int64)])
         up = torch.from_numpy(host).to(self.device)
         lens = up[NW + 2 * B:].view(torch.int32)
+        scratch = {}
         ops, cnts, nops = wfa_batch(
             up[:NW], up[NW: NW + B], up[NW + B: NW + 2 * B], lens[:B], lens[B:],
             S, W, S + 8, self.x, self.o, self.e, self.min_wf_len, self.max_dist_diff,
-            checked=True)
+            checked=True, scratch=scratch)
         ops, cnts, nops = fetch_numpy("device WFA", ops, cnts, nops)
-        return decode_ops(ops, cnts, nops)
+        return decode_ops(ops, cnts, nops), scratch["hist_bytes"]

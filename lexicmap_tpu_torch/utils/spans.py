@@ -46,8 +46,11 @@ KEYS = ("mask", "match", "anchors", "chain", "winprep", "pseudo", "align", "wfa"
 #: items, not seconds: phase 5's WFA pairs aligned on the card and on the
 #: host (DeviceWFA.stats' device_pairs, and host_pairs + flagged_pairs),
 #: phase 4's windows answered on the card and sent to the host
-#: (DevicePseudoAligner.stats' device_windows and host_windows)
-COUNTERS = ("wfa.card_pairs", "wfa.host_pairs", "pseudo.card_windows", "pseudo.host_windows")
+#: (DevicePseudoAligner.stats' device_windows and host_windows), and the
+#: bytes of WFA history the card's launches took (kernels/wfa.py's
+#: history_bytes_packed, summed over a call's launches)
+COUNTERS = ("wfa.card_pairs", "wfa.host_pairs", "pseudo.card_windows", "pseudo.host_windows",
+            "wfa.hist_bytes")
 KEYS += COUNTERS
 
 _bound = threading.local()

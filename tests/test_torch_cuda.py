@@ -31,6 +31,7 @@ from torch_parity import (
     shard_stack_case,
     sharded_db,
     to_torch,
+    wfa_bucket_mix,
     wfa_pairs,
     wfa_tensors,
 )
@@ -383,6 +384,44 @@ def test_cuda_wfa_equals_plain_and_host(cuda_device):
     assert ops[-1] is None
     for (q, t), o in zip(pairs[:-1], ops[:-1]):
         assert o == wfa_align(q, t).ops
+
+
+@pytest.mark.cuda
+def test_cuda_wfa_packed_history(cuda_device):
+    """Size, then write, on pairs in buckets 1-3 and one the kernels flag:
+    each launch's ops == the plain version's == wfa_align's, its arena's
+    bytes == the plain version's per-pair sizes (history_bytes_packed),
+    and DeviceWFA reads one size and one output buffer back a launch, each
+    under its own transport label."""
+    from lexicmap_tpu_torch.ops.wfa import wfa_align
+    from lexicmap_tpu_torch.parallel import transport
+    from lexicmap_tpu_torch.parallel import wfa_device as WD
+
+    pairs = wfa_bucket_mix(0.02)
+    groups = {}
+    for p in pairs:
+        groups.setdefault(WD.bucket_for(len(p[0]), len(p[1])), []).append(p)
+    flagged = 0
+    for (_, S, W), group in groups.items():
+        args = wfa_tensors(group, cuda_device)
+        scratch = {}
+        got = WK.decode_ops(*(t.cpu().numpy()
+                              for t in WK.wfa_batch(*args, S, W, S + 8, scratch=scratch)))
+        assert got == WK.decode_ops(*(t.cpu().numpy() for t in WK.wfa_plain(*args, S, W, S + 8)))
+        for (q, t), g in zip(group, got):
+            assert g is None or g == wfa_align(q, t).ops
+        flagged += sum(g is None for g in got)
+        cells = WK._forward(*wfa_tensors(group), S, W, 4, 6, 2, 10, 50)[3]
+        packed = int(WK.packed_offsets(cells)[-1])
+        assert scratch["hist_bytes"] == WK.history_bytes_packed(packed, len(group), S)
+    assert flagged == 1
+    sizes = dict(transport.get(WK.SIZE_LABEL, {"fetches": 0}))
+    outs = dict(transport.get("device WFA", {"fetches": 0}))
+    dw = WD.DeviceWFA(device=cuda_device)
+    assert dw.align_batch(pairs) == [wfa_align(q, t).ops for q, t in pairs]
+    assert dw.launches == len(groups) and dw.stats["flagged_pairs"] == 1
+    assert transport[WK.SIZE_LABEL]["fetches"] - sizes["fetches"] == dw.launches
+    assert transport["device WFA"]["fetches"] - outs["fetches"] == dw.launches
 
 
 @pytest.mark.cuda

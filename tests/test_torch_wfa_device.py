@@ -12,6 +12,7 @@ jax = pytest.importorskip("jax")
 
 from torch_parity import (
     mutate_pair,
+    wfa_bucket_mix,
     wfa_edge_cases,
     wfa_pairs,
     wfa_span_pair,
@@ -24,6 +25,7 @@ from lexicmap_tpu.parallel.wfa_device import DeviceWFA as JaxWFA
 from lexicmap_tpu_torch.kernels import wfa as WK
 from lexicmap_tpu_torch.ops.wfa import wfa_align
 from lexicmap_tpu_torch.parallel import wfa_device as WD
+from lexicmap_tpu_torch.utils import spans as SP
 
 
 @pytest.fixture(scope="module")
@@ -171,7 +173,7 @@ def test_span_replay_equals_plain_counts(pairs):
     of them (and three for score 0) instead of 3 x W a row."""
     S, W = 1024, 128
     work = {}
-    hist, lo, done = WK._forward(*wfa_tensors(pairs), S, W, 4, 6, 2, 10, 50, work=work)
+    hist, lo, done, _ = WK._forward(*wfa_tensors(pairs), S, W, 4, 6, 2, 10, 50, work=work)
     rep = wfa_span_replay(hist, lo, done)
     assert sum(r["cells"] for r in rep) == work["cells"]
     assert sum(len(r["spans"]) for r in rep) == work["rows"]
@@ -188,7 +190,7 @@ def test_span_replay_equals_plain_counts(pairs):
 def test_span_pairs_are_at_their_boundary(span):
     """The edge pairs' largest span is exactly the one they stand for."""
     args = wfa_tensors([wfa_span_pair(span)])
-    hist, lo, done = WK._forward(*args, 4096, 256, 4, 6, 2, 10, 50)
+    hist, lo, done, _ = WK._forward(*args, 4096, 256, 4, 6, 2, 10, 50)
     assert int(done[0]) >= 0
     assert wfa_span_replay(hist, lo, done)[0]["max_span"] == span
 
@@ -238,3 +240,51 @@ def test_device_wfa_one_fetch_per_launch(monkeypatch):
     before = dict(transport.get("device WFA", {"fetches": 0}))
     assert WD.DeviceWFA(device="cpu").align_batch(pairs) == host_ops(pairs)
     assert transport["device WFA"]["fetches"] - before["fetches"] == 3  # launches of 2, 2, 1
+
+
+@pytest.mark.parametrize("sub_rate", [0.005, 0.02, 0.05])
+def test_history_sized_to_what_pairs_write(sub_rate):
+    """Size, then write: the plain twin's per-pair history cells are the
+    cells the forward kernel writes (wfa_span_replay's hist_cells, 3 x
+    (cells + 1)), 0 for the flagged pair, over pairs in three buckets; a
+    DeviceWFA call tallies under `wfa.hist_bytes` the sum over its launches
+    (one a bucket here) of those sizes, each rounded up to ALIGN cells,
+    plus the row tables and final scores, and reads each launch's size
+    back once under its own transport label."""
+    from lexicmap_tpu_torch.parallel import transport
+
+    pairs = wfa_bucket_mix(sub_rate)
+    groups = {}
+    for p in pairs:
+        groups.setdefault(WD.bucket_for(len(p[0]), len(p[1])), []).append(p)
+    assert list(groups) == list(WD.BUCKETS[:3])
+    want_bytes = flagged = 0
+    for (_, S, W), group in groups.items():
+        hist, lo, done, cells = WK._forward(*wfa_tensors(group), S, W, 4, 6, 2, 10, 50)
+        rep = wfa_span_replay(hist, lo, done)
+        assert cells.tolist() == [r["hist_cells"] if d >= 0 else 0
+                                  for r, d in zip(rep, done.tolist())]
+        assert cells.tolist() == [3 * (r["cells"] + 1) if d >= 0 else 0
+                                  for r, d in zip(rep, done.tolist())]
+        rounded = sum(-(-c // WK.ALIGN) * WK.ALIGN for c in cells.tolist())
+        assert int(WK.packed_offsets(cells)[-1]) == rounded
+        want_bytes += 2 * rounded + len(group) * (8 * S + 4)
+        assert WK.history_bytes_packed(rounded, len(group), S) < WK.history_bytes(len(group), S, W)
+        flagged += int((done < 0).sum())
+    assert flagged == 1  # the unrelated pair, sized 0
+
+    old = getattr(SP._bound, "rec", None)
+    rec = SP.SpanRecorder()
+    rec.bind_thread()
+    sizes = dict(transport.get(WK.SIZE_LABEL, {"fetches": 0}))
+    outs = dict(transport.get("device WFA", {"fetches": 0}))
+    try:
+        dw = WD.DeviceWFA(device="cpu")
+        assert dw.align_batch(pairs) == host_ops(pairs)
+    finally:
+        SP._bound.rec = old
+    assert rec.totals["wfa.hist_bytes"] == want_bytes
+    assert rec.counts["wfa.hist_bytes"] == 1
+    assert dw.stats["flagged_pairs"] == 1
+    assert transport[WK.SIZE_LABEL]["fetches"] - sizes["fetches"] == len(groups)
+    assert transport["device WFA"]["fetches"] - outs["fetches"] == len(groups)

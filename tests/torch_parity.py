@@ -865,6 +865,18 @@ def wfa_pairs(seed=42, per_case=3):
     return pairs
 
 
+def wfa_bucket_mix(sub_rate, seed=23):
+    """Two pairs in each of DeviceWFA's first three buckets (200-4,000
+    bases, `sub_rate` substitutions and a tenth of that in indels), then a
+    pair of unrelated 1,500-base sequences, which the kernels flag (its
+    cost overflows the 1,024 scores of its bucket)."""
+    rng = np.random.default_rng(seed)
+    pairs = [mutate_pair(rng, n, sub_rate, sub_rate / 10) for n in (200, 450, 900, 1800, 2500, 4000)]
+    pairs.append((rng.integers(0, 4, 1500).astype(np.uint8),
+                  rng.integers(0, 4, 1500).astype(np.uint8)))
+    return pairs
+
+
 def wfa_tensors(pairs, device="cpu"):
     """wfa_batch's inputs (seq, q_off, t_off, n, m) for pairs."""
     from lexicmap_tpu_torch.kernels.wfa import pack_pairs
