@@ -268,6 +268,23 @@ def device_ms_by_call(fn, names, reps: int = 20, a_call=None) -> dict:
     return device_rows_by_call(fn, names, reps, a_call)[0]
 
 
+def bound_recorder():
+    """A fresh span recorder bound to this thread: the device stages'
+    counters and card waits go to it (lexicmap_tpu_torch/utils/spans.py)."""
+    from lexicmap_tpu_torch.utils.spans import SpanRecorder
+
+    rec = SpanRecorder()
+    rec.bind_thread()
+    return rec
+
+
+def counters(totals, stage: str) -> dict:
+    """A stage's counters (`<stage>.<what>` of spans.COUNTERS) as ints."""
+    from lexicmap_tpu_torch.utils.spans import COUNTERS
+
+    return {k: int(totals[k]) for k in COUNTERS if k.startswith(stage + ".")}
+
+
 def sync(dev):
     import torch
 
@@ -1782,8 +1799,9 @@ def phase_sharded(dev, card, state, seed, reps, parent=None):
         raise AssertionError("the smoke table must be one bucket, wholly on the card")
     bk = sm.buckets[0]
     H = sm.capacity(bk)
+    rec = bound_recorder()
     got = sm.match_batch(q2, p)
-    second = dict(sm.stats)
+    second = counters(rec.totals, "match")
     want = state["matcher"].match_batch(q2, p)
     suf64 = np.uint64((1 << (2 * (k - p))) - 1)
     bsel, msel = np.nonzero(q2 != 0)
@@ -1801,11 +1819,11 @@ def phase_sharded(dev, card, state, seed, reps, parent=None):
                                  for g, o, w in zip(got[b], oracle, want[b])):
             raise AssertionError(f"query {b}: sharded triples != DeviceSeedMatcher's / oracle")
     declined = sum(g is None for g in got)
-    if (declined or over < B // 2 or second["second_pass_queries"] != over
-            or second["second_passes"] != 1):
+    if (declined or over < B // 2 or second["match.second_pass_queries"] != over
+            or second["match.second_passes"] != 1):
         raise AssertionError(f"expected none declined and >= {B // 2} queries through the "
                              f"second compaction: {declined} declined, {over} over H = {H}, "
-                             f"the matcher's stats {second}")
+                             f"the matcher's counters {second}")
     log(f"[sharded] match_batch: all {B} queries == DeviceSeedMatcher's and the host "
         f"bisection's, none declined; {over} over H = {H} (up to {most} hits a shard) through "
         f"the second compaction, as the matcher reports ({json.dumps(second)})")
@@ -1860,9 +1878,9 @@ def phase_sharded(dev, card, state, seed, reps, parent=None):
     # the same batch with its over-H half random: the first pass alone
     q3 = q2.copy()
     q3[: B // 2] = rng.integers(0, 1 << 62, size=(B // 2, M), dtype=np.uint64)
-    passes = sm.stats["second_passes"]
+    passes = rec.totals["match.second_passes"]
     batch_first_ms = time_ms(lambda: sm.match_batch(q3, p), dev, 3, warmup=0)
-    if sm.stats["second_passes"] != passes:
+    if rec.totals["match.second_passes"] != passes:
         raise AssertionError("the batch without over-H queries took a second compaction")
     for fn in kernel_fns():  # the comparisons' launches do not count
         fn.launches = saved[fn.__name__]
@@ -2221,6 +2239,7 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
     aligner = DevicePseudoAligner(copt.band_base, copt.band_count, int(copt.max_gap),
                                   copt.min_score, copt.min_align_len, device=dev)
     aligner.blob = blob
+    rec = bound_recorder()
     t0 = time.perf_counter()
     res = aligner.run_batch(queries, windows, geoms)
     run_s = time.perf_counter() - t0
@@ -2238,7 +2257,7 @@ def phase_pseudo(dev, card, n_stores, per_store, genome_len, n_sites, n_sample, 
     log(f"[phase4] run_batch over {len(kinds)} windows in {run_s * 1e3:.1f} ms: rows == native "
         f"oracle on every unflagged window ({kinds.count('rows')} rows windows, "
         f"{kinds.count('none')} none, {kinds.count('host')} host: host share "
-        f"{host_share:.4f}); stats {json.dumps(aligner.stats)} [{card}]")
+        f"{host_share:.4f}); counters {json.dumps(counters(rec.totals, "pseudo"))} [{card}]")
     if host_share > 0.1:
         raise AssertionError("more than 10% of the phase-4 windows went to the host")
 
@@ -2416,16 +2435,21 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
     c_bytes = n_anchors * (12 + 9) + gtab.numel() * 4 + off.nbytes + 8 * len(sets)
     cb = (c_bytes / HBM_BYTES_PER_S * 1e3, visits * CHAIN1_OPS_PER_VISIT / FP32_OPS_PER_S * 1e3)
     dc = DeviceChainer(mg, msc, md, device=dev)
+    rec = bound_recorder()
+    launches = C1.chain1_forward.launches
     t1 = time.perf_counter()
     res = dc.chain_batch(sets)
     batch_s = time.perf_counter() - t1
+    dc_launches = C1.chain1_forward.launches - launches
+    dc_counts = counters(rec.totals, "chain")
     if any(k != "ok" for k, _ in res):
-        raise AssertionError(f"DeviceChainer sent genomes to the host: {dc.stats}")
+        raise AssertionError(f"DeviceChainer sent genomes to the host: {dc_counts}")
     chain_res = {"sets": len(sets), "anchors": n_anchors, "visits": visits, "ms": c_ms,
                  "device_ms": c_dev, "device_ms_by": c_by, "plain_ms": plain_ms,
                  "bound_ms": max(cb), "bound_by": "bytes" if cb[0] >= cb[1] else "operations",
-                 "max_abs_err": err, "chain_batch_s": batch_s, "launches_per_batch": dc.launches,
-                 "device_share": 1 - dc.stats["host_genomes"] / dc.stats["genomes"],
+                 "max_abs_err": err, "chain_batch_s": batch_s, "launches_per_batch": dc_launches,
+                 "device_share": 1 - dc_counts["chain.flagged_genomes"]
+                 / dc_counts["chain.genomes"],
                  "steps_longest": int((off[1:] - off[:-1]).max()) - 1,
                  "block_min": C1.BLOCK_MIN, "by_block_min": by_block_min}
     if c_dev is not None:
@@ -2441,7 +2465,7 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
         f"{n_anchors} anchors ({visits} predecessor visits; sets of 2-700 anchors, dense ones of "
         f"1,500, the largest {int((off[1:] - off[:-1]).max())}): kernel {c_ms:.4f} ms as called, device {c_dev} ms, plain "
         f"{plain_ms:.1f} ms, bound {max(cb):.5f} ms by {chain_res['bound_by']}; "
-        f"DeviceChainer.chain_batch {batch_s * 1e3:.1f} ms in {dc.launches} launch, {dc.stats} "
+        f"DeviceChainer.chain_batch {batch_s * 1e3:.1f} ms in {dc_launches} launch, {dc_counts} "
         f"(made and checked in {t1 - t0:.1f} s); device ms by BLOCK_MIN "
         f"{json.dumps(by_block_min)} [{card}]")
     del got, want, cols
@@ -2508,9 +2532,13 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
     hist_bytes_wide = (w_bytes + work["rows"] * (W * 6 + 4) + work["tb_cells"] * 2
                       + work["tb_rows"] * 4)
     dw = DeviceWFA(device=dev)
+    rec = bound_recorder()
+    launches = WK.wfa_batch.launches
     t1 = time.perf_counter()
     res = dw.align_batch(main)
     batch_s = time.perf_counter() - t1
+    dw_launches = WK.wfa_batch.launches - launches
+    dw_counts = counters(rec.totals, "wfa")
     if res != [wfa_align(q, t).ops for q, t in main]:
         raise AssertionError("DeviceWFA.align_batch != wfa_align on the 1.5 kb pairs")
     wfa_res = {"pairs": len(main), "bucket": [L, S, W], "answered": answered,
@@ -2522,8 +2550,8 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
                "history_bytes_wide_rows": hist_bytes_wide,
                "scratch_bytes": arena["hist_bytes"],
                "scratch_bytes_full_window": WK.history_bytes(len(main), S, W),
-               "max_abs_err": 0, "align_batch_s": batch_s, "launches_per_batch": dw.launches,
-               "device_share": dw.stats["device_pairs"] / dw.stats["pairs"]}
+               "max_abs_err": 0, "align_batch_s": batch_s, "launches_per_batch": dw_launches,
+               "device_share": dw_counts["wfa.card_pairs"] / len(main)}
     log(f"[phase7] wfa == plain == wfa_align on {len(main)} pairs of 1.5 kb ({answered} answered "
         f"on the card, {work['cells']} wavefront cells, {work['ext_bases']} bases extended): "
         f"kernel {w_ms:.4f} ms as called (one launch of all), device {w_dev} ms, plain "
@@ -2531,8 +2559,8 @@ def phase_chain_wfa(dev, card, seed, reps, chain_sizes=(), wfa_sizes=(), parents
         f"design's history traffic {wfa_res['history_bound_ms']:.5f} ms); history scratch "
         f"{wfa_res['scratch_bytes']} B (room at the full window: "
         f"{wfa_res['scratch_bytes_full_window']} B); "
-        f"DeviceWFA.align_batch {batch_s * 1e3:.1f} ms in {dw.launches} launches, "
-        f"{dw.stats} (made in {made_s:.1f} s); device ms by kernel {json.dumps(w_by)} [{card}]")
+        f"DeviceWFA.align_batch {batch_s * 1e3:.1f} ms in {dw_launches} launches, "
+        f"{dw_counts} (made in {made_s:.1f} s); device ms by kernel {json.dumps(w_by)} [{card}]")
     if parents and "wfa" in parents:
         wfa_res["parent"] = split_in_turns(
             dev, lambda: parent_wfa(parents["wfa"], *wargs, S, W, S + 8),
@@ -2979,13 +3007,12 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         raise AssertionError("the 200-genome store must be resident on the card")
     log(f"[e2e] {dev_idx.device_matcher.describe()}; resident genome blob "
         f"{eng.blob.hbm_bytes / 1e6:.1f} MB; init + warm pass {init_s:.1f} s")
-    for times in (eng.times, seng.times):  # the timed passes only
+    for times in (eng.times, seng.times):  # the timed passes only, counters included
         for key in times:
             times[key] = 0.0
-    for st in (eng.pseudo.stats, seng.pseudo.stats, stage_idx.device_chainer.stats,
-               stage_idx.device_wfa.stats):
-        for key in st:
-            st[key] = 0
+
+    def windows(times):  # phase 4's windows, on the card and on the host
+        return int(times["pseudo.card_windows"] + times["pseudo.host_windows"])
 
     def timed(idx, qs):
         t0 = time.perf_counter()
@@ -3035,17 +3062,17 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
             stage_s += [t1, t2]
             host_s.append(timed(host, seqs)[1])
         launches = launch_counts()  # ... and ends here
-        stats, times = dict(eng.pseudo.stats), dict(eng.times)
+        times = dict(eng.times)
+        stats, n_windows = counters(times, "pseudo"), windows(times)
         stage_times = dict(seng.times)
-        cstats = dict(stage_idx.device_chainer.stats)
-        wstats = dict(stage_idx.device_wfa.stats)
+        cstats, wstats = counters(stage_times, "chain"), counters(stage_times, "wfa")
 
         # the many-hit set: each query planted in 16 genomes, hundreds of
         # windows in one batch
         keep.append("many-hit batch")
         mids, mseqs = [m[0] for m in many], [m[1] for m in many]
         mhost, mh_s = timed(host, mseqs)
-        w0, l0 = eng.pseudo.stats["windows"], launch_counts()
+        w0, l0 = windows(eng.times), launch_counts()
         mdev, md_s = timed(dev_idx, mseqs)
         ml = launch_counts()
         mstage, ms_s = timed(stage_idx, mseqs)
@@ -3053,7 +3080,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
     finally:
         PD.pseudo_probe = real_probe
         CD.chain1_forward, WD.wfa_batch = real_chain1, real_wfa
-    mwin = eng.pseudo.stats["windows"] - w0
+    mwin = windows(eng.times) - w0
     dev_rows = rows(dev_results, ids, seqs)
 
     # the many-hit set again, in turns: host engine, device engine, and the
@@ -3144,8 +3171,9 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         raise AssertionError("many-hit set: --chain device --wfa device rows differ from host")
     per_pass = -(-len(seqs) // 32)
     stage_batches = len(stage_s) * per_pass
-    chain_share = 1 - cstats["host_genomes"] / max(cstats["genomes"], 1)
-    wfa_share = wstats["device_pairs"] / max(wstats["pairs"], 1)
+    wfa_pairs = wstats["wfa.card_pairs"] + wstats["wfa.host_pairs"]
+    chain_share = 1 - cstats["chain.flagged_genomes"] / max(cstats["chain.genomes"], 1)
+    wfa_share = wstats["wfa.card_pairs"] / max(wfa_pairs, 1)
     if dev.type == "cuda":
         if launches["chain1_forward"] != stage_batches:
             raise AssertionError(f"chain1 launched {launches['chain1_forward']} times, expected "
@@ -3155,7 +3183,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
                                  f"{stage_batches} batches with spans")
         if mls["chain1_forward"] - ml["chain1_forward"] != 1 or mls["wfa_batch"] == ml["wfa_batch"]:
             raise AssertionError("many-hit set: expected one chain1 launch and a WFA launch")
-    if chain_share < 0.9 or wfa_share < 0.9 or not cstats["genomes"] or not wstats["pairs"]:
+    if chain_share < 0.9 or wfa_share < 0.9 or not cstats["chain.genomes"] or not wfa_pairs:
         raise AssertionError(f"on the card: {chain_share:.1%} of the genomes, {wfa_share:.1%} "
                              f"of the WFA spans ({cstats}, {wstats})")
     stage_qpm = [len(seqs) / t * 60 for t in stage_s]
@@ -3176,7 +3204,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
     # (phases 2a and 4 launch in each)
     dev_batches = len(dev_s) * -(-len(seqs) // 32)
     batches = dev_batches + stage_batches
-    per_batch = stats["windows"] / dev_batches
+    per_batch = n_windows / dev_batches
     if dev.type == "cuda":
         if launches["seed_locate_batch"] != batches * n_buckets:
             raise AssertionError(f"the main path launched seed_locate_batch "
@@ -3194,7 +3222,7 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         if per_batch >= W_CHUNK or not (launches["pseudo_probe"] == launches["pseudo_chain"]
                                         == batches):
             raise AssertionError(f"phase-4 launches {launches}, expected {batches} each")
-    device_share = stats["device_windows"] / max(stats["windows"], 1)
+    device_share = stats["pseudo.card_windows"] / max(n_windows, 1)
     if device_share < 0.9:
         raise AssertionError(f"only {device_share:.1%} of the windows were answered on the card")
     for qid, r in zip(ids, dev_results):
@@ -3208,8 +3236,8 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
         f"queries top-hit their genome; launches {json.dumps(launches)} in "
         f"{len(dev_s) + len(stage_s)} passes of the two device engines ({batches} batches)")
     wait_ms_batch = times["card_wait"] * 1e3 / dev_batches
-    log(f"[e2e] phase 4 on the card: {stats['device_windows']} of {stats['windows']} windows "
-        f"answered there ({device_share:.4f}), {per_batch:.1f} windows per batch; stats "
+    log(f"[e2e] phase 4 on the card: {stats['pseudo.card_windows']} of {n_windows} windows "
+        f"answered there ({device_share:.4f}), {per_batch:.1f} windows per batch; counters "
         f"{json.dumps(stats)}; the host's waits on the card per batch {wait_ms_batch:.3f} ms")
     log(f"[e2e] q/min per pass: device {dev_qpm}, host {host_qpm} [{card}]")
     log(f"[e2e] q/min median (min-max) over {len(dev_s)} passes of {n} queries each: "
@@ -3234,15 +3262,17 @@ def phase_end_to_end(dev, card, n_genomes, n_queries, seed, tmp, rounds, parent=
 
     up = DeviceSearchEngine(dev_idx, hbm_budget=0)
     saved, dev_idx._device_engine = dev_idx._device_engine, up
+    card0, win0 = up.times["pseudo.card_windows"], windows(up.times)  # dev_idx's recorder
     try:
         up_rows, up_s = timed(dev_idx, seqs)
     finally:
         dev_idx._device_engine = saved
-    up_share = up.pseudo.stats["device_windows"] / max(up.pseudo.stats["windows"], 1)
+    up_windows = windows(up.times) - win0
+    up_share = (up.times["pseudo.card_windows"] - card0) / max(up_windows, 1)
     if up.blob is not None or rows(up_rows, ids, seqs) != host_rows or up_share < 0.9:
         raise AssertionError(f"store over budget: rows differ or {up_share:.1%} on the card")
     log(f"[e2e] store over the device budget (windows uploaded per batch): rows == host rows, "
-        f"{up_share:.4f} of {up.pseudo.stats['windows']} windows on the card, one pass "
+        f"{up_share:.4f} of {up_windows} windows on the card, one pass "
         f"{up_s:.3f} s [{card}]")
 
     # genome search against the device-built index
@@ -3377,8 +3407,8 @@ def sharded_end_to_end(dev, card, mesh, db, qpath, seqs, ids, host_rows, dev_idx
         raise AssertionError("mesh engine rows differ from the host rows")
     batches = -(-len(seqs) // 32)
     per = len(meng.matcher.buckets) * batches  # compactions, one a bucket for the L shards
-    second = dict(meng.matcher.stats)  # a query over H: its bucket compacted again
-    again = second["second_passes"]
+    second = counters(meng.times, "match")  # a query over H: its bucket compacted again
+    again = second["match.second_passes"]
     if dev.type == "cuda" and not (launches["seed_locate_batch"] == mesh.local_shards * per
                                    and launches["shard_compact"] == per + again
                                    and launches["chain1_forward"] == batches):

@@ -175,9 +175,8 @@ def format_hit_rows(query_id: str, qlen: int, results, all_columns=False, show_s
 
 
 def print_spans(spans, n_queries: int):
-    """--debug: the span recorder's totals and the transport counters,
-    whole and a query."""
-    from .parallel import transport_summary
+    """--debug: the span recorder's totals, whole and a query: the device
+    stages' times, waits and counters."""
     from .utils.spans import COUNTERS
 
     per = 1 / max(n_queries, 1)
@@ -189,12 +188,6 @@ def print_spans(spans, n_queries: int):
                   file=sys.stderr)
             continue
         print(f"    {key:<20} {v:10.4f} {v * per * 1e3:10.4f} {spans.counts[key]:8d}",
-              file=sys.stderr)
-    print("  [debug] transport (fetches, d2h bytes, h2d bytes; the same a query):",
-          file=sys.stderr)
-    for label, t in transport_summary().items():
-        f, d, h = t["fetches"], t["d2h_bytes"], t["h2d_bytes"]
-        print(f"    {label:<28} {f:8d} {d:14d} {h:14d}; {f * per:.3f} {d * per:.1f} {h * per:.1f}",
               file=sys.stderr)
 
 
@@ -287,6 +280,8 @@ def cmd_search(args) -> int:
         return 1
     if not args.quiet:
         print(f"index loaded in {time.time() - t0:.2f}s", file=sys.stderr)
+    if args.debug:  # the device stages' waits and counters on this thread too
+        idx.spans.bind_thread()
 
     out, own = _out_stream(args.out_file)
     header = TSV_HEADER + ("\tcigar\tqseq\tsseq\talign" if args.all else "")
@@ -369,16 +364,10 @@ def cmd_search(args) -> int:
                 write_rows(rec.id.decode(), len(rec.seq), results)
     if own:
         out.close()
-    if args.debug:
+    if args.debug and (getattr(idx, "_device_engine", None) is not None
+                       or idx.device_chainer is not None or idx.device_wfa is not None):
         # how much of each device stage ran on the device this session
-        eng = getattr(idx, "_device_engine", None)
-        if eng is not None:
-            print_spans(idx.spans, n)
-            print(f"  [debug] device pseudo-align: {eng.pseudo.stats}", file=sys.stderr)
-        if idx.device_chainer is not None:
-            print(f"  [debug] device chainer: {idx.device_chainer.stats}", file=sys.stderr)
-        if idx.device_wfa is not None:
-            print(f"  [debug] device WFA: {idx.device_wfa.stats}", file=sys.stderr)
+        print_spans(idx.spans, n)
     if not args.quiet:
         el = time.time() - t1
         print(

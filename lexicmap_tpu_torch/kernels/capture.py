@@ -17,7 +17,7 @@ bisection when 4^p is large), masks int64 [m] (the uint64 bits, ascending),
 k <= 32, 2p < 32.  Outputs: kmers int64 [m] (uint64 bits; 0 = no capture),
 counts int64 [m], pos int32 [sum(counts)] (uint32 locations, grouped by
 mask, ascending within each).  On the card the three are views of one
-buffer (`parallel.fetch_numpy` brings them back in one copy).
+buffer (`runtime.fetch_numpy` brings them back in one copy).
 """
 
 from __future__ import annotations
@@ -28,8 +28,7 @@ import threading
 import numpy as np
 import torch
 
-from .pseudo_align import _require as _check
-from .seed_locate import _on_device
+from .runtime import Library, require
 
 #: largest p whose bucket table is dense (4^11 int32 = 16 MB)
 DENSE_MAX_P = 11
@@ -61,7 +60,7 @@ def _dense(table, p: int) -> bool:
 
 def _check_args(codes, exclude, table, masks, k, p):
     dev = codes.device
-    _check("codes", codes, torch.uint8, dev)
+    require("codes", codes, torch.uint8, dev)
     if codes.dim() != 1:
         raise ValueError("codes must be 1-D")
     if not 1 <= k <= 32 or not 1 <= p <= k or 2 * p >= 32:
@@ -74,9 +73,9 @@ def _check_args(codes, exclude, table, masks, k, p):
     if exclude is not None:
         if exclude.dtype not in (torch.bool, torch.uint8):
             raise TypeError(f"exclude must be bool or uint8, got {exclude.dtype}")
-        _check("exclude", exclude, exclude.dtype, dev, (L - k + 1,))
-    _check("masks", masks, torch.int64, dev)
-    _check("table", table, torch.int32, dev)
+        require("exclude", exclude, exclude.dtype, dev, (L - k + 1,))
+    require("masks", masks, torch.int64, dev)
+    require("table", table, torch.int32, dev)
     m = masks.shape[0]
     if masks.dim() != 1 or m == 0:
         raise ValueError("masks must be a non-empty 1-D tensor")
@@ -141,29 +140,14 @@ def capture_plain(codes, exclude, table, masks, k: int, p: int):
 # wrapper
 
 
-_lib_handle = None
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/capture.cu` with its C signatures bound (once)."""
-    global _lib_handle
-    if _lib_handle is None:
-        from .build import bind
-
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        head = [vp, i64, vp, i32, i32, vp, i32, i32, vp]
-        _lib_handle = bind("capture", {
-            "capture_count_winners": (head + [vp, vp, vp], i32),
-            "capture_write_winners": (head + [vp] * 9, i32),
-            "capture_sort_cap": ([], i32),
-            "capture_best_bytes": ([i32, i32], i64),
-            "capture_error_string": ([i32], ctypes.c_char_p)})
-    return _lib_handle
-
-
-def _raise_on(err: int, lib, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.capture_error_string(err).decode()}")
+_HEAD = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+LIB = Library("capture", {
+    "capture_count_winners": (_HEAD + [ctypes.c_void_p] * 3, ctypes.c_int),
+    "capture_write_winners": (_HEAD + [ctypes.c_void_p] * 9, ctypes.c_int),
+    "capture_sort_cap": ([], ctypes.c_int),
+    "capture_best_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int64),
+})
 
 
 def capture(codes, exclude, table, masks, k: int, p: int):
@@ -178,7 +162,7 @@ def capture(codes, exclude, table, masks, k: int, p: int):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_args(codes, exclude, table, masks, k, p)
-    lib = kernel_lib()
+    lib = LIB.lib()
     L, m = codes.shape[0], masks.shape[0]
     dense = int(_dense(table, p))
     ex = 0 if exclude is None else exclude.data_ptr()
@@ -189,9 +173,7 @@ def capture(codes, exclude, table, masks, k: int, p: int):
     off = work[8 * m: 16 * m].view(torch.int64)
     best = work[16 * m: 16 * m + nb]
     cursor = work[16 * m + nb:]
-    err = _on_device(dev, lambda stream: lib.capture_count_winners(
-        *head, best.data_ptr(), cnt.data_ptr(), stream))
-    _raise_on(err, lib, "capture_count_winners")
+    LIB.launch("capture_count_winners", dev, *head, best.data_ptr(), cnt.data_ptr())
     torch.cumsum(cnt, 0, out=off)
     total, most = (int(v) for v in torch.stack([off[-1], cnt.max()]).cpu())  # the one wait
     off.sub_(cnt)
@@ -201,11 +183,9 @@ def capture(codes, exclude, table, masks, k: int, p: int):
     pos = out[16 * m:].view(torch.int32)
     scratch = torch.empty(total, dtype=torch.int32, device=dev) if most > lib.capture_sort_cap() \
         else None
-    err = _on_device(dev, lambda stream: lib.capture_write_winners(
-        *head, best.data_ptr(), cnt.data_ptr(), off.data_ptr(), cursor.data_ptr(),
-        pos.data_ptr(), kmers.data_ptr(), counts.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(), stream))
-    _raise_on(err, lib, "capture_write_winners")
+    LIB.launch("capture_write_winners", dev, *head, best.data_ptr(), cnt.data_ptr(),
+               off.data_ptr(), cursor.data_ptr(), pos.data_ptr(), kmers.data_ptr(),
+               counts.data_ptr(), 0 if scratch is None else scratch.data_ptr())
     with _count_lock:
         capture.launches += 1
     return kmers, counts, pos

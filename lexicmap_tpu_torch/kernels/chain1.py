@@ -17,7 +17,7 @@ g <= max_gap with g >= L sets F_GAP_TABLE.
 
 The kernel takes the genomes longest first (`schedule`): those of at least
 BLOCK_MIN anchors a block of four warps each, the others a warp each.  On
-the card the four outputs are views of one buffer (`parallel.fetch_numpy`
+the card the four outputs are views of one buffer (`runtime.fetch_numpy`
 brings them back in one copy).
 """
 
@@ -29,9 +29,7 @@ import threading
 import numpy as np
 import torch
 
-from ..parallel import fetch_numpy
-from .pseudo_align import _require as _check
-from .seed_locate import _on_device
+from .runtime import Library, fetch_numpy, require
 
 F_GAP_TABLE = 1  # a gap within max_gap past the gap-score table
 #: anchors from which a genome takes a whole block (four warps share each
@@ -171,20 +169,11 @@ def chain1_forward_plain(qb, tb, ln, off, gtab, max_gap, min_score, max_dist):
 # wrapper
 
 
-_lib_handle = None
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/chain1.cu` with its C signatures bound (once)."""
-    global _lib_handle
-    if _lib_handle is None:
-        from .build import bind
-
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        _lib_handle = bind("chain1", {
-            "chain1_forward": ([vp] * 5 + [i32, i32, vp, i32, f32, f32, i32] + [vp] * 5, i32),
-            "chain1_error_string": ([i32], ctypes.c_char_p)})
-    return _lib_handle
+LIB = Library("chain1", {
+    "chain1_forward": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5,
+                       ctypes.c_int),
+})
 
 
 def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist, *, plan=None):
@@ -197,9 +186,9 @@ def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist, *, plan=
     dev = qb.device
     N = qb.shape[0]
     for name, t in (("qb", qb), ("tb", tb), ("ln", ln)):
-        _check(name, t, torch.int32, dev, (N,))
-    _check("off", off, torch.int64, dev)
-    _check("gtab", gtab, torch.float32, dev)
+        require(name, t, torch.int32, dev, (N,))
+    require("off", off, torch.int64, dev)
+    require("gtab", gtab, torch.float32, dev)
     if off.dim() != 1 or off.shape[0] < 1:
         raise ValueError("off must be [G+1]")
     if gtab.dim() != 1 or gtab.shape[0] == 0:
@@ -211,7 +200,6 @@ def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist, *, plan=
         return chain1_forward_plain(qb, tb, ln, off, gtab, max_gap, min_score, max_dist)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = kernel_lib()
     out = torch.empty(9 * N + 4 * G, dtype=torch.uint8, device=dev)
     ms = out[: 4 * N].view(torch.float32)
     prev = out[4 * N: 8 * N].view(torch.int32)
@@ -223,14 +211,11 @@ def chain1_forward(qb, tb, ln, off, gtab, max_gap, min_score, max_dist, *, plan=
         host, n_block = schedule(fetch_numpy("device chain DP", off)[0])
         plan = (torch.from_numpy(host).to(dev), n_block)
     order, n_block = plan
-    _check("order", order, torch.int32, dev, (G,))
-    err = _on_device(dev, lambda stream: lib.chain1_forward(
-        qb.data_ptr(), tb.data_ptr(), ln.data_ptr(), off.data_ptr(), order.data_ptr(), G,
-        n_block, gtab.data_ptr(), gtab.shape[0], float(max_gap), float(min_score),
-        int(max_dist), ms.data_ptr(), prev.data_ptr(), dirs.data_ptr(), flags.data_ptr(),
-        stream))
-    if err != 0:
-        raise RuntimeError(f"chain1_forward launch failed: {lib.chain1_error_string(err).decode()}")
+    require("order", order, torch.int32, dev, (G,))
+    LIB.launch("chain1_forward", dev, qb.data_ptr(), tb.data_ptr(), ln.data_ptr(),
+               off.data_ptr(), order.data_ptr(), G, n_block, gtab.data_ptr(), gtab.shape[0],
+               float(max_gap), float(min_score), int(max_dist), ms.data_ptr(), prev.data_ptr(),
+               dirs.data_ptr(), flags.data_ptr())
     with _count_lock:
         chain1_forward.launches += 1
     return ms, prev, dirs, flags

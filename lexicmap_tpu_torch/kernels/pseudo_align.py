@@ -41,8 +41,8 @@ import ctypes
 import torch
 
 from ..constants import SearchDefaults
-from ..parallel.resident import extract_packed_plain, unpack_codes
-from .seed_locate import _on_device
+from .runtime import Library, require
+from .seed_locate import U32
 from .seed_match import bit_length
 
 K = SearchDefaults.CMP_K  # SeqComparator k
@@ -69,6 +69,45 @@ def _homopolymers():
 
 # ---------------------------------------------------------------------------
 # plain versions
+
+
+def _rev_pairs32(x):
+    """Reverse the 16 2-bit groups of each 32-bit word (int64 holding u32)."""
+    x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
+    x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
+    return ((x << 16) | (x >> 16)) & U32
+
+
+def extract_packed_plain(blob, word_base, phase, length, rc, words_out: int):
+    """[B] geometry -> [B, words_out] int32 (u32 bits) LSB-first packed codes.
+
+    blob int32 [NW] (normalized words); word_base int64 [B]; phase, length
+    int32 [B]; rc bool [B].  Codes at positions >= length are 0 (the
+    pack_codes_2bit pad value).  Bit-identical to the JAX package's
+    extract_packed."""
+    dev = blob.device
+    j = torch.arange(words_out + 1, device=dev)[None, :]
+    wi = torch.clamp(word_base.to(torch.int64)[:, None] + j, 0, blob.shape[0] - 1)
+    raw = blob[wi].to(torch.int64) & U32  # [B, words_out+1]
+    sh = (2 * phase.to(torch.int64))[:, None]
+    hi = torch.where(sh > 0, (raw[:, 1:] << ((32 - sh) & 31)) & U32, 0)
+    a = (raw[:, :-1] >> sh) | hi  # [B, words_out], phase-aligned
+    a_rc = (_rev_pairs32(a) ^ U32).flip(1)
+    a = torch.where(rc.to(torch.bool)[:, None], a_rc, a)
+    jj = torch.arange(words_out, device=dev)[None, :]
+    lw = (length.to(torch.int64) >> 4)[:, None]
+    pmask = (1 << (2 * (length.to(torch.int64) & 15))[:, None]) - 1
+    wmask = torch.where(jj < lw, U32, torch.where(jj == lw, pmask, 0))
+    a = a & wmask
+    return torch.where(a >= 1 << 31, a - (1 << 32), a).to(torch.int32)
+
+
+def unpack_codes(packed):
+    """[B, W] int32 (u32 bits) LSB-first packed -> [B, 16*W] int64 codes 0..3."""
+    B, W = packed.shape
+    shifts = 2 * torch.arange(16, device=packed.device)
+    return ((packed.to(torch.int64)[:, :, None] >> shifts) & 3).reshape(B, 16 * W)
 
 
 def window_codes(blob, win):
@@ -362,40 +401,14 @@ def pseudo_chain_plain(qb, tb, ln, counts, flags, band_base, band_count, max_gap
 # wrappers
 
 
-_lib_handle = None
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/pseudo_align.cu` with its C signatures bound (once)."""
-    global _lib_handle
-    if _lib_handle is None:
-        from .build import bind
-
-        vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
-        _lib_handle = bind("pseudo_align", {
-            "pseudo_probe": ([vp, i64, vp, i32, i32, vp, vp, vp, vp, i32, i32] + [vp] * 6, i32),
-            "pseudo_chain": ([vp] * 5 + [i32] * 5 + [f64, i32, f64] + [vp] * 5 + [i32, vp],
-                             i32),
-            "pseudo_align_error_string": ([i32], ctypes.c_char_p)})
-    return _lib_handle
-
-
-def _require(name, t, dtype, dev, shape=None):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_if(err, lib, what):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.pseudo_align_error_string(err).decode()}")
+LIB = Library("pseudo_align", {
+    "pseudo_probe": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p] + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
+                     ctypes.c_int),
+    "pseudo_chain": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                     + [ctypes.c_double, ctypes.c_int, ctypes.c_double]
+                     + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+})
 
 
 def check_windows(win, nq):
@@ -427,17 +440,17 @@ def pseudo_probe(blob, win, qk, qv, qoff, qtab, checked=False):
     [W, A_CAP], counts, flags int32 [W]).  CUDA tensors launch the kernel
     (`launches` counts them); CPU tensors run the plain version."""
     dev = blob.device
-    _require("blob", blob, torch.int32, dev)
+    require("blob", blob, torch.int32, dev)
     if blob.dim() != 1 or blob.shape[0] == 0:
         raise ValueError("blob must be a non-empty 1-D tensor")
-    _require("win", win, torch.int64, dev)
+    require("win", win, torch.int64, dev)
     if win.dim() != 2 or win.shape[1] != 8:
         raise ValueError(f"win must be [W, 8], got {tuple(win.shape)}")
-    _require("qoff", qoff, torch.int64, dev)
+    require("qoff", qoff, torch.int64, dev)
     NQ = qoff.shape[0] - 1
-    _require("qk", qk, torch.int64, dev)
-    _require("qv", qv, torch.int32, dev, qk.shape)
-    _require("qtab", qtab, torch.int32, dev, (NQ, (1 << QTAB_BITS) + 1))
+    require("qk", qk, torch.int64, dev)
+    require("qv", qv, torch.int32, dev, qk.shape)
+    require("qtab", qtab, torch.int32, dev, (NQ, (1 << QTAB_BITS) + 1))
     W = win.shape[0]
     if dev.type == "cpu":
         if not checked:
@@ -445,7 +458,6 @@ def pseudo_probe(blob, win, qk, qv, qoff, qtab, checked=False):
         return pseudo_probe_plain(blob, win, qk, qv, qoff, qtab)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = kernel_lib()
     out = [torch.empty((W, A_CAP), dtype=torch.int32, device=dev) for _ in range(3)]
     counts = torch.empty(W, dtype=torch.int32, device=dev)
     flags = torch.empty(W, dtype=torch.int32, device=dev)
@@ -453,11 +465,9 @@ def pseudo_probe(blob, win, qk, qv, qoff, qtab, checked=False):
         return (*out, counts, flags)
     if not checked:  # the host waits here: everything else is ready to launch
         check_windows(win, NQ)
-    err = _on_device(dev, lambda stream: lib.pseudo_probe(
-        blob.data_ptr(), blob.shape[0], win.data_ptr(), W, WORDS_OUT, qk.data_ptr(),
-        qv.data_ptr(), qoff.data_ptr(), qtab.data_ptr(), A_CAP, L_CAP,
-        *(o.data_ptr() for o in out), counts.data_ptr(), flags.data_ptr(), stream))
-    _raise_if(err, lib, "pseudo_probe")
+    LIB.launch("pseudo_probe", dev, blob.data_ptr(), blob.shape[0], win.data_ptr(), W,
+               WORDS_OUT, qk.data_ptr(), qv.data_ptr(), qoff.data_ptr(), qtab.data_ptr(), A_CAP,
+               L_CAP, *(o.data_ptr() for o in out), counts.data_ptr(), flags.data_ptr())
     pseudo_probe.launches += 1
     return (*out, counts, flags)
 
@@ -480,27 +490,24 @@ def pseudo_chain(qb, tb, ln, counts, flags, band_base=100, band_count=50, max_ga
     if W < 0 or qb.shape[1] != A_CAP:
         raise ValueError(f"qb must be [W, {A_CAP}], got {tuple(qb.shape)}")
     for name, t in (("qb", qb), ("tb", tb), ("ln", ln)):
-        _require(name, t, torch.int32, dev, (W, A_CAP))
+        require(name, t, torch.int32, dev, (W, A_CAP))
     for name, t in (("counts", counts), ("flags", flags)):
-        _require(name, t, torch.int32, dev, (W,))
+        require(name, t, torch.int32, dev, (W,))
     args = (band_base, band_count, int(max_gap), float(min_score), min_align_len,
             float(heur))
     if dev.type == "cpu":
         return pseudo_chain_plain(qb, tb, ln, counts, flags, *args)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = kernel_lib()
     rows = torch.empty((W, C_CAP, 8), dtype=torch.int64, device=dev)
     ccnt = torch.empty(W, dtype=torch.int32, device=dev)
     cflg = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return rows, ccnt, cflg
     scratch = torch.empty((2, W, A_CAP), dtype=torch.int32, device=dev)
-    err = _on_device(dev, lambda stream: lib.pseudo_chain(
-        qb.data_ptr(), tb.data_ptr(), ln.data_ptr(), counts.data_ptr(), flags.data_ptr(),
-        W, A_CAP, *args, scratch[0].data_ptr(), scratch[1].data_ptr(), rows.data_ptr(),
-        ccnt.data_ptr(), cflg.data_ptr(), C_CAP, stream))
-    _raise_if(err, lib, "pseudo_chain")
+    LIB.launch("pseudo_chain", dev, qb.data_ptr(), tb.data_ptr(), ln.data_ptr(),
+               counts.data_ptr(), flags.data_ptr(), W, A_CAP, *args, scratch[0].data_ptr(),
+               scratch[1].data_ptr(), rows.data_ptr(), ccnt.data_ptr(), cflg.data_ptr(), C_CAP)
     pseudo_chain.launches += 1
     return rows, ccnt, cflg
 

@@ -25,9 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..parallel import fetch_numpy
 from ..utils.kmers import bitlen64
-from .seed_locate import _on_device
+from .runtime import Library, fetch_numpy
 
 #: the most distinct reversed k-mers one nearest mask may take in a query the
 #: card serves (the kernel ranks a bucket's records by a walk over it); read
@@ -40,7 +39,7 @@ TABLE = 1 << 15
 MAX_M = TABLE // 4 * 3
 #: a tree child that is a run of equal masks (LEAF in the source)
 LEAF = 1 << 28
-#: the transfers' stage label (parallel.transport)
+#: the card_wait label of the dispatch's two fetches
 LABEL = "reversed dispatch"
 
 _SIGN = -(1 << 63)  # int64 bits of 1 << 63: flips unsigned order into signed order
@@ -190,19 +189,11 @@ def _check(kmers, mt: MaskTree):
         raise ValueError(f"kmers is on {kmers.device}, the mask tree on {mt.tree.device}")
 
 
-_SIGNATURES = {
+LIB = Library("reverse_dispatch", {
     "reverse_dispatch": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5,
                          ctypes.c_int),
-    "reverse_dispatch_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/reverse_dispatch.cu` with its C signatures bound (once)."""
-    from .build import bind
-
-    return bind("reverse_dispatch", _SIGNATURES)
+})
 
 
 def _records(offsets, declined, rec) -> Reversed:
@@ -232,13 +223,9 @@ def reverse_dispatch(kmers: torch.Tensor, mt: MaskTree):
     staged = torch.empty((B * m, 2), dtype=torch.int64, device=dev)
     out = torch.empty((B * m, 2), dtype=torch.int64, device=dev)
     state = torch.empty(3 * B + 2, dtype=torch.int64, device=dev)
-    lib = kernel_lib()
-    err = _on_device(dev, lambda stream: lib.reverse_dispatch(
-        kmers.data_ptr(), mt.tree.data_ptr(), mt.root, m, B, mt.k, RUN_CAP,
-        scratch.data_ptr(), staged.data_ptr(), state.data_ptr(), out.data_ptr(), stream))
-    if err != 0:
-        raise RuntimeError("reverse_dispatch launch failed: "
-                           f"{lib.reverse_dispatch_error_string(err).decode()}")
+    LIB.launch("reverse_dispatch", dev, kmers.data_ptr(), mt.tree.data_ptr(), mt.root, m, B,
+               mt.k, RUN_CAP, scratch.data_ptr(), staged.data_ptr(), state.data_ptr(),
+               out.data_ptr())
     reverse_dispatch.launches += 1
 
     def fetch():

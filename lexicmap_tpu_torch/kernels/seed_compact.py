@@ -24,8 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..parallel import fetch_numpy
-from .seed_locate import _cuda_ptrs, _on_device
+from .runtime import Library, cuda_ptrs, fetch_numpy
 
 #: ordered rows a warp of the kernel covers for one query (SPAN in the source)
 SPAN = 128
@@ -142,23 +141,10 @@ def _fetch_offsets(offsets):
     return torch.from_numpy(fetch_numpy("device seed matching", offsets)[0])
 
 
-_SIGNATURES = {
+LIB = Library("seed_compact", {
     "seed_compact": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
                      + [ctypes.c_void_p] * 3, ctypes.c_int),
-    "seed_compact_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/seed_compact.cu` with its C signatures bound (once)."""
-    from .build import bind
-
-    return bind("seed_compact", _SIGNATURES)
-
-
-def _raise_on(err: int, lib, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.seed_compact_error_string(err).decode()}")
+})
 
 
 def seed_compact(stacked, B: int, order: RowOrder):
@@ -179,8 +165,8 @@ def seed_compact(stacked, B: int, order: RowOrder):
     _check(stacked, B, order)
     if stacked.device.type == "cpu":
         return seed_compact_plain(stacked, B, order)
-    ptrs = _cuda_ptrs(stacked=stacked, perm=order.perm, src=order.src, cont=order.cont,
-                      gid=order.gid, base=order.base)
+    ptrs = cuda_ptrs(stacked=stacked, perm=order.perm, src=order.src, cont=order.cont,
+                     gid=order.gid, base=order.base)
     R = order.perm.shape[0]
     dev = stacked.device
     if B * R == 0:
@@ -191,10 +177,7 @@ def seed_compact(stacked, B: int, order: RowOrder):
     tiles = B * -(-R // TILE)
     scratch = torch.empty(tiles + 1 + B + 1, dtype=torch.int64, device=dev)
     out = torch.empty((B * R, 3), dtype=torch.int64, device=dev)
-    lib = kernel_lib()
-    err = _on_device(dev, lambda stream: lib.seed_compact(
-        *ptrs, R, B, TILE, scratch.data_ptr(), out.data_ptr(), stream))
-    _raise_on(err, lib, "seed_compact")
+    LIB.launch("seed_compact", dev, *ptrs, R, B, TILE, scratch.data_ptr(), out.data_ptr())
     seed_compact.launches += 1
     offsets = _fetch_offsets(scratch[tiles + 1:])
     return offsets, out[: int(offsets[B])].t()

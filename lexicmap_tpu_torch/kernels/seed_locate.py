@@ -32,8 +32,10 @@ import ctypes
 import numpy as np
 import torch
 
+from .runtime import Library, cuda_ptrs
+
 PAD_HI = np.uint32(0xFFFFFFFF)
-_U32 = 0xFFFFFFFF
+U32 = 0xFFFFFFFF  # the uint32 bits of an int32 tensor's values, widened to int64
 
 # the design's choices, compiled into csrc/seed_locate.cu (SMALL_MAX_E,
 # SAMPLE, RUN there) and named here for the tests' replays of its searches
@@ -120,10 +122,10 @@ def seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p: int,
     lane = torch.arange(E, device=dev)
     for r0 in range(0, Mb, rows):
         r1 = min(r0 + rows, Mb)
-        hi = (seed_hi[r0:r1].to(torch.int64) & _U32)[None]  # [1, R, E]
+        hi = (seed_hi[r0:r1].to(torch.int64) & U32)[None]  # [1, R, E]
         real = (lane[None, :] < seed_cnt[r0:r1, None])[None]  # [1, R, E]
-        q = query_hi[:, r0:r1].to(torch.int64) & _U32  # [B, R]
-        lb = (q & (_U32 ^ suf))[..., None]
+        q = query_hi[:, r0:r1].to(torch.int64) & U32  # [B, R]
+        lb = (q & (U32 ^ suf))[..., None]
         rb = (q | suf)[..., None]
         ok = query_valid[:, r0:r1]
         below = (hi < lb) & real
@@ -133,51 +135,12 @@ def seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p: int,
     return nh, e0
 
 
-_lib_handle = None
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/seed_locate.cu` with its C signatures bound (once)."""
-    global _lib_handle
-    if _lib_handle is None:
-        from .build import load
-
-        lib = load("seed_locate")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.seed_locate_batch.argtypes = [vp] * 6 + [ci, ci, ci, ctypes.c_uint, vp]
-        lib.seed_locate_batch.restype = ci
-        lib.seed_locate.argtypes = [vp] * 6 + [ci, ci, ctypes.c_uint, vp]
-        lib.seed_locate.restype = ci
-        lib.seed_locate_error_string.argtypes = [ci]
-        lib.seed_locate_error_string.restype = ctypes.c_char_p
-        _lib_handle = lib
-    return _lib_handle
-
-
-def _cuda_ptrs(**tensors):
-    """The kernels' pointer arguments, in the order given; raises unless
-    every tensor is contiguous on a CUDA device (the caller has checked that
-    they share one)."""
-    dev = next(iter(tensors.values())).device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for name, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return [t.data_ptr() for t in tensors.values()]
-
-
-def _on_device(dev, call):
-    """call(stream) with `dev` current, switching devices only if it is not."""
-    if dev.index == torch.cuda.current_device():
-        return call(torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(dev):
-        return call(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(err: int, lib, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.seed_locate_error_string(err).decode()}")
+LIB = Library("seed_locate", {
+    "seed_locate_batch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                          + [ctypes.c_uint, ctypes.c_void_p], ctypes.c_int),
+    "seed_locate": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_uint, ctypes.c_void_p],
+                    ctypes.c_int),
+})
 
 
 def _check_out(out, shape, device):
@@ -212,16 +175,14 @@ def seed_locate_batch(seed_hi, seed_cnt, query_hi, query_valid, p: int, out=None
     if seed_hi.device.type == "cpu":
         got = seed_locate_batch_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
         return got if out is None else _copy_out(out, got)
-    ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
-                      query_valid=query_valid)
+    ptrs = cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
+                     query_valid=query_valid)
     if out is None:
         out = torch.empty((2, B, Mb), dtype=torch.int32, device=seed_hi.device)
     if B * Mb == 0:
         return out[0], out[1]
-    lib = kernel_lib()
-    err = _on_device(seed_hi.device, lambda stream: lib.seed_locate_batch(
-        *ptrs, out[0].data_ptr(), out[1].data_ptr(), B, Mb, E, suf, stream))
-    _raise_on(err, lib, "seed_locate_batch")
+    LIB.launch("seed_locate_batch", seed_hi.device, *ptrs, out[0].data_ptr(),
+               out[1].data_ptr(), B, Mb, E, suf)
     seed_locate_batch.launches += 1
     return out[0], out[1]
 
@@ -251,16 +212,14 @@ def seed_locate(seed_hi, seed_cnt, query_hi, query_valid, p: int, out=None):
     if seed_hi.device.type == "cpu":
         got = seed_locate_plain(seed_hi, seed_cnt, query_hi, query_valid, p)
         return got if out is None else _copy_out(out, got)
-    ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
-                      query_valid=query_valid)
+    ptrs = cuda_ptrs(seed_hi=seed_hi, seed_cnt=seed_cnt, query_hi=query_hi,
+                     query_valid=query_valid)
     if out is None:
         out = torch.empty((2, Mb), dtype=torch.int32, device=seed_hi.device)
     if Mb == 0:
         return out[0], out[1]
-    lib = kernel_lib()
-    err = _on_device(seed_hi.device, lambda stream: lib.seed_locate(
-        *ptrs, out[0].data_ptr(), out[1].data_ptr(), Mb, E, suf, stream))
-    _raise_on(err, lib, "seed_locate")
+    LIB.launch("seed_locate", seed_hi.device, *ptrs, out[0].data_ptr(), out[1].data_ptr(),
+               Mb, E, suf)
     seed_locate.launches += 1
     return out[0], out[1]
 

@@ -24,10 +24,11 @@ import ctypes
 
 import torch
 
-from .seed_locate import _U32, _cuda_ptrs, _on_device, suffix_mask
+from .runtime import Library, cuda_ptrs
+from .seed_locate import U32, suffix_mask
 
 # entries a head stands for in the kernel's search (RUN in
-# csrc/seed_match.cu, which kernel_lib() holds this to), named here for the
+# csrc/seed_match.cu, which seed_match() holds this to), named here for the
 # tests' replay of it (tests/torch_parity.py)
 MATCH_RUN = 8
 
@@ -79,14 +80,14 @@ def seed_match_plain(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid
     lane = torch.arange(E, device=dev)
     for r0 in range(0, Mb, rows):
         r1 = min(r0 + rows, Mb)
-        hi = seed_hi[r0:r1].to(torch.int64) & _U32
-        lo = seed_lo[r0:r1].to(torch.int64) & _U32
+        hi = seed_hi[r0:r1].to(torch.int64) & U32
+        lo = seed_lo[r0:r1].to(torch.int64) & U32
         real = lane[None, :] < seed_cnt[r0:r1, None]
-        qh = (query_hi[r0:r1].to(torch.int64) & _U32)[:, None]
-        ql = (query_lo[r0:r1].to(torch.int64) & _U32)[:, None]
+        qh = (query_hi[r0:r1].to(torch.int64) & U32)[:, None]
+        ql = (query_lo[r0:r1].to(torch.int64) & U32)[:, None]
         ok = query_valid[r0:r1]
-        inr = (hi >= (qh & (_U32 ^ suf))) & (hi <= (qh | suf)) & real
-        below = (hi < (qh & (_U32 ^ suf))) & real
+        inr = (hi >= (qh & (U32 ^ suf))) & (hi <= (qh | suf)) & real
+        below = (hi < (qh & (U32 ^ suf))) & real
         nh[r0:r1] = torch.where(ok, inr.sum(-1, dtype=torch.int32), 0)
         e0[r0:r1] = torch.where(ok, below.sum(-1, dtype=torch.int32), 0)
         xh, xl = hi ^ qh, lo ^ ql
@@ -96,29 +97,11 @@ def seed_match_plain(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid
     return nh, e0, lcp
 
 
-_lib_handle = None
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/seed_match.cu` with its C signatures bound (once);
-    raises if its run length is not MATCH_RUN."""
-    global _lib_handle
-    if _lib_handle is None:
-        from .build import load
-
-        lib = load("seed_match")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.seed_match.argtypes = [vp] * 9 + [ci, ci, ctypes.c_uint, ci, vp]
-        lib.seed_match.restype = ci
-        lib.seed_match_error_string.argtypes = [ci]
-        lib.seed_match_error_string.restype = ctypes.c_char_p
-        lib.seed_match_run.argtypes = []
-        lib.seed_match_run.restype = ci
-        if lib.seed_match_run() != MATCH_RUN:
-            raise RuntimeError(f"csrc/seed_match.cu runs {lib.seed_match_run()} entries a head, "
-                               f"MATCH_RUN says {MATCH_RUN}")
-        _lib_handle = lib
-    return _lib_handle
+LIB = Library("seed_match", {
+    "seed_match": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                   + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "seed_match_run": ([], ctypes.c_int),
+})
 
 
 def seed_match(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid, p: int, k: int = 31):
@@ -136,17 +119,18 @@ def seed_match(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid, p: i
     if seed_hi.device.type == "cpu":
         return seed_match_plain(seed_hi, seed_lo, seed_cnt, query_hi, query_lo, query_valid,
                                 p, k)
-    ptrs = _cuda_ptrs(seed_hi=seed_hi, seed_lo=seed_lo, seed_cnt=seed_cnt, query_hi=query_hi,
-                      query_lo=query_lo, query_valid=query_valid)
+    ptrs = cuda_ptrs(seed_hi=seed_hi, seed_lo=seed_lo, seed_cnt=seed_cnt, query_hi=query_hi,
+                     query_lo=query_lo, query_valid=query_valid)
     Mb, E = seed_hi.shape
     out = torch.empty((3, Mb), dtype=torch.int32, device=seed_hi.device)
     if Mb == 0:
         return out[0], out[1], out[2]
-    lib = kernel_lib()
-    err = _on_device(seed_hi.device, lambda stream: lib.seed_match(
-        *ptrs, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), Mb, E, suf, k, stream))
-    if err != 0:
-        raise RuntimeError(f"seed_match launch failed: {lib.seed_match_error_string(err).decode()}")
+    run = LIB.lib().seed_match_run()
+    if run != MATCH_RUN:
+        raise RuntimeError(f"csrc/seed_match.cu runs {run} entries a head, "
+                           f"MATCH_RUN says {MATCH_RUN}")
+    LIB.launch("seed_match", seed_hi.device, *ptrs, out[0].data_ptr(), out[1].data_ptr(),
+               out[2].data_ptr(), Mb, E, suf, k)
     seed_match.launches += 1
     return out[0], out[1], out[2]
 

@@ -32,7 +32,8 @@ import ctypes
 
 import torch
 
-from .seed_locate import _U32, _cuda_ptrs, _on_device
+from .runtime import Library, cuda_ptrs
+from .seed_locate import U32
 
 
 def _suffix(k: int, p: int) -> int:
@@ -67,8 +68,8 @@ def _plain_shard(seeds, queries, k, suf):
     """One shard's (n_hits, lcp) int64 [B, M] and the int64 [B] sum."""
     M, E = seeds.shape
     B = queries.shape[0]
-    rows = (seeds.to(torch.int64) & _U32).unsqueeze(0).expand(B, M, E)
-    q = queries.to(torch.int64) & _U32
+    rows = (seeds.to(torch.int64) & U32).unsqueeze(0).expand(B, M, E)
+    q = queries.to(torch.int64) & U32
 
     def search(x, strict):
         lo = torch.zeros_like(x)
@@ -82,7 +83,7 @@ def _plain_shard(seeds, queries, k, suf):
             hi = torch.where(act & ~right, mid, hi)
         return lo
 
-    e0 = search(q & (_U32 ^ suf), True)
+    e0 = search(q & (U32 ^ suf), True)
     e1 = search(q | suf, False)
     n_hits = torch.where(q != 0, e1 - e0, 0)
     first = torch.gather(rows, 2, e0.clamp(max=E - 1).unsqueeze(2)).squeeze(2)
@@ -113,25 +114,13 @@ def seed_match_shard_plain(seeds, queries, k: int, min_prefix: int):
             sum(p[2] for p in parts).to(torch.float32))
 
 
-_SIGNATURES = {
+#: csrc/sharded.cu, whose two kernels this module and kernels/shard_compact.py launch
+SHARDED = Library("sharded", {
     "seed_match_shard": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "shard_compact": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
                       ctypes.c_int),
-    "sharded_error_string": ([ctypes.c_int], ctypes.c_char_p),
-}
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/sharded.cu` with its C signatures bound (once)."""
-    from .build import bind
-
-    return bind("sharded", _SIGNATURES)
-
-
-def raise_on(err: int, lib, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.sharded_error_string(err).decode()}")
+})
 
 
 def seed_match_shard(seeds, queries, k: int, min_prefix: int):
@@ -148,7 +137,7 @@ def seed_match_shard(seeds, queries, k: int, min_prefix: int):
     suf = _suffix(k, min_prefix)
     if seeds.device.type == "cpu":
         return seed_match_shard_plain(seeds, queries, k, min_prefix)
-    ptrs = _cuda_ptrs(seeds=seeds, queries=queries)
+    ptrs = cuda_ptrs(seeds=seeds, queries=queries)
     M, E = seeds.shape[-2:]
     L = seeds.shape[0] if seeds.dim() == 3 else 1
     B = queries.shape[-2]
@@ -158,11 +147,8 @@ def seed_match_shard(seeds, queries, k: int, min_prefix: int):
     score = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return out[0], out[1], score
-    lib = kernel_lib()
-    err = _on_device(dev, lambda stream: lib.seed_match_shard(
-        *ptrs, out[0].data_ptr(), out[1].data_ptr(), acc.data_ptr(), score.data_ptr(),
-        L, B, M, E, suf, k, stream))
-    raise_on(err, lib, "seed_match_shard")
+    SHARDED.launch("seed_match_shard", dev, *ptrs, out[0].data_ptr(), out[1].data_ptr(),
+                   acc.data_ptr(), score.data_ptr(), L, B, M, E, suf, k)
     seed_match_shard.launches += 1
     return out[0], out[1], score
 

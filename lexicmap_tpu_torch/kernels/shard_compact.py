@@ -24,8 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from .seed_locate import _U32, _cuda_ptrs, _on_device
-from .seed_match_shard import kernel_lib, raise_on
+from .runtime import cuda_ptrs
+from .seed_locate import U32
+from .seed_match_shard import SHARDED
 
 
 def _check(nh, e0, gids, H, out):
@@ -63,7 +64,7 @@ def shard_compact_plain(nh, e0, gids, H: int, out=None):
         raise ValueError("shard_compact_plain takes one shard; shard_compact_all_plain L")
     B, mb = nh.shape
     hit = nh > 0
-    keys = torch.where(hit, gids.to(torch.int64)[None, :] & _U32, _U32)
+    keys = torch.where(hit, gids.to(torch.int64)[None, :] & U32, U32)
     order = torch.sort(keys, dim=1, stable=True).indices[:, :H]
     n = hit.sum(1, dtype=torch.int32)
     if out is None:
@@ -109,17 +110,14 @@ def shard_compact(nh, e0, gids, H: int, out=None):
         if nh.dim() == 2:
             return shard_compact_plain(nh, e0, gids, H, out)
         return shard_compact_all_plain(nh, e0, gids, H, out)
-    ptrs = _cuda_ptrs(nh=nh, e0=e0, gids=gids)
+    ptrs = cuda_ptrs(nh=nh, e0=e0, gids=gids)
     *lead, B, mb = nh.shape
     L = lead[0] if lead else 1
     if out is None:
         out = torch.empty((*nh.shape[:-1], 3 * H + 1), dtype=torch.int32, device=nh.device)
     if L * B == 0:
         return _views(out, H)
-    lib = kernel_lib()
-    err = _on_device(nh.device, lambda stream: lib.shard_compact(
-        *ptrs, out.data_ptr(), L, B, mb, H, stream))
-    raise_on(err, lib, "shard_compact")
+    SHARDED.launch("shard_compact", nh.device, *ptrs, out.data_ptr(), L, B, mb, H)
     shard_compact.launches += 1
     return _views(out, H)
 

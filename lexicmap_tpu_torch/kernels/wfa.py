@@ -16,7 +16,7 @@ cnts int32 [B, CAP], the runs newest first with equal neighbours merged,
 and nops int32 [B], the number of runs, or -1 for a pair that overflowed
 the window of W diagonals or S scores (or CAP runs): such a pair is not
 answered and goes to the host.  On the card the three outputs are views of
-one buffer (`parallel.fetch_numpy` brings them back in one copy).  The
+one buffer (`runtime.fetch_numpy` brings them back in one copy).  The
 history the traceback reads is sized, then written: the sizing pass counts
 the int16 cells each pair's live spans take, the wrapper reads the launch's
 total back (one 8-byte fetch, labelled SIZE_LABEL) and allocates that
@@ -33,9 +33,7 @@ import threading
 import numpy as np
 import torch
 
-from ..parallel import fetch_numpy
-from .pseudo_align import _require as _check
-from .seed_locate import _on_device
+from .runtime import Library, fetch_numpy, require
 from .seed_match import bit_length
 
 NEG = -20000  # a dead wavefront cell (int16 history)
@@ -43,7 +41,7 @@ ALIGN = 8  # int16 cells: each pair's region of the arena starts 16-byte aligned
 BIG = 1 << 20  # the window start of a score with no live source
 L_MAX = 30000  # longest sequence: offsets fit the int16 history
 OPS = "MXID"
-SIZE_LABEL = "device WFA size"  # the transport label of the arena's size read
+SIZE_LABEL = "device WFA size"  # the card_wait label of the arena's size read
 
 _count_lock = threading.Lock()
 
@@ -341,21 +339,12 @@ def wfa_plain(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
 # wrapper
 
 
-_lib_handle = None
-
-
-def kernel_lib() -> ctypes.CDLL:
-    """The built `csrc/wfa.cu` with its C signatures bound (once)."""
-    global _lib_handle
-    if _lib_handle is None:
-        from .build import bind
-
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        _lib_handle = bind("wfa", {
-            "wfa_size_batch": ([vp] * 5 + [i32] * 8 + [vp] * 3, i32),
-            "wfa_align_batch": ([vp] * 5 + [i32] * 9 + [vp] * 8, i32),
-            "wfa_error_string": ([i32], ctypes.c_char_p)})
-    return _lib_handle
+LIB = Library("wfa", {
+    "wfa_size_batch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3,
+                       ctypes.c_int),
+    "wfa_align_batch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 8,
+                        ctypes.c_int),
+})
 
 
 def check_pairs(NW, q_off, t_off, n, m):
@@ -380,11 +369,6 @@ def check_pairs(NW, q_off, t_off, n, m):
         raise ValueError("a sequence's words pass the end of seq")
 
 
-def _raise_on(lib, err: int):
-    if err != 0:
-        raise RuntimeError(f"wfa_batch launch failed: {lib.wfa_error_string(err).decode()}")
-
-
 def _arena_cells(off, B, S, scratch):
     """The arena's cells, off[B], read back (the launch's one wait before
     its outputs); its history_bytes_packed added to scratch["hist_bytes"]
@@ -407,14 +391,14 @@ def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
     the calls that launch them); CPU tensors run the plain version, which
     sizes the arena as the card does."""
     dev = seq.device
-    _check("seq", seq, torch.int64, dev)
+    require("seq", seq, torch.int64, dev)
     if seq.dim() != 1 or seq.shape[0] == 0:
         raise ValueError("seq must be a non-empty 1-D tensor")
     B = n.shape[0]
     for name, t in (("q_off", q_off), ("t_off", t_off)):
-        _check(name, t, torch.int64, dev, (B,))
+        require(name, t, torch.int64, dev, (B,))
     for name, t in (("n", n), ("m", m)):
-        _check(name, t, torch.int32, dev, (B,))
+        require(name, t, torch.int32, dev, (B,))
     if W % 32 or not 32 <= W <= 256 or S < 1 or CAP < 1 or S * W >= 1 << 22:
         raise ValueError(f"unsupported window: W={W} (a multiple of 32, <= 256), S={S} "
                          f"(S * W < 2**22), CAP={CAP}")
@@ -429,7 +413,6 @@ def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
         return _traceback(hist, lo, done_s, n, m, CAP, x, o, e)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = kernel_lib()
     out = torch.empty(B * (4 + 5 * CAP), dtype=torch.uint8, device=dev)
     nops = out[: 4 * B].view(torch.int32)
     cnts = out[4 * B: 4 * B * (1 + CAP)].view(torch.int32).view(B, CAP)
@@ -441,14 +424,13 @@ def wfa_batch(seq, q_off, t_off, n, m, S, W, CAP, x=4, o=6, e=2, min_wf_len=10,
     sized = torch.empty(12 * B + 8, dtype=torch.uint8, device=dev)
     off = sized[: 8 * (B + 1)].view(torch.int64)
     done_s = sized[8 * (B + 1):].view(torch.int32)
-    _raise_on(lib, _on_device(dev, lambda stream: lib.wfa_size_batch(
-        *pairs, x, o, e, min_wf_len, max_dist_diff, off.data_ptr(), done_s.data_ptr(), stream)))
+    LIB.launch("wfa_size_batch", dev, *pairs, x, o, e, min_wf_len, max_dist_diff,
+               off.data_ptr(), done_s.data_ptr())
     cells = _arena_cells(off, B, S, scratch)
     arena = torch.empty(2 * cells + 8 * B * S, dtype=torch.uint8, device=dev)
-    _raise_on(lib, _on_device(dev, lambda stream: lib.wfa_align_batch(
-        *pairs, CAP, x, o, e, min_wf_len, max_dist_diff, off.data_ptr(), arena.data_ptr(),
-        arena.data_ptr() + 2 * cells, done_s.data_ptr(), ops.data_ptr(), cnts.data_ptr(),
-        nops.data_ptr(), stream)))
+    LIB.launch("wfa_align_batch", dev, *pairs, CAP, x, o, e, min_wf_len, max_dist_diff,
+               off.data_ptr(), arena.data_ptr(), arena.data_ptr() + 2 * cells, done_s.data_ptr(),
+               ops.data_ptr(), cnts.data_ptr(), nops.data_ptr())
     with _count_lock:
         wfa_batch.launches += 1
     return ops, cnts, nops

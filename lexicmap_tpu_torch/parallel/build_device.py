@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..kernels.capture import bucket_table, capture
-from . import count_h2d, fetch_numpy, resolve_device
+from ..kernels.runtime import fetch_numpy
+from . import resolve_device
 
 
 class DeviceCaptureEngine:
@@ -41,7 +42,6 @@ class DeviceCaptureEngine:
         self.device = resolve_device(device)
         table = bucket_table(mask_set.masks, self.k, self.p)
         masks = mask_set.masks.view(np.int64)
-        count_h2d("device capture", table, masks)
         self.table = torch.from_numpy(table).to(self.device)
         self.masks = torch.from_numpy(masks).to(self.device)
 
@@ -52,14 +52,9 @@ class DeviceCaptureEngine:
         a genome shorter than k."""
         if codes.shape[0] < self.k:
             return None
-        codes = np.ascontiguousarray(codes, dtype=np.uint8)
-        ups = [codes]
-        if exclude is not None:
-            exclude = np.ascontiguousarray(exclude, dtype=bool)
-            ups.append(exclude)
-        count_h2d("device capture", *ups)
-        c = torch.from_numpy(codes).to(self.device)
-        e = None if exclude is None else torch.from_numpy(exclude).to(self.device)
+        c = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8)).to(self.device)
+        e = None if exclude is None else torch.from_numpy(
+            np.ascontiguousarray(exclude, dtype=bool)).to(self.device)
         kmers, counts, pos = fetch_numpy(
             "device capture", *capture(c, e, self.table, self.masks, self.k, self.p))
         return kmers.view(np.uint64), counts, pos.view(np.uint32)

@@ -21,7 +21,9 @@ import numpy as np
 import torch
 
 from ..kernels.chain1 import chain1_forward, pack_sets, schedule
-from . import count_h2d, fetch_numpy, resolve_device
+from ..kernels.runtime import fetch_numpy
+from ..utils.spans import bound_tally
+from . import resolve_device
 
 #: the gap-score table's largest gap: a longer max_gap leaves the gaps past
 #: it to the host (F_GAP_TABLE), instead of a table of max_gap entries
@@ -51,9 +53,10 @@ class DeviceChainer:
     backtrack, or ('host', None) when the genome must use the host chainer
     (fewer than two anchors, or a flag of the kernel).
 
-    stats: genomes sent to the kernel (two or more anchors) and those of
-    them it flagged; `launches`: kernel launches (one per chain_batch call
-    with such genomes)."""
+    Each call with genomes of two or more anchors makes one launch and adds
+    them to the counter `chain.genomes`, and those of them the kernel
+    flagged to `chain.flagged_genomes`, under the recorder bound to the
+    calling thread (utils/spans.py)."""
 
     def __init__(self, max_gap: float, min_score: float, max_dist: int, device=None):
         self.device = resolve_device(device)
@@ -62,8 +65,6 @@ class DeviceChainer:
         self.max_dist = int(max_dist)
         self._gtab = torch.from_numpy(gap_score_table(min(self.max_gap, GTAB_MAX))).to(
             self.device)
-        self.stats = {"genomes": 0, "host_genomes": 0}
-        self.launches = 0
 
     def chain_batch(self, anchor_sets):
         """anchor_sets: list of (qb, tb, ln) int32 arrays (host order).
@@ -82,16 +83,14 @@ class DeviceChainer:
         host[: 3 * N] = cols.reshape(-1)
         host[3 * N: 3 * N + G] = order
         host[at:] = off.view(np.int32)
-        count_h2d("device chain DP", host)
         up = torch.from_numpy(host).to(self.device)
         ms, prev, dirs, flags = chain1_forward(
             up[:N], up[N: 2 * N], up[2 * N: 3 * N], up[at:].view(torch.int64), self._gtab,
             self.max_gap, self.min_score, self.max_dist,
             plan=(up[3 * N: 3 * N + G], n_block))
-        self.launches += self.device.type == "cuda"
         ms, prev, dirs, flags = fetch_numpy("device chain DP", ms, prev, dirs, flags)
-        self.stats["genomes"] += len(idxs)
-        self.stats["host_genomes"] += int(np.count_nonzero(flags))
+        bound_tally("chain.genomes", len(idxs))
+        bound_tally("chain.flagged_genomes", int(np.count_nonzero(flags)))
         for r, i in enumerate(idxs):
             if flags[r]:
                 continue

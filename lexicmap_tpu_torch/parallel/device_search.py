@@ -42,9 +42,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels.runtime import fetch_numpy
 from ..kernels.seed_compact import row_order, seed_compact
 from ..kernels.seed_locate import PAD_HI, seed_locate, seed_locate_batch, split_kmers_hi_lo
-from . import count_h2d, fetch_numpy, resolve_device
+from . import resolve_device
 from .pseudo_device import WORKING_BYTES
 
 # entry-count ceiling of one packed row; read at call time, so tests can
@@ -260,7 +261,6 @@ class DeviceSeedMatcher:
                 gids=torch.from_numpy(gids).to(d),
                 base=torch.from_numpy(base).to(d),
             )
-            count_h2d("device seed table", hi, cnt, gids, base)
             self.buckets.append(bucket)
             packed.append(rows)
             self.hbm_bytes += rows.shape[0] * E * 4
@@ -269,8 +269,6 @@ class DeviceSeedMatcher:
         self.order = row_order([vmask_a[r] for r in packed], [vstart_a[r] for r in packed],
                                [vcnt_a[r] for r in packed], self.device)
         self._starts = self.order.starts.tolist()
-        count_h2d("device seed table", self.order.starts, self.order.perm, self.order.src,
-                  self.order.cont, self.order.gid, self.order.base)
 
         # host-tier chunk rows, concatenated for one vectorized bisection
         self.host_entries = int(vcnt_a[host_rows].sum()) if host_rows else 0
@@ -329,7 +327,6 @@ class DeviceSeedMatcher:
         B = qh.shape[0]
         qh_d = torch.from_numpy(qh.view(np.int32)).to(d)
         sel_d = torch.from_numpy(sel).to(d)
-        count_h2d("device seed matching", qh, sel)
         starts = self._starts
         stacked = torch.empty(2 * B * starts[-1], dtype=torch.int32, device=d)
         for bk, s0, s1 in zip(self.buckets, starts[:-1], starts[1:]):

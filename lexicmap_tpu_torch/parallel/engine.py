@@ -64,7 +64,6 @@ import torch
 from ..kernels import reverse_dispatch as RD
 from ..ops.seqcompare import SeqComparator
 from ..utils.kmers import seq_to_codes
-from . import count_h2d
 from .device_search import default_budget
 from .pseudo_device import WORDS_OUT, DevicePseudoAligner
 from .resident import DeviceGenomeBlob, store_bytes
@@ -248,7 +247,6 @@ class DeviceSearchEngine:
         """The reversed-k-mer dispatch of a [B, m] batch of masked k-mers,
         uploaded and launched on the engine's device; returns the function
         that fetches it (kernels/reverse_dispatch.py::reverse_dispatch)."""
-        count_h2d(RD.LABEL, kmers)
         return RD.reverse_dispatch(
             torch.from_numpy(kmers.view(np.int64)).to(self.masks.tree.device), self.masks)
 

@@ -47,9 +47,10 @@ from ..kernels.pseudo_align import (  # noqa: F401  (the flag bits are re-export
     pseudo_probe,
 )
 from ..constants import SearchDefaults
+from ..kernels.runtime import fetch_numpy
 from ..ops.seqcompare import min_prefix_for
 from ..utils.spans import bound_tally
-from . import count_h2d, fetch_numpy, resolve_device
+from . import resolve_device
 
 M_PREFIX = SearchDefaults.CMP_MIN_PREFIX  # SeqComparator minimum prefix
 HEURISTIC_PIDENT = SearchDefaults.HEURISTIC_KMER_PIDENT_THRESHOLD  # chain pident gate
@@ -112,7 +113,6 @@ def query_tables(queries, dev):
         if has.any():  # each query's largest position, one reduceat over the batch
             ok[has] = (np.maximum.reduceat(qv, qoff[:-1][has]) >> 1).astype(np.int64) \
                 + K <= COORD_MAX
-    count_h2d("device pseudo-align probe", buf)
     d = host.to(dev, non_blocking=True)
     qk_d, qoff_d = d[:n], d[n: n + nq + 1]
     return [qk_d, d[n + nq + 1:].view(torch.int32)[:n], qoff_d,
@@ -162,14 +162,6 @@ class DevicePseudoAligner:
         #: card; without, each batch's windows are packed and uploaded as a
         #: blob of their own
         self.blob = None
-        #: windows seen, answered on the device ('rows' or 'none'), sent to
-        #: the host; queries whose windows all go to the host; flag<bits>
-        self.stats = {"windows": 0, "device_windows": 0, "host_windows": 0,
-                      "host_queries": 0}
-
-    def _flag(self, f: int):
-        self.stats[f"flag{f}"] = self.stats.get(f"flag{f}", 0) + 1
-        self.stats["host_windows"] += 1
 
     def run_batch(self, queries, windows, geoms=None):
         """queries: list of (qk u64 sorted, qv u32) per batch query.
@@ -181,24 +173,21 @@ class DevicePseudoAligner:
         results = [("host", None)] * n_win
         if n_win == 0:
             return results
-        st = self.stats
-        card0, host0 = st["device_windows"], st["host_windows"]
-        st["windows"] += n_win
         tables, q_ok = query_tables(queries, self.device)
-        st["host_queries"] += int((~q_ok).sum())
         dev_idx = [
             i for i, (qidx, tcodes, _b, _e) in enumerate(windows)
             if q_ok[qidx] and tcodes.shape[0] <= L_CAP
             and (geoms is None or geoms[i] is not None)
         ]
-        st["host_windows"] += n_win - len(dev_idx)
-        for o in range(0, len(dev_idx), W_CHUNK):
-            self._run_chunk(dev_idx[o: o + W_CHUNK], windows, geoms, tables, results)
-        bound_tally("pseudo.card_windows", st["device_windows"] - card0)
-        bound_tally("pseudo.host_windows", st["host_windows"] - host0)
+        flagged = sum(self._run_chunk(dev_idx[o: o + W_CHUNK], windows, geoms, tables, results)
+                      for o in range(0, len(dev_idx), W_CHUNK))
+        bound_tally("pseudo.card_windows", len(dev_idx) - flagged)
+        bound_tally("pseudo.host_windows", n_win - len(dev_idx) + flagged)
         return results
 
-    def _run_chunk(self, idxs, windows, geoms, tables, results):
+    def _run_chunk(self, idxs, windows, geoms, tables, results) -> int:
+        """One launch of each kernel over the windows `idxs`; returns how
+        many of them the kernels flagged."""
         d = self.device
         win = np.zeros((len(idxs), 8), dtype=np.int64)
         packed = []
@@ -217,12 +206,10 @@ class DevicePseudoAligner:
             blob = self.blob.words
         else:
             words = np.concatenate(packed) if off else np.zeros(1, np.uint32)
-            count_h2d("device pseudo-align probe", words)
             blob = _upload(words.view(np.int32), d)
         # checked here, on the host copy, and uploaded without a wait: the
         # host does not wait for the card before the probe launch
         check_windows(win, tables[2].shape[0] - 1)
-        count_h2d("device pseudo-align probe", win)
         aqb, atb, aln, acnt, aflg = pseudo_probe(blob, _upload(win, d), *tables, checked=True)
         # the chain is queued right behind the probe: the host first waits
         # for the card at the fetch of both kernels' flags and counts
@@ -234,20 +221,19 @@ class DevicePseudoAligner:
         # compaction on the device: only the emitted rows cross to the host
         valid = torch.arange(C_CAP, device=d)[None, :] < ccnt[:, None].to(torch.int64)
         flat = fetch_numpy("device pseudo-align chain", rows[valid])[0]
-        self._decode(idxs, pflags | cflags, cnt, flat, results)
+        return self._decode(idxs, pflags | cflags, cnt, flat, results)
 
-    def _decode(self, idxs, flags, cnt, flat, results):
+    def _decode(self, idxs, flags, cnt, flat, results) -> int:
         """Per-window results from the compacted rows (window order, each
-        window's rows in emission order)."""
+        window's rows in emission order); returns the flagged windows."""
         ptr = 0
         for k, i in enumerate(idxs):
             if flags[k]:
-                self._flag(int(flags[k]))
                 continue
-            self.stats["device_windows"] += 1
             c = int(cnt[k])
             if c == 0:
                 results[i] = ("none", None)
                 continue
             results[i] = ("rows", flat[ptr: ptr + c].astype(np.int64))
             ptr += c
+        return int(np.count_nonzero(flags))

@@ -28,10 +28,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels.runtime import fetch_numpy
 from ..kernels.seed_locate import seed_locate_batch, split_kmers_hi_lo
 from ..kernels.seed_match_shard import seed_match_shard
 from ..kernels.shard_compact import shard_compact
-from . import count_h2d, fetch_numpy, resolve_device
+from ..utils.spans import bound_tally
+from . import resolve_device
 from .device_search import bucket_edges_for, collect_per_mask_tables, pack_bucket_rows, tile_for
 
 #: entries above which a mask stays on the host tier (whole masks per shard
@@ -206,8 +208,10 @@ class ShardedSeedMatcher:
     gather, chaining, alignment) is the host code, so rows equal the host
     engine's.
 
-    stats: batches matched, buckets compacted a second time and the
-    queries that took their triples from such a pass."""
+    Each batch adds the buckets it compacted a second time to the counter
+    `match.second_passes`, and the queries that took their triples from
+    such a pass to `match.second_pass_queries`, under the recorder bound to
+    the calling thread (utils/spans.py)."""
 
     #: per-(query, shard, bucket) compacted-hit capacity of the first pass
     H_SHARD = 1536
@@ -219,7 +223,6 @@ class ShardedSeedMatcher:
         self.k = index_searcher.k
         self.m = index_searcher.mask_set.m
         self.tp, self.dp = mesh.tp, mesh.dp
-        self.stats = {"batches": 0, "second_passes": 0, "second_pass_queries": 0}
 
         per_mask = collect_per_mask_tables(index_searcher)
         if len(per_mask) != self.m:
@@ -252,7 +255,6 @@ class ShardedSeedMatcher:
                     # only where the gids rise with the row
                     raise AssertionError(f"shard {s}: mask ids do not rise with the row")
                 hi[l], cnt[l], gids[l] = pack_bucket_rows(per_mask, ids, self.k, E, mb_pad)
-            count_h2d("sharded seed table", hi, cnt, gids)
             d = self.device
             self.buckets.append(ShardBucket(
                 E=E, tile=tile, mb_pad=mb_pad, ids_per_shard=ids_per_shard,
@@ -316,7 +318,6 @@ class ShardedSeedMatcher:
                 ids = bk.ids_per_shard[s]
                 qh[l, :, : ids.shape[0]] = qh_mine[:, ids]
                 qv[l, :, : ids.shape[0]] = sel_mine[:, ids]
-            count_h2d("sharded seed matching", qh, qv)
             qh_d = torch.from_numpy(qh.view(np.int32)).to(self.device)
             qv_d = torch.from_numpy(qv).to(self.device)
             loc = torch.empty((2, L, bl, bk.mb_pad), dtype=torch.int32, device=self.device)
@@ -341,9 +342,8 @@ class ShardedSeedMatcher:
             for (i, _), a in zip(again, fetch_numpy("sharded seed matching",
                                                     *(g for _, g in again))):
                 fetched[i] = a
-        self.stats["batches"] += 1
-        self.stats["second_passes"] += len(again)
-        self.stats["second_pass_queries"] += int(over[:B].sum())
+        bound_tally("match.second_passes", len(again))
+        bound_tally("match.second_pass_queries", int(over[:B].sum()))
 
         per_query: list[list] = [[] for _ in range(B)]
         for a in fetched:

@@ -16,23 +16,23 @@ powers of two (no compile shapes).  A pair with an empty side, one longer
 than the last bucket, or one the kernels flag (a live span wider than W, no
 end within S scores) is aligned by the host's wfa_align: exact in every
 case.  Each such host alignment is a span `wfa.host`, and each call adds
-its pairs to the counters `wfa.card_pairs` and `wfa.host_pairs`, and the
-history bytes its launches took (each sized to what its pairs write, at
-most HIST_BYTES) to `wfa.hist_bytes`, under the recorder bound to the
-calling thread (utils/spans.py).
+its pairs to the counters `wfa.card_pairs` and `wfa.host_pairs` (of them,
+those the kernels flagged to `wfa.flagged_pairs`), and the history bytes
+its launches took (each sized to what its pairs write, at most HIST_BYTES)
+to `wfa.hist_bytes`, under the recorder bound to the calling thread
+(utils/spans.py).
 """
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
+from ..kernels.runtime import fetch_numpy
 from ..kernels.wfa import check_pairs, decode_ops, history_bytes, pack_pairs, wfa_batch
 from ..ops.wfa import wfa_align
 from ..utils.spans import bound_span, bound_tally
-from . import count_h2d, fetch_numpy, resolve_device
+from . import resolve_device
 
 #: (longest sequence, scores, window of diagonals): S covers a cost of
 #: about half the length (~10% substitutions and 1% indels), W the live
@@ -64,10 +64,7 @@ class DeviceWFA:
     align_batch is safe to call from several threads (the phase-5 pools):
     the kernel library is built and loaded once under a lock
     (kernels/build.py), each call launches on its thread's current stream,
-    and the counters are updated under a lock.  stats: pairs asked for,
-    answered on the device, sent to the host without a launch (an empty
-    side, or longer than the last bucket), and flagged by the kernels;
-    `launches`: kernel launches."""
+    and its counters go to its thread's recorder (see the module)."""
 
     def __init__(self, mismatch=4, gap_open=6, gap_ext=2, min_wf_len=10, max_dist_diff=50,
                  device=None):
@@ -75,9 +72,6 @@ class DeviceWFA:
         self.x, self.o, self.e = mismatch, gap_open, gap_ext
         self.min_wf_len = min_wf_len
         self.max_dist_diff = max_dist_diff
-        self.stats = {"pairs": 0, "device_pairs": 0, "host_pairs": 0, "flagged_pairs": 0}
-        self.launches = 0
-        self._lock = threading.Lock()
 
     def _host(self, q, t):
         r = wfa_align(q, t, self.x, self.o, self.e, min_wf_len=self.min_wf_len,
@@ -96,7 +90,7 @@ class DeviceWFA:
                 host.append(i)
             else:
                 groups.setdefault(b, []).append(i)
-        launches = flagged = hist_bytes = 0
+        flagged = hist_bytes = 0
         for b, idxs in groups.items():
             L, S, W = b
             per = max(1, HIST_BYTES // history_bytes(1, S, W))
@@ -110,19 +104,12 @@ class DeviceWFA:
                         host.append(i)
                     else:
                         results[i] = ops
-                launches += self.device.type == "cuda"
         for i in host:
             with bound_span("wfa.host"):
                 results[i] = self._host(*pairs[i])
-        with self._lock:
-            st = self.stats
-            st["pairs"] += len(pairs)
-            st["device_pairs"] += len(pairs) - len(host)
-            st["host_pairs"] += len(host) - flagged
-            st["flagged_pairs"] += flagged
-            self.launches += launches
         bound_tally("wfa.card_pairs", len(pairs) - len(host))
         bound_tally("wfa.host_pairs", len(host))
+        bound_tally("wfa.flagged_pairs", flagged)
         bound_tally("wfa.hist_bytes", hist_bytes)
         return results
 
@@ -133,7 +120,6 @@ class DeviceWFA:
         L, S, W = bucket
         arrs = pack_pairs(pairs)
         check_pairs(arrs[0].shape[0], *arrs[1:])
-        count_h2d("device WFA", *arrs)
         # one upload: the words, the offsets and the lengths side by side
         # as int64 words, then views of their own types
         B, NW = len(pairs), arrs[0].shape[0]

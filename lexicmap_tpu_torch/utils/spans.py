@@ -9,13 +9,15 @@ the profiler's clock beside the card's rows, with `args` (the query's index
 in its batch, or a transfer's stage label) as the range's arguments.  With
 the profiler off a span costs two clock reads and one flag check.
 
-A wait on the card (`card_wait`, used by parallel.fetch_numpy) adds to the
-recorder bound to the waiting thread (`SpanRecorder.bind_thread`); on a
-thread with none it times nothing.  So do `bound_span` and `bound_tally`,
-which the device stages use without holding a recorder of their own.
+A wait on the card (`card_wait`, used by kernels/runtime.py::fetch_numpy)
+adds to the recorder bound to the waiting thread
+(`SpanRecorder.bind_thread`); on a thread with none it times nothing.  So
+do `bound_span` and `bound_tally`, which the device stages use without
+holding a recorder of their own.
 
 A counter (`SpanRecorder.tally`) adds a number of items, pairs or windows,
-to `totals[key]` in place of seconds; its keys are COUNTERS.
+to `totals[key]` in place of seconds; its keys are COUNTERS.  The recorder
+is the port's only account of what the device stages did.
 
 This module imports no torch: the host engine's searcher never loads it,
 and the profiler cannot record before torch is imported.
@@ -44,13 +46,18 @@ KEYS = ("mask", "match", "anchors", "chain", "winprep", "pseudo", "align", "wfa"
         "anchors.prefix", "anchors.reverse", "anchors.reverse_host", "anchors.suffix",
         "anchors.gather", "finish_wait", "card_wait", "wfa.host")
 #: items, not seconds: phase 5's WFA pairs aligned on the card and on the
-#: host (DeviceWFA.stats' device_pairs, and host_pairs + flagged_pairs),
-#: phase 4's windows answered on the card and sent to the host
-#: (DevicePseudoAligner.stats' device_windows and host_windows), and the
-#: bytes of WFA history the card's launches took (kernels/wfa.py's
-#: history_bytes_packed, summed over a call's launches)
+#: host (parallel/wfa_device.py; a host pair was declined without a launch
+#: or flagged by the kernels), phase 4's windows answered on the card and
+#: sent to the host (parallel/pseudo_device.py), the bytes of WFA history
+#: the card's launches took (kernels/wfa.py's history_bytes_packed, summed
+#: over a call's launches); then the pairs of wfa.host_pairs the kernels
+#: flagged, phase 3's genomes sent to the chain1 kernel and those of them it
+#: flagged (parallel/chain_device.py), and the sharded matcher's buckets
+#: compacted a second time and the queries that took their hits from such a
+#: pass (parallel/sharded.py)
 COUNTERS = ("wfa.card_pairs", "wfa.host_pairs", "pseudo.card_windows", "pseudo.host_windows",
-            "wfa.hist_bytes")
+            "wfa.hist_bytes", "wfa.flagged_pairs", "chain.genomes", "chain.flagged_genomes",
+            "match.second_passes", "match.second_pass_queries")
 KEYS += COUNTERS
 
 _bound = threading.local()

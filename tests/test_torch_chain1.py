@@ -11,6 +11,7 @@ jax = pytest.importorskip("jax")
 
 from torch_parity import CHAIN1_PARAMS, chain1_csr, chain1_replay, chain1_sets
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
+from torch_parity import rec  # noqa: F401  (fixture)
 
 from lexicmap_tpu.parallel.chain_device import DeviceChainer as JaxChainer
 from lexicmap_tpu.parallel.chain_device import gap_score_table as jax_gap_score_table
@@ -149,13 +150,14 @@ def test_schedule_block_threshold(offset):
     assert n_block == (2 if offset >= 0 else 1)
 
 
-def test_device_chainer_equals_native_and_jax(sets, jax_out):
+def test_device_chainer_equals_native_and_jax(sets, jax_out, rec):
     dc = CD.DeviceChainer(MG, MSC, MD, device="cpu")
     short = [tuple(a[:1] for a in sets[0]), tuple(a[:0] for a in sets[0])]
+    launches = C1.chain1_forward.launches
     got = dc.chain_batch(sets + short)
     assert [k for k, _ in got] == ["ok"] * len(sets) + ["host", "host"]
-    assert dc.stats == {"genomes": len(sets), "host_genomes": 0}
-    assert dc.launches == 0  # the plain version on the CPU
+    assert (rec.totals["chain.genomes"], rec.totals["chain.flagged_genomes"]) == (len(sets), 0)
+    assert C1.chain1_forward.launches == launches  # the plain version on the CPU
     for s, (_, fwd), (jk, jf) in zip(sets, got, jax_out):
         w = native(s)
         assert fwd[1].dtype == np.int64 and fwd[2].dtype == np.int8
@@ -165,16 +167,16 @@ def test_device_chainer_equals_native_and_jax(sets, jax_out):
             assert all(np.array_equal(a, b) for a, b in zip(fwd[1:], jf[1:]))
 
 
-def test_gap_past_table_flags_genome(sets, monkeypatch):
+def test_gap_past_table_flags_genome(sets, monkeypatch, rec):
     """A gap within max_gap that the table does not hold sends the genome to
     the host (F_GAP_TABLE); the others are answered."""
     monkeypatch.setattr(CD, "GTAB_MAX", 3)
     dc = CD.DeviceChainer(MG, MSC, MD, device="cpu")
     tiny = [tuple(a[:2] for a in sets[0])]
     got = dc.chain_batch(sets[:3] + tiny)
-    assert dc.stats["host_genomes"] >= 1
-    assert dc.stats["genomes"] == 4
-    assert dc.stats["host_genomes"] == sum(k == "host" for k, _ in got)
+    assert rec.totals["chain.flagged_genomes"] >= 1
+    assert rec.totals["chain.genomes"] == 4
+    assert rec.totals["chain.flagged_genomes"] == sum(k == "host" for k, _ in got)
     for s, (k, fwd) in zip(sets[:3] + tiny, got):
         if k == "ok":
             assert np.array_equal(bits(fwd[0]), bits(native(s)[0]))
@@ -193,16 +195,21 @@ def test_wrapper_checks():
     assert [t.shape[0] for t in empty] == [0, 0, 0, 0]
 
 
-def test_device_chainer_one_upload_one_fetch(sets):
+def test_device_chainer_one_upload_one_fetch(sets, monkeypatch, rec):
     """chain_batch sends the columns, the genome order and the offsets up
-    in one copy and brings the four outputs back in one."""
-    from lexicmap_tpu_torch.parallel import transport
-
-    before = dict(transport.get("device chain DP", {"fetches": 0, "h2d_bytes": 0}))
+    in one copy and brings the four outputs back in one: one wait on the
+    card."""
     dc = CD.DeviceChainer(MG, MSC, MD, device="cpu")
+    ups = []
+    real = torch.from_numpy
+
+    def spy(a):
+        ups.append(a.nbytes)
+        return real(a)
+
+    monkeypatch.setattr(CD.torch, "from_numpy", spy)
     dc.chain_batch(sets[:4])
-    acc = transport["device chain DP"]
     N = sum(s[0].shape[0] for s in sets[:4])
-    assert acc["fetches"] - before["fetches"] == 1
+    assert rec.counts["card_wait"] == 1
     # int32 columns and order, the int64 offsets at an even int32 index
-    assert acc["h2d_bytes"] - before["h2d_bytes"] == 4 * ((3 * N + 4 + 1) // 2 * 2 + 2 * 5)
+    assert ups == [4 * ((3 * N + 4 + 1) // 2 * 2 + 2 * 5)]

@@ -143,9 +143,11 @@ def test_debug_prints_device_stage_stats(db, tmp_path, capsys):
     run(db, tmp_path, "debug", ["--engine", "device", "--device", "cpu", "--chain", "device",
                                 "--wfa", "device", "--debug"], root=["--quiet"])
     err = capsys.readouterr().err
-    for what in ("device chainer: {'genomes'", "device WFA: {'pairs'",
-                 "device pseudo-align", "device engine phase times"):
-        assert what in err, what
+    assert "device engine phase times" in err
+    # each device stage's counters, from the span recorder (the only account)
+    lines = {ln.split()[0]: ln.split()[1:] for ln in err.splitlines() if ln.startswith("    ")}
+    for key in ("chain.genomes", "wfa.card_pairs", "pseudo.card_windows"):
+        assert float(lines[key][0]) > 0, key
 
 
 @pytest.mark.parametrize("argv", [["--chain", "device"], ["--wfa", "device"],

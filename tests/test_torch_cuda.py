@@ -35,6 +35,7 @@ from torch_parity import (
     wfa_pairs,
     wfa_tensors,
 )
+from torch_parity import rec  # noqa: F401  (fixture)
 
 from lexicmap_tpu_torch.kernels import chain1 as C1
 from lexicmap_tpu_torch.kernels import pseudo_align as PA
@@ -387,14 +388,13 @@ def test_cuda_wfa_equals_plain_and_host(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_wfa_packed_history(cuda_device):
+def test_cuda_wfa_packed_history(cuda_device, rec):
     """Size, then write, on pairs in buckets 1-3 and one the kernels flag:
     each launch's ops == the plain version's == wfa_align's, its arena's
     bytes == the plain version's per-pair sizes (history_bytes_packed),
-    and DeviceWFA reads one size and one output buffer back a launch, each
-    under its own transport label."""
+    and DeviceWFA waits on the card twice a launch: its size read back,
+    then its one output buffer."""
     from lexicmap_tpu_torch.ops.wfa import wfa_align
-    from lexicmap_tpu_torch.parallel import transport
     from lexicmap_tpu_torch.parallel import wfa_device as WD
 
     pairs = wfa_bucket_mix(0.02)
@@ -415,18 +415,17 @@ def test_cuda_wfa_packed_history(cuda_device):
         packed = int(WK.packed_offsets(cells)[-1])
         assert scratch["hist_bytes"] == WK.history_bytes_packed(packed, len(group), S)
     assert flagged == 1
-    sizes = dict(transport.get(WK.SIZE_LABEL, {"fetches": 0}))
-    outs = dict(transport.get("device WFA", {"fetches": 0}))
     dw = WD.DeviceWFA(device=cuda_device)
+    launches, waits = WK.wfa_batch.launches, rec.counts["card_wait"]
     assert dw.align_batch(pairs) == [wfa_align(q, t).ops for q, t in pairs]
-    assert dw.launches == len(groups) and dw.stats["flagged_pairs"] == 1
-    assert transport[WK.SIZE_LABEL]["fetches"] - sizes["fetches"] == dw.launches
-    assert transport["device WFA"]["fetches"] - outs["fetches"] == dw.launches
+    assert WK.wfa_batch.launches - launches == len(groups)
+    assert rec.totals["wfa.flagged_pairs"] == 1
+    assert rec.counts["card_wait"] - waits == 2 * len(groups)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [30, 2000, 8000])
-def test_cuda_device_wfa_buckets_equal_host(cuda_device, n):
+def test_cuda_device_wfa_buckets_equal_host(cuda_device, n, rec):
     """DeviceWFA on the card across its buckets: op lists == wfa_align's."""
     from lexicmap_tpu_torch.ops.wfa import wfa_align
     from lexicmap_tpu_torch.parallel.wfa_device import DeviceWFA
@@ -435,8 +434,10 @@ def test_cuda_device_wfa_buckets_equal_host(cuda_device, n):
     rng = np.random.default_rng(n)
     pairs = [mutate_pair(rng, n, 0.03, 0.005) for _ in range(6)]
     dw = DeviceWFA(device=cuda_device)
+    launches = WK.wfa_batch.launches
     got = dw.align_batch(pairs)
-    assert dw.launches >= 1 and dw.stats["device_pairs"] == len(pairs), dw.stats
+    assert WK.wfa_batch.launches > launches
+    assert rec.totals["wfa.card_pairs"] == len(pairs), rec.totals
     assert got == [wfa_align(q, t).ops for q, t in pairs]
 
 
@@ -461,8 +462,9 @@ def test_cuda_search_many_device_stages_equal_host(cuda_device, tmp_path):
     assert got == [rows_of(host.search_bytes(q)) for q in qs]
     assert C1.chain1_forward.launches == before[0] + 1
     assert WK.wfa_batch.launches > before[1]
-    assert dev.device_chainer.stats["host_genomes"] == 0
-    assert dev.device_wfa.stats["device_pairs"] == dev.device_wfa.stats["pairs"] > 0
+    t = dev.spans.totals
+    assert t["chain.genomes"] > 0 and t["chain.flagged_genomes"] == 0
+    assert t["wfa.card_pairs"] > 0 and t["wfa.host_pairs"] == 0
 
 
 def _capture_on_card(dev, masks, k, codes, exclude):
@@ -683,7 +685,7 @@ def test_cuda_shard_compact_capacity_at_the_rows(cuda_device, H):
 
 
 @pytest.mark.cuda
-def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
+def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path, rec):
     """make_mesh(local_shards=4) on the card (NCCL, world size 1): the
     sharded step's scores equal the plain twins' over the whole table (one
     launch a step), the matcher's triples equal the host bisection's (four
@@ -724,10 +726,11 @@ def test_cuda_one_nccl_rank_four_shards(cuda_device, tmp_path):
             want = host_triples(host, kmers[b], host.opt.min_prefix)
             assert g is not None and all(np.array_equal(x, y) for x, y in zip(g, want))
         m.H_SHARD = 4  # under most queries' hits on a shard: second passes
-        before = SC.shard_compact.launches
+        before, passes = SC.shard_compact.launches, rec.totals["match.second_passes"]
         again = m.match_batch(kmers, host.opt.min_prefix)
-        assert m.stats["second_passes"] >= 1
-        assert SC.shard_compact.launches == before + n + m.stats["second_passes"]
+        passes = rec.totals["match.second_passes"] - passes
+        assert passes >= 1
+        assert SC.shard_compact.launches == before + n + passes
         for a, g in zip(again, got):
             assert all(np.array_equal(x, y) for x, y in zip(a, g))
 

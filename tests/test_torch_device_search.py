@@ -9,12 +9,12 @@ import torch
 jax = pytest.importorskip("jax")
 
 from torch_parity import host_triples, mutated_queries, write_genomes
+from torch_parity import rec  # noqa: F401  (fixture)
 
 from lexicmap_tpu.index.build import BuildOptions, build_index
 from lexicmap_tpu.index.search import IndexSearcher as JaxSearcher
 from lexicmap_tpu.index.search import SearchOptions as JaxOptions
 from lexicmap_tpu.parallel import device_search as jds
-from lexicmap_tpu_torch import parallel as tpar
 from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
 from lexicmap_tpu_torch.parallel import device_search as tds
 from lexicmap_tpu_torch.utils.kmers import seq_to_codes
@@ -187,16 +187,23 @@ def test_default_budget(port_idx, monkeypatch):
     assert pm.host_rows == 0 and pm.budget_spill == 0
 
 
-def test_transport_accounting(port_idx, db):
+def test_match_batch_fetches_triples_once(port_idx, db, monkeypatch, rec):
+    """A batch waits on the card twice: for the compaction's per-query
+    offsets (they size its output), then for all its triples in one copy
+    of the [T, 3] records."""
     pm = tds.DeviceSeedMatcher(port_idx, device="cpu")
-    before = tpar.transport_summary().get("device seed matching", {"h2d_bytes": 0, "fetches": 0})
     batch = query_batch(port_idx, db[1], 1)
-    pm.match_batch(batch, P)
-    after = tpar.transport_summary()
-    acc = after["device seed matching"]
-    assert acc["h2d_bytes"] - before["h2d_bytes"] == batch.size * 5  # hi words + flags
-    # two fetches: the compaction's per-query offsets (they size its
-    # output), then the triples
-    assert acc["fetches"] == before["fetches"] + 2 and acc["d2h_bytes"] > 0
-    assert after["TOTAL"]["h2d_bytes"] >= acc["h2d_bytes"] + pm.hbm_bytes
+    fetched = []
+    fetch = tds.fetch_numpy
+
+    def spy(label, *ts):
+        fetched.append((label, [tuple(t.shape) for t in ts]))
+        return fetch(label, *ts)
+
+    monkeypatch.setattr(tds, "fetch_numpy", spy)
+    got = pm.match_batch(batch, P)
+    T = sum(g[0].shape[0] for g in got)
+    assert T > 0
+    assert fetched == [("device seed matching", [(T, 3)])]
+    assert rec.counts["card_wait"] == 2
 

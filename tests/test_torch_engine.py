@@ -64,9 +64,9 @@ def test_engine_matches_jax_host_and_jax_device(db, jax_host):
     assert sum(map(len, got)) >= 6
     assert got[0] and got[0][0].split("\t")[3] == "D0"
     eng = port._device_engine
-    st = eng.pseudo.stats
+    t = eng.times
     # phase 4 answered on the device path: every window of this set
-    assert st["windows"] >= 6 and st["device_windows"] == st["windows"], st
+    assert t["pseudo.card_windows"] >= 6 and t["pseudo.host_windows"] == 0, t
     assert eng.blob.words.numel() > 0 and eng.pseudo.blob is eng.blob
     for key in ("match", "winprep", "pseudo", "align"):
         assert eng.times[key] > 0, key
@@ -83,8 +83,8 @@ def test_engine_across_batch_boundary(db, jax_host):
     got = all_rows(port.search_many(qs))
     assert got == all_rows([jax_host.search_bytes(q) for q in qs])
     assert all(got)
-    st = port._device_engine.pseudo.stats
-    assert st["windows"] >= 33 and st["device_windows"] == st["windows"], st
+    t = port._device_engine.times
+    assert t["pseudo.card_windows"] >= 33 and t["pseudo.host_windows"] == 0, t
 
 
 def test_reversed_dispatch_a_batch_equals_host_engine(db, jax_host):
@@ -146,8 +146,8 @@ def test_store_over_budget_uploads_windows(db, jax_host, monkeypatch, starve):
     port._device_engine = eng
     got = all_rows(port.search_many(qs))
     assert got == all_rows([jax_host.search_bytes(q) for q in qs])
-    st = eng.pseudo.stats
-    assert st["windows"] >= 6 and st["device_windows"] == st["windows"], st
+    t = eng.times
+    assert t["pseudo.card_windows"] >= 6 and t["pseudo.host_windows"] == 0, t
     assert E.DeviceSearchEngine(port, hbm_budget=need).blob.hbm_bytes == need
 
 
@@ -241,13 +241,12 @@ def test_device_stages_match_host_and_jax(db, jax_host, opt):
     assert got == all_rows(JaxSearcher(db[0], JaxOptions(engine="device", **opt)).search_many(qs))
     assert (port.device_chainer is None) == ("chain_engine" not in opt)
     assert (port.device_wfa is None) == ("wfa_engine" not in opt)
+    t = port._device_engine.times
     if port.device_chainer is not None:
-        st = port.device_chainer.stats
-        assert st["genomes"] >= 6 and st["host_genomes"] == 0, st
+        assert t["chain.genomes"] >= 6 and t["chain.flagged_genomes"] == 0, t
     if port.device_wfa is not None:
-        st = port.device_wfa.stats
-        assert st["pairs"] >= 6 and st["device_pairs"] == st["pairs"], st
-        assert port._device_engine.times["wfa"] > 0
+        assert t["wfa.card_pairs"] >= 6 and t["wfa.host_pairs"] == 0, t
+        assert t["wfa"] > 0
 
 
 def test_device_stages_across_batch_boundary(db, jax_host):

@@ -1,10 +1,11 @@
 """The per-hit stages' counters and span (utils/spans.py): phase 5's WFA
-pairs on the card and on the host and the host WFA's span `wfa.host`
-(parallel/wfa_device.py), phase 4's windows on the card and on the host
-(parallel/pseudo_device.py), each equal to the aligner's own stats; and a
-search of a gene planted in several copies a genome through the device
-engine, whose rows equal the host engine's and whose times hold the new
-keys.  On the CPU, with the kernels' plain twins."""
+pairs on the card and on the host (of them, those the kernels flagged) and
+the host WFA's span `wfa.host` (parallel/wfa_device.py), phase 4's windows
+on the card and on the host (parallel/pseudo_device.py), each equal to the
+pairs and windows the test knows go where; and a search of a gene planted
+in several copies a genome through the device engine, whose rows equal the
+host engine's and whose times hold the counters.  On the CPU, with the
+kernels' plain twins."""
 
 import threading
 
@@ -13,6 +14,7 @@ import pytest
 
 from torch_parity import mutate_pair, rows_of
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
+from torch_parity import rec  # noqa: F401  (fixture)
 
 from lexicmap_tpu_torch.index.build import BuildOptions, build_index
 from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
@@ -25,17 +27,6 @@ from lexicmap_tpu_torch.utils import spans as S
 from lexicmap_tpu_torch.utils.kmers import seq_to_codes
 
 ALPHA = np.frombuffer(b"ACGT", dtype=np.uint8)
-
-
-@pytest.fixture
-def rec():
-    """A fresh recorder bound to this thread, the earlier binding restored
-    afterwards."""
-    old = getattr(S._bound, "rec", None)
-    r = S.SpanRecorder()
-    r.bind_thread()
-    yield r
-    S._bound.rec = old
 
 
 def wfa_pairs_every_bucket():
@@ -58,18 +49,18 @@ def test_wfa_counters_equal_stats(rec):
     dw = WD.DeviceWFA(device="cpu")
     got = dw.align_batch(pairs)
     assert got == [wfa_align(q, t).ops for q, t in pairs]
-    st, t, c = dw.stats, rec.totals, rec.counts
-    assert st == {"pairs": 7, "device_pairs": 4, "host_pairs": 2, "flagged_pairs": 1}
-    assert t["wfa.card_pairs"] + t["wfa.host_pairs"] == len(pairs) == st["pairs"]
-    assert t["wfa.card_pairs"] == st["device_pairs"]
-    assert t["wfa.host_pairs"] == st["host_pairs"] + st["flagged_pairs"]
+    t, c = rec.totals, rec.counts
+    # four on the card; three on the host: two declined without a launch
+    # (an empty side, past the last bucket) and one the kernels flagged
+    assert (t["wfa.card_pairs"], t["wfa.host_pairs"], t["wfa.flagged_pairs"]) == (4, 3, 1)
+    assert t["wfa.card_pairs"] + t["wfa.host_pairs"] == len(pairs)
     # one span a host pair, one tally a call; counters hold items, not seconds
     assert c["wfa.host"] == 3 and t["wfa.host"] > 0
-    assert c["wfa.card_pairs"] == c["wfa.host_pairs"] == 1
-    # a second call adds to both
+    assert c["wfa.card_pairs"] == c["wfa.host_pairs"] == c["wfa.flagged_pairs"] == 1
+    # a second call adds to each
     dw.align_batch(pairs[:1])
-    assert (t["wfa.card_pairs"], t["wfa.host_pairs"]) == (5, 3) == (
-        st["device_pairs"], st["host_pairs"] + st["flagged_pairs"])
+    assert (t["wfa.card_pairs"], t["wfa.host_pairs"], t["wfa.flagged_pairs"]) == (5, 3, 1)
+    assert c["wfa.card_pairs"] == 2
 
 
 def test_counters_need_a_bound_recorder(rec):
@@ -106,10 +97,10 @@ def test_pseudo_window_counters_add_up(rec):
     dev = DevicePseudoAligner(device="cpu")
     res = dev.run_batch([(cpr.qk, cpr.qv)], windows)
     assert [r[0] for r in res] == ["rows"] * 5 + ["host"]
-    st, t = dev.stats, rec.totals
-    assert t["pseudo.card_windows"] == st["device_windows"] == 5
-    assert t["pseudo.host_windows"] == st["host_windows"] == 1
-    assert t["pseudo.card_windows"] + t["pseudo.host_windows"] == st["windows"] == len(windows)
+    t = rec.totals
+    assert t["pseudo.card_windows"] == 5
+    assert t["pseudo.host_windows"] == 1
+    assert t["pseudo.card_windows"] + t["pseudo.host_windows"] == len(windows)
     assert rec.counts["pseudo.card_windows"] == rec.counts["pseudo.host_windows"] == 1
 
 
@@ -149,7 +140,8 @@ def planted_db(tmp_path_factory):
 def test_planted_copies_through_the_device_engine(planted_db):
     """Each query hits every genome through every copy (1 + 2 + 3 HSPs);
     the rows equal the host engine's, and the engine's times hold the new
-    keys, equal to the aligners' stats."""
+    counters, equal to what each stage saw: every pair and window on the
+    card."""
     db, variants = planted_db
     qs = [variants[0], variants[2][:390]]
     dev = IndexSearcher(db, SearchOptions(engine="device", device="cpu",
@@ -161,9 +153,9 @@ def test_planted_copies_through_the_device_engine(planted_db):
     eng = dev._device_engine
     t = eng.times
     assert set(S.COUNTERS) | {"wfa.host"} <= set(t)
-    wst, pst = dev.device_wfa.stats, eng.pseudo.stats
-    assert t["wfa.card_pairs"] == wst["device_pairs"] > 0
-    assert t["wfa.host_pairs"] == wst["host_pairs"] + wst["flagged_pairs"]
-    assert t["pseudo.card_windows"] == pst["device_windows"] >= 12
-    assert t["pseudo.host_windows"] == pst["host_windows"]
+    assert t["wfa.card_pairs"] > 0
+    assert t["wfa.host_pairs"] == t["wfa.flagged_pairs"] == 0
+    assert t["pseudo.card_windows"] >= 12
+    assert t["pseudo.host_windows"] == 0
+    assert t["chain.genomes"] > 0 and t["chain.flagged_genomes"] == 0
     assert t["wfa.host"] <= t["wfa"] <= t["align"]

@@ -79,3 +79,33 @@ def test_utils_modules_are_checked(mod):
     conversion, the port's own copies) are among those the checks above
     import with jax blocked and parse for imports."""
     assert mod in port_modules()
+
+
+def kernel_sources():
+    d = os.path.join(PKG, "kernels")
+    return sorted(os.path.join(d, n) for n in os.listdir(d) if n.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", kernel_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_kernels_import_nothing_above_them(path):
+    """The kernel modules sit below parallel/: none imports it, and none
+    takes a `_`-prefixed name from another kernel module (what they share
+    is public, most of it in kernels/runtime.py)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [(a.name, []) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = "lexicmap_tpu_torch.kernels" if node.level == 1 else (
+                "lexicmap_tpu_torch" if node.level == 2 else "")
+            mods = [(".".join(p for p in (base, node.module or "") if p),
+                     [a.name for a in node.names])]
+        else:
+            continue
+        for mod, names in mods:
+            assert not mod.startswith("lexicmap_tpu_torch.parallel"), (path, mod)
+            if mod == "lexicmap_tpu_torch" and "parallel" in names:
+                raise AssertionError((path, "from .. import parallel"))
+            if mod.startswith("lexicmap_tpu_torch.kernels"):
+                assert not [n for n in names if n.startswith("_")], (path, mod, names)

@@ -11,6 +11,8 @@ import torch
 
 jax = pytest.importorskip("jax")
 
+from torch_parity import rec  # noqa: F401  (fixture)
+
 from lexicmap_tpu.parallel.pseudo_device import DevicePseudoAligner as JaxAligner
 from lexicmap_tpu_torch.index.search import SearchOptions
 from lexicmap_tpu_torch.kernels import pseudo_align as PA
@@ -110,7 +112,7 @@ def _mutate(rng, seq, n_mut):
     return bytes(b)
 
 
-def test_random_windows_match_host():
+def test_random_windows_match_host(rec):
     rng = np.random.default_rng(21)
     cases = []
     for i in range(8):
@@ -119,12 +121,20 @@ def test_random_windows_match_host():
         cases.append((q, seq_to_codes(bytes(t))))
     kinds, dev = run_diff(cases)
     assert kinds == ["rows"] * 8  # nothing flagged, every window chained
-    assert dev.stats["host_windows"] == 0
+    assert rec.totals["pseudo.card_windows"] == 8 and rec.totals["pseudo.host_windows"] == 0
 
 
-def test_tandem_repeat_window():
+def test_tandem_repeat_window(monkeypatch, rec):
     """Tandem repeats give dense, near-duplicate anchors (dedup, trim and
     region splitting); a window past A_CAP anchors is flagged."""
+    flags = []  # the windows' flags as the aligner decodes them
+    decode = DevicePseudoAligner._decode
+
+    def spy(self, idxs, f, *a):
+        flags.extend(f.tolist())
+        return decode(self, idxs, f, *a)
+
+    monkeypatch.setattr(DevicePseudoAligner, "_decode", spy)
     rng = np.random.default_rng(22)
     unit = _rand_seq(rng, 93)
     cases = []
@@ -132,8 +142,9 @@ def test_tandem_repeat_window():
         q = _rand_seq(rng, 300) + unit * copies + _rand_seq(rng, 300)
         cases.append((q, seq_to_codes(_mutate(rng, q, 15))))
     kinds, dev = run_diff(cases)
-    assert kinds[0] == "host" and dev.stats.get(f"flag{F_ANCHOR_OVERFLOW}") == 1
+    assert kinds[0] == "host" and flags == [F_ANCHOR_OVERFLOW, 0]
     assert kinds[1] == "rows"
+    assert rec.totals["pseudo.host_windows"] == rec.totals["pseudo.card_windows"] == 1
 
 
 @pytest.mark.parametrize("n_segs", [C_CAP - 8, C_CAP + 8])
@@ -239,14 +250,14 @@ def test_resident_and_uploaded_windows_agree():
         assert np.array_equal(a[1], want) and np.array_equal(u[1], want)
 
 
-def test_long_window_goes_host():
+def test_long_window_goes_host(rec):
     rng = np.random.default_rng(28)
     q = _rand_seq(rng, 300)
     t = np.zeros(PA.L_CAP + 1, dtype=np.uint8)
     dev = DevicePseudoAligner(**DEFAULT, device="cpu")
     cpr = _mk_cpr(q)
     assert dev.run_batch([(cpr.qk, cpr.qv)], [(0, t, 0, 299)]) == [("host", None)]
-    assert dev.stats["host_windows"] == 1
+    assert rec.totals["pseudo.host_windows"] == 1 and rec.totals["pseudo.card_windows"] == 0
 
 
 def test_chain_plain_stack_and_row_caps():

@@ -1,7 +1,8 @@
 """The port's resident genome blob (parallel/resident.py) vs the JAX
-package's: extract_packed_plain == JAX extract_packed == the host's
-pack_codes_2bit over GenomeStoreReader windows, both strands, across word
-boundaries and store batches (a twin of tests/test_resident.py)."""
+package's: extract_packed_plain (kernels/pseudo_align.py) == JAX
+extract_packed == the host's pack_codes_2bit over GenomeStoreReader
+windows, both strands, across word boundaries and store batches (a twin of
+tests/test_resident.py)."""
 
 import numpy as np
 import pytest
@@ -13,13 +14,9 @@ from lexicmap_tpu.index.store import GenomeStoreReader as JaxStoreReader
 from lexicmap_tpu.parallel.resident import DeviceGenomeBlob as JaxBlob
 from lexicmap_tpu.parallel.resident import extract_packed
 from lexicmap_tpu_torch.index.store import GenomeStoreReader, GenomeStoreWriter, pack_2bit
+from lexicmap_tpu_torch.kernels.pseudo_align import extract_packed_plain, unpack_codes
 from lexicmap_tpu_torch.parallel.pseudo_device import pack_codes_2bit
-from lexicmap_tpu_torch.parallel.resident import (
-    DeviceGenomeBlob,
-    extract_packed_plain,
-    normalize_blob,
-    unpack_codes,
-)
+from lexicmap_tpu_torch.parallel.resident import DeviceGenomeBlob, normalize_blob
 
 
 def _write_store(d, batch, lens, seed):

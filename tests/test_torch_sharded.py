@@ -27,6 +27,7 @@ from torch_parity import (
     sharded_db,
 )
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
+from torch_parity import rec  # noqa: F401  (fixture)
 
 import jax.numpy as jnp
 
@@ -263,7 +264,7 @@ def kept_or_host(got, want, idx, kmers, p):
         assert all(np.array_equal(x, y) for x, y in zip(g, ref))
 
 
-def test_matcher_equals_jax_with_overflow(db, jax_mesh, monkeypatch):
+def test_matcher_equals_jax_with_overflow(db, jax_mesh, monkeypatch, rec):
     """ShardedSeedMatcher on one rank with L = 4 against JAX's on
     make_mesh(8), H_SHARD set small on both so that some queries overflow:
     JAX declines those, the port compacts their buckets again at the
@@ -285,12 +286,15 @@ def test_matcher_equals_jax_with_overflow(db, jax_mesh, monkeypatch):
         assert (SL.seed_locate_batch.launches, shard_compact.launches) == launches
         assert [m.capacity(b) for b in m.buckets] == [min(h, b.mb_pad) for b in m.buckets]
         declined = sum(w is None for w in want)
-        assert m.stats["second_pass_queries"] == declined and m.stats["second_passes"] >= 1
+        t = rec.totals
+        assert t["match.second_pass_queries"] == declined and t["match.second_passes"] >= 1
+        passes = t["match.second_passes"]
         m.H_SHARD = 1 << 20  # over every bucket's rows: the capacity is the rows
         assert [m.capacity(b) for b in m.buckets] == [b.mb_pad for b in m.buckets]
         full = m.match_batch(kmers, p)
-        assert m.stats == {"batches": 2, "second_passes": m.stats["second_passes"],
-                           "second_pass_queries": declined}
+        # a second batch, compacted once: each counter tallied once a batch
+        assert rec.counts["match.second_passes"] == rec.counts["match.second_pass_queries"] == 2
+        assert (t["match.second_passes"], t["match.second_pass_queries"]) == (passes, declined)
     kept_or_host(got, want, idx, kmers, p)
     assert all(all(np.array_equal(x, y) for x, y in zip(f, g)) for f, g in zip(full, got))
 
@@ -319,7 +323,7 @@ def test_shards_from_jax_matcher_round_trip(db, jax_mesh):
         assert np.array_equal(t.gids.numpy().view(np.uint32), g)
 
 
-def test_mesh_engine_equals_jax_mesh_engine_and_host(db, jax_mesh):
+def test_mesh_engine_equals_jax_mesh_engine_and_host(db, jax_mesh, rec):
     """DeviceSearchEngine with a one-rank mesh of L = 4 (and with the
     chain1 and WFA stages on the device too) against JAX's
     DeviceSearchEngine on make_mesh(8) and the host rows."""
@@ -340,7 +344,8 @@ def test_mesh_engine_equals_jax_mesh_engine_and_host(db, jax_mesh):
             got = eng.finish_batch(eng.prepare_batch(qs))
             assert [rows_of(r, f"q{i}") for i, r in enumerate(got)] == want, twins
             assert (idx.device_chainer is not None) == (twins == "device")
-            assert eng.pseudo.stats["windows"] >= 3
+            t = idx.spans.totals
+            assert t["pseudo.card_windows"] + t["pseudo.host_windows"] >= 3
     assert all(want)
 
 

@@ -1,8 +1,9 @@
 """The search path's span recorder (lexicmap_tpu_torch/utils/spans.py): exact
 totals under two threads, no profiler range while the profiler is off,
 every key seeded and the phases' parts inside their phases on a CPU
-device-engine search, one card wait a fetch, and the ranges on the
-profiler's clock in the threads that ran them."""
+device-engine search, the card waits of a batch, and the ranges on the
+profiler's clock in the threads that ran them; --debug prints the recorder
+alone."""
 
 import json
 import sys
@@ -14,7 +15,6 @@ import torch
 from torch_parity import mutated_queries, write_genomes
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
-from lexicmap_tpu_torch import parallel as tpar
 from lexicmap_tpu_torch.index.build import BuildOptions, build_index
 from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
 from lexicmap_tpu_torch.utils import spans as S
@@ -46,10 +46,10 @@ def searcher(db):
 @pytest.fixture(scope="module")
 def searched(db):
     """One searcher after a search of 35 queries (two engine batches), with
-    the transport and the recorder's counts around it."""
+    the recorder's counts before it."""
     s = searcher(db)
     qs = queries35(db[1])
-    before = tpar.transport_summary()["TOTAL"]["fetches"], dict(s.spans.counts)
+    before = dict(s.spans.counts)
     res = s.search_many(qs)
     return s, qs, res, before
 
@@ -92,7 +92,7 @@ def test_no_range_while_the_profiler_is_off(db, monkeypatch):
 
 
 def test_keys_seeded_and_parts_inside_their_phases(searched):
-    s, qs, res, (fetches0, counts0) = searched
+    s, qs, res, counts0 = searched
     eng = s._device_engine
     assert eng.times is s.spans.totals
     assert tuple(eng.times)[:8] == PHASES and set(eng.times) == set(S.KEYS)
@@ -122,9 +122,12 @@ def test_keys_seeded_and_parts_inside_their_phases(searched):
     # every query's reversed dispatch served by the batch's (the card's, here
     # its plain twin): none on the host
     assert c["anchors.reverse_host"] == counts0["anchors.reverse_host"]
-    fetches = tpar.transport_summary()["TOTAL"]["fetches"] - fetches0
-    assert fetches >= 2 * 5  # seed matching 2, pseudo-align 2, chain DP 1, WFA 1+ a batch
-    assert c["card_wait"] - counts0["card_wait"] == fetches
+    # seed matching 2, pseudo-align 2, chain DP 1, and the WFA 2 (its size
+    # read, then its outputs) a launch, a batch
+    assert c["card_wait"] - counts0["card_wait"] >= 2 * 7
+    # every genome chained and every pair aligned on the card
+    assert t["chain.genomes"] > 0 and t["chain.flagged_genomes"] == 0
+    assert t["wfa.card_pairs"] > 0 and t["wfa.host_pairs"] == 0
 
 
 def test_ranges_on_the_profilers_clock(db, tmp_path):
@@ -183,4 +186,6 @@ def test_debug_prints_spans_and_transport_a_query(db, tmp_path, capsys):
     for key in S.KEYS:
         assert len(lines[key]) == 3, key  # seconds, ms a query, spans
     assert lines["mask"][2] == "4" and float(lines["card_wait"][0]) > 0
-    assert "TOTAL" in lines and "transport (fetches" in err
+    assert float(lines["wfa.card_pairs"][0]) > 0
+    # the recorder is the only account printed
+    assert set(lines) == set(S.KEYS) and "transport" not in err

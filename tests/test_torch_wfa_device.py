@@ -20,12 +20,13 @@ from torch_parity import (
     wfa_tensors,
 )
 from torch_parity import one_intra_op_thread  # noqa: F401  (autouse fixture)
+from torch_parity import rec  # noqa: F401  (fixture)
 
 from lexicmap_tpu.parallel.wfa_device import DeviceWFA as JaxWFA
 from lexicmap_tpu_torch.kernels import wfa as WK
 from lexicmap_tpu_torch.ops.wfa import wfa_align
+from lexicmap_tpu_torch.kernels.runtime import fetch_numpy
 from lexicmap_tpu_torch.parallel import wfa_device as WD
-from lexicmap_tpu_torch.utils import spans as SP
 
 
 @pytest.fixture(scope="module")
@@ -37,18 +38,20 @@ def host_ops(pairs):
     return [wfa_align(q, t).ops for q, t in pairs]
 
 
-def test_device_wfa_equals_host_and_jax(pairs):
+def test_device_wfa_equals_host_and_jax(pairs, rec):
     """CASES of tests/test_wfa_device.py, pure indels, identical pairs, and
     a pair of unrelated sequences that overflows its bucket and is realigned
     by the host."""
     dw = WD.DeviceWFA(device="cpu")
+    launches = WK.wfa_batch.launches
     got = dw.align_batch(pairs)
     want = host_ops(pairs)
     assert got == want
     assert got == JaxWFA().align_batch(pairs)
-    assert dw.stats == {"pairs": len(pairs), "device_pairs": len(pairs) - 1, "host_pairs": 0,
-                        "flagged_pairs": 1}
-    assert dw.launches == 0  # the plain version on the CPU
+    t = rec.totals
+    assert (t["wfa.card_pairs"], t["wfa.host_pairs"], t["wfa.flagged_pairs"]) == (
+        len(pairs) - 1, 1, 1)
+    assert WK.wfa_batch.launches == launches  # the plain version on the CPU
 
 
 def test_identical_sequences():
@@ -57,7 +60,7 @@ def test_identical_sequences():
     assert WD.DeviceWFA(device="cpu").align_batch([(q, q.copy())]) == [[("M", 777)]]
 
 
-def test_mixed_buckets_and_host_pairs():
+def test_mixed_buckets_and_host_pairs(rec):
     """Pairs in three buckets plus pairs with an empty side and one past
     the last bucket (host, without a launch)."""
     rng = np.random.default_rng(3)
@@ -69,7 +72,8 @@ def test_mixed_buckets_and_host_pairs():
     got = dw.align_batch(pairs)
     assert got == host_ops(pairs)
     assert got[:3] == JaxWFA().align_batch(pairs[:3])
-    assert dw.stats == {"pairs": 6, "device_pairs": 3, "host_pairs": 3, "flagged_pairs": 0}
+    t = rec.totals
+    assert (t["wfa.card_pairs"], t["wfa.host_pairs"], t["wfa.flagged_pairs"]) == (3, 3, 0)
 
 
 @pytest.mark.parametrize("S, W", [(1024, 128), (40, 128), (1024, 32)])
@@ -136,8 +140,9 @@ def test_memory_bound_cuts_launches(monkeypatch):
     assert calls == [2, 2, 1]
 
 
-def test_threads_share_one_aligner():
-    """align_batch from several threads at once: every result is the
+def test_threads_share_one_aligner(rec):
+    """align_batch from several threads at once, each thread's counters to
+    one recorder (as the phase-5 pool's threads do): every result is the
     host's and the counters add up."""
     import sys
 
@@ -148,6 +153,7 @@ def test_threads_share_one_aligner():
     got = [None] * len(batches)
 
     def run(i):
+        rec.bind_thread()
         got[i] = dw.align_batch(batches[i])
 
     old = sys.getswitchinterval()
@@ -162,7 +168,8 @@ def test_threads_share_one_aligner():
     finally:
         sys.setswitchinterval(old)
     assert got == want
-    assert dw.stats["pairs"] == dw.stats["device_pairs"] == 18
+    assert rec.totals["wfa.card_pairs"] == 18 and rec.counts["wfa.card_pairs"] == 6
+    assert rec.totals["wfa.host_pairs"] == 0
 
 
 def test_span_replay_equals_plain_counts(pairs):
@@ -208,51 +215,45 @@ def test_wfa_edges_plain_equals_host(case):
         assert got == host_ops(ps), name
 
 
-def test_outputs_fetch_in_one_copy():
+def test_outputs_fetch_in_one_copy(rec):
     """fetch_numpy: views of one buffer (the wrapper's outputs on the card)
-    come back in one copy, counted as one fetch; separate tensors (the
-    plain version's) one by one, also counted once."""
-    from lexicmap_tpu_torch.parallel import fetch_numpy, transport
-
+    come back in one copy, timed as one wait on the card; separate tensors
+    (the plain version's) one by one, also timed as one wait."""
     B, CAP = 3, 5
     out = torch.arange(B * (4 + 5 * CAP), dtype=torch.uint8)
     nops = out[: 4 * B].view(torch.int32)
     cnts = out[4 * B: 4 * B * (1 + CAP)].view(torch.int32).view(B, CAP)
     ops = out[4 * B * (1 + CAP):].view(torch.int8).view(B, CAP)
-    before = dict(transport.get("test fetch", {"fetches": 0, "d2h_bytes": 0}))
     for ts in ((ops, cnts, nops), (ops.clone(), cnts.clone(), nops.clone())):
         got = fetch_numpy("test fetch", *ts)
         assert all(g.dtype == t.numpy().dtype and np.array_equal(g, t.numpy())
                    for g, t in zip(got, ts))
-    acc = transport["test fetch"]
-    assert acc["fetches"] - before["fetches"] == 2
-    assert acc["d2h_bytes"] - before["d2h_bytes"] == 2 * out.numel()
+        assert sum(g.nbytes for g in got) == out.numel()
+        if ts[0].untyped_storage().data_ptr() == out.untyped_storage().data_ptr():
+            assert all(g.base is got[0].base is not None for g in got)  # one host buffer
+    assert rec.counts["card_wait"] == 2
 
 
-def test_device_wfa_one_fetch_per_launch(monkeypatch):
+def test_device_wfa_one_fetch_per_launch(monkeypatch, rec):
     """_align_chunk uploads a launch's words, offsets and lengths in one
-    copy and brings ops, counts and run counts back in one."""
-    from lexicmap_tpu_torch.parallel import transport
-
+    copy and brings ops, counts and run counts back in one: a launch's
+    waits on the card are its size read and that one fetch."""
     rng = np.random.default_rng(5)
     pairs = [mutate_pair(rng, 200, 0.03, 0.01) for _ in range(5)]
     monkeypatch.setattr(WD, "HIST_BYTES", 2 * WK.history_bytes(1, *WD.BUCKETS[0][1:]))
-    before = dict(transport.get("device WFA", {"fetches": 0}))
     assert WD.DeviceWFA(device="cpu").align_batch(pairs) == host_ops(pairs)
-    assert transport["device WFA"]["fetches"] - before["fetches"] == 3  # launches of 2, 2, 1
+    assert rec.counts["card_wait"] == 2 * 3  # launches of 2, 2, 1
 
 
 @pytest.mark.parametrize("sub_rate", [0.005, 0.02, 0.05])
-def test_history_sized_to_what_pairs_write(sub_rate):
+def test_history_sized_to_what_pairs_write(sub_rate, rec):
     """Size, then write: the plain twin's per-pair history cells are the
     cells the forward kernel writes (wfa_span_replay's hist_cells, 3 x
     (cells + 1)), 0 for the flagged pair, over pairs in three buckets; a
     DeviceWFA call tallies under `wfa.hist_bytes` the sum over its launches
     (one a bucket here) of those sizes, each rounded up to ALIGN cells,
-    plus the row tables and final scores, and reads each launch's size
-    back once under its own transport label."""
-    from lexicmap_tpu_torch.parallel import transport
-
+    plus the row tables and final scores, and waits on the card twice a
+    launch: the size read back, then the outputs."""
     pairs = wfa_bucket_mix(sub_rate)
     groups = {}
     for p in pairs:
@@ -273,18 +274,9 @@ def test_history_sized_to_what_pairs_write(sub_rate):
         flagged += int((done < 0).sum())
     assert flagged == 1  # the unrelated pair, sized 0
 
-    old = getattr(SP._bound, "rec", None)
-    rec = SP.SpanRecorder()
-    rec.bind_thread()
-    sizes = dict(transport.get(WK.SIZE_LABEL, {"fetches": 0}))
-    outs = dict(transport.get("device WFA", {"fetches": 0}))
-    try:
-        dw = WD.DeviceWFA(device="cpu")
-        assert dw.align_batch(pairs) == host_ops(pairs)
-    finally:
-        SP._bound.rec = old
+    dw = WD.DeviceWFA(device="cpu")
+    assert dw.align_batch(pairs) == host_ops(pairs)
     assert rec.totals["wfa.hist_bytes"] == want_bytes
     assert rec.counts["wfa.hist_bytes"] == 1
-    assert dw.stats["flagged_pairs"] == 1
-    assert transport[WK.SIZE_LABEL]["fetches"] - sizes["fetches"] == len(groups)
-    assert transport["device WFA"]["fetches"] - outs["fetches"] == len(groups)
+    assert rec.totals["wfa.flagged_pairs"] == 1
+    assert rec.counts["card_wait"] == 2 * len(groups)

@@ -43,12 +43,18 @@ def task_step(workdir, mesh, k, p):
 def task_matcher(workdir, mesh, db, h_shard):
     from lexicmap_tpu_torch.index.search import IndexSearcher, SearchOptions
     from lexicmap_tpu_torch.parallel.sharded import ShardedSeedMatcher
+    from lexicmap_tpu_torch.utils.spans import SpanRecorder
 
     idx = IndexSearcher(db, SearchOptions())
     m = ShardedSeedMatcher(idx, mesh)
     m.H_SHARD = h_shard
     kmers = np.load(os.path.join(workdir, "kmers.npy"))
-    return {"triples": m.match_batch(kmers, idx.opt.min_prefix), "stats": m.stats}
+    rec = SpanRecorder()
+    rec.bind_thread()
+    triples = m.match_batch(kmers, idx.opt.min_prefix)
+    # the matcher's counters, by the names after `match.`
+    stats = {k: rec.totals["match." + k] for k in ("second_passes", "second_pass_queries")}
+    return {"triples": triples, "stats": stats}
 
 
 TASKS = {"step": task_step, "matcher": task_matcher}

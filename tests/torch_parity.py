@@ -30,6 +30,20 @@ def one_intra_op_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def rec():
+    """A fresh span recorder bound to the test's thread (the device stages'
+    counters and card waits go to it), the earlier binding restored
+    afterwards.  Import into a test module to use it."""
+    from lexicmap_tpu_torch.utils import spans
+
+    old = getattr(spans._bound, "rec", None)
+    r = SpanRecorder()
+    r.bind_thread()
+    yield r
+    spans._bound.rec = old
+
+
 def write_genomes(d, n=3, length=50000, seed=13):
     rng = np.random.default_rng(seed)
     files, seqs = [], {}
